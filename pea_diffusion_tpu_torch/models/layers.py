@@ -1,0 +1,315 @@
+"""Shared building blocks of the UNet and VAE (port of
+``pea_diffusion_tpu/models/layers.py``).
+
+Modules carry the diffusers parameter names, so a diffusers state dict loads
+as it is and the JAX package's ``convert_*`` maps the port's state dict to
+its own tree. Feature maps are NCHW inside the blocks; the UNet and VAE take
+and return NHWC at their public methods, as the JAX package does. Norms
+compute in fp32 and return the input's type; matrix products and
+convolutions run in the parameters' type.
+
+Numerics follow diffusers' SD-era blocks as the JAX package does (resnet GN
+eps 1e-5, transformer GN eps 1e-6, GEGLU feed-forward, exact-erf GELU).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import onepass_attention
+from ..ops.attention import dot_product_attention, use_flash, xla_attention_bshd
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       flip_sin_to_cos: bool = True, freq_shift: float = 0.0,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embeddings, diffusers get_timestep_embedding parity."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device)
+    exponent = exponent / (half - freq_shift)
+    emb = timesteps.float()[:, None] * torch.exp(exponent)[None, :]
+    if flip_sin_to_cos:
+        return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
+    return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    """linear_1 -> silu -> linear_2 (diffusers TimestepEmbedding)."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, out_dim)
+        self.linear_2 = nn.Linear(out_dim, out_dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float) -> torch.Tensor:
+    """fp32 GroupNorm over channel-first [N, C, *spatial] input with a
+    per-channel affine, in the input's type.
+
+    Two forms of the same one-pass statistics (E[x^2] - E[x]^2), picked by
+    batch size as the JAX package picks them: batch <= 2 reduces the
+    grouped reshape, batch >= 3 takes per-channel sums and folds the norm
+    into one per-channel affine."""
+    orig_dtype = x.dtype
+    n, c = x.shape[:2]
+    g = num_groups
+    xf = x.float()
+    if n <= 2:
+        xg = xf.reshape(n, g, c // g, -1)
+        mean = xg.mean(dim=(2, 3), keepdim=True)
+        mean2 = (xg * xg).mean(dim=(2, 3), keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+        bshape = (1, c) + (1,) * (x.ndim - 2)
+        y = y * weight.float().reshape(bshape) + bias.float().reshape(bshape)
+        return y.to(orig_dtype)
+    spatial = tuple(range(2, x.ndim))
+    s1 = xf.sum(dim=spatial)           # [N, C]
+    s2 = (xf * xf).sum(dim=spatial)    # [N, C]
+    count = math.prod(x.shape[2:]) * (c // g)
+    mean = s1.reshape(n, g, c // g).sum(-1) / count   # [N, G]
+    var = torch.clamp(s2.reshape(n, g, c // g).sum(-1) / count - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    mean_c = mean.repeat_interleave(c // g, dim=1)    # [N, C]
+    rstd_c = rstd.repeat_interleave(c // g, dim=1)
+    a = rstd_c * weight.float()[None]
+    b = bias.float()[None] - mean_c * a
+    bshape = (n, c) + (1,) * (x.ndim - 2)
+    return (xf * a.reshape(bshape) + b.reshape(bshape)).to(orig_dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm with an optional preceding per-(sample, channel) bias
+    (`extra_bias`, the resnet time embedding) and trailing SiLU."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32,
+                 eps: float = 1e-5, act: str = "none"):
+        super().__init__()
+        self.num_groups, self.eps, self.act = num_groups, eps, act
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x, extra_bias: Optional[torch.Tensor] = None):
+        if extra_bias is not None:
+            x = x + extra_bias[:, :, None, None].to(x.dtype)
+        y = group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
+        if self.act == "silu":
+            y = F.silu(y)
+        return y
+
+
+class ResnetBlock2D(nn.Module):
+    """GN-silu-conv x2 with timestep bias and 1x1 shortcut (diffusers
+    ResnetBlock2D, output_scale_factor=1). `temb_channels=None` (the VAE)
+    has no time projection."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 temb_channels: Optional[int] = None,
+                 norm_num_groups: int = 32, eps: float = 1e-5):
+        super().__init__()
+        self.norm1 = GroupNorm(in_channels, norm_num_groups, eps, act="silu")
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = (None if temb_channels is None
+                              else nn.Linear(temb_channels, out_channels))
+        self.norm2 = GroupNorm(out_channels, norm_num_groups, eps, act="silu")
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (None if in_channels == out_channels
+                              else nn.Conv2d(in_channels, out_channels, 1))
+
+    def forward(self, x, temb: Optional[torch.Tensor] = None):
+        h = self.conv1(self.norm1(x))
+        t = None
+        if temb is not None:
+            t = self.time_emb_proj(F.silu(temb))
+        h = self.conv2(self.norm2(h, extra_bias=t))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Downsample2D(nn.Module):
+    """3x3 stride-2 conv with symmetric padding 1 (the JAX package's form)."""
+
+    def __init__(self, channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, out_channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    """Nearest x2 then a 3x3 conv."""
+
+    def __init__(self, channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, out_channels, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+def attention_route(sq: int, skv: int, heads: int, head_dim: int,
+                    backend: str, device_type: str) -> str:
+    """Which attention a MultiHeadAttention call takes, the dispatch of the
+    JAX package's layers.py:272-298 with "on a TPU" read as "on a CUDA
+    tensor": "onepass" (B1) where the one-pass gate holds, else "flash" (B3)
+    for long queries, else "plain"."""
+    if use_flash(sq, backend, device_type):
+        if onepass_attention.supports(sq, skv, heads, head_dim):
+            return "onepass"
+        return "flash"
+    return "plain"
+
+
+class MultiHeadAttention(nn.Module):
+    """to_q/k/v (bias-free in the UNet, biased in the VAE) and a biased
+    to_out, over the attention dispatch (diffusers Attention names)."""
+
+    def __init__(self, query_dim: int, num_heads: int, head_dim: int,
+                 context_dim: Optional[int] = None, qkv_bias: bool = False,
+                 backend: str = "auto"):
+        super().__init__()
+        inner = num_heads * head_dim
+        context_dim = query_dim if context_dim is None else context_dim
+        self.num_heads, self.head_dim, self.backend = num_heads, head_dim, backend
+        self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
+        self.to_k = nn.Linear(context_dim, inner, bias=qkv_bias)
+        self.to_v = nn.Linear(context_dim, inner, bias=qkv_bias)
+        self.to_out = nn.ModuleList([nn.Linear(inner, inner)])
+
+    def forward(self, x, context: Optional[torch.Tensor] = None):
+        context = x if context is None else context
+        q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+        b, sq, inner = q.shape
+        skv = k.shape[1]
+        h, d = self.num_heads, self.head_dim
+        scale = 1.0 / math.sqrt(d)
+        route = attention_route(sq, skv, h, d, self.backend, q.device.type)
+        if route == "onepass":
+            out = onepass_attention.onepass_forward(q, k, v, h, d, scale)
+        elif route == "flash":
+            def split(t, s):  # head-major layout for the flash kernel
+                return t.reshape(b, s, h, d).transpose(1, 2).reshape(b * h, s, d)
+
+            out = dot_product_attention(split(q, sq), split(k, skv),
+                                        split(v, skv), scale=scale,
+                                        backend=self.backend)
+            out = out.reshape(b, h, sq, d).transpose(1, 2).reshape(b, sq, inner)
+        else:
+            out = xla_attention_bshd(q.reshape(b, sq, h, d),
+                                     k.reshape(b, skv, h, d),
+                                     v.reshape(b, skv, h, d),
+                                     scale).reshape(b, sq, inner)
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    """One fused [dim -> 2*inner] projection chunked into [h | gate]."""
+
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, 2 * inner)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward (diffusers names ff.net.0.proj / ff.net.2)."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(),
+                                  nn.Linear(inner, dim)])
+
+    def forward(self, x):
+        for layer in self.net:
+            x = layer(x)
+        return x
+
+
+class LayerNormFP32(nn.Module):
+    """LayerNorm with fp32 one-pass statistics, output in the input's type."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        dt = x.dtype
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        mean2 = (x * x).mean(-1, keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        x = (x - mean) * torch.rsqrt(var + self.eps) * self.weight.float() + self.bias.float()
+        return x.to(dt)
+
+
+class BasicTransformerBlock(nn.Module):
+    """LN -> self-attn, LN -> cross-attn, LN -> GEGLU-FF, pre-norm residuals."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int,
+                 context_dim: int, backend: str = "auto"):
+        super().__init__()
+        self.norm1 = LayerNormFP32(dim)
+        self.attn1 = MultiHeadAttention(dim, num_heads, head_dim, backend=backend)
+        self.norm2 = LayerNormFP32(dim)
+        self.attn2 = MultiHeadAttention(dim, num_heads, head_dim, context_dim,
+                                        backend=backend)
+        self.norm3 = LayerNormFP32(dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context):
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+def _project(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A Transformer2D in/out projection over [B, HW, C] tokens: a Linear, or
+    a 1x1 conv (its weight [C, C, 1, 1] applied as a Linear)."""
+    if isinstance(layer, nn.Conv2d):
+        return F.linear(x, layer.weight.flatten(1), layer.bias)
+    return layer(x)
+
+
+class Transformer2D(nn.Module):
+    """GN -> proj_in -> N transformer blocks over HW tokens -> proj_out + res."""
+
+    def __init__(self, channels: int, num_heads: int, head_dim: int,
+                 depth: int, context_dim: int, norm_num_groups: int = 32,
+                 use_linear_projection: bool = False, backend: str = "auto"):
+        super().__init__()
+        self.norm = GroupNorm(channels, norm_num_groups, 1e-6)
+        proj = (lambda: nn.Linear(channels, channels)) if use_linear_projection \
+            else (lambda: nn.Conv2d(channels, channels, 1))
+        self.proj_in = proj()
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(channels, num_heads, head_dim, context_dim,
+                                  backend)
+            for _ in range(depth)])
+        self.proj_out = proj()
+
+    def forward(self, x, context):
+        b, c, h, w = x.shape
+        residual = x
+        x = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        x = _project(self.proj_in, x)
+        for block in self.transformer_blocks:
+            x = block(x, context)
+        x = _project(self.proj_out, x)
+        return x.reshape(b, h, w, c).permute(0, 3, 1, 2) + residual
