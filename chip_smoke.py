@@ -7,34 +7,53 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from pea_diffusion_tpu_torch/csrc with nvcc
-   (sm_90a), one source into one library;
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (bf16 inputs; the plain version in fp32 from the same bf16
-   inputs; max |kernel - plain| below 8e-3 of max |plain|, twice the most
-   that rounding the output to bf16 can move it), with CUDA-event times of
-   the kernel, the plain version and F.scaled_dot_product_attention (a
-   yardstick only: the port never calls it), each launch after an L2
-   flush, beside the least time the card needs for the same bytes and
-   operations;
+   (sm_90a), one nvcc per source, all at once, linked into one library;
+3. each kernel against its plain PyTorch version on the card, at the two
+   paths' shapes (bf16 inputs; the plain version in fp32 from the same bf16
+   inputs). Forward (B1, B3): max |kernel - plain| below 8e-3 of max
+   |plain|, twice the most that rounding the output to bf16 can move it.
+   Backward (B4: dK, dV; B5: dQ): below 2e-2 of max |plain| per gradient
+   (P and dS are rounded to bf16 before their products). CUDA-event times
+   of the kernel, the plain version and a PyTorch yardstick (the port never
+   calls it: F.scaled_dot_product_attention for the forward, the backward
+   of one such call for B4 + B5 together), each launch after an L2 flush,
+   beside the least time the card needs for the same bytes and operations;
 4. references: the tiny fp32 stack on the card against the same weights
    on the CPU (the path the CPU tests hold against the JAX package), and
-   the full-width UNet's attention modules at the main path's shapes
-   through the kernels against plain attention;
-5. the main path: the full-width SDXL PEA stack (Chinese-CLIP
+   the full-width UNet's attention modules at the serving shapes through
+   the kernels against plain attention, outputs and input gradients;
+5. the serving path: the full-width SDXL PEA stack (Chinese-CLIP
    RoBERTa-large, the sdxl_chinese_clip adapter, the SDXL UNet and VAE in
-   bf16, random weights from a seed) through
-   StableDiffusionXLPEAPipeline, with the launch counts set to 0: two
-   requests of batch 1 at 1024x1024, DDIM 4 steps, CFG 7.5; every
-   attention kernel must have launched 70 x 4 x 2 = 560 times and the
-   images must be finite [1, 1024, 1024, 3] in [0, 1];
-6. where a request's time goes: CUDA-event times of its stages and a
-   torch.profiler trace of one request (device busy time, top kernels; the
-   full table is written to build/chip_smoke_profile.txt).
+   bf16, random weights from a seed) through StableDiffusionXLPEAPipeline,
+   with the launch counts set to 0: two requests of batch 1 at 1024x1024,
+   DDIM 4 steps, CFG 7.5; each kernel must have launched as often as the
+   attention dispatch of the UNet's modules says (70 B1 and 70 B3 per UNet
+   forward at 1024²), and the images must be finite [1, 1024, 1024, 3] in
+   [0, 1]; then the stage times and a torch.profiler trace of one request
+   (the table goes to build/chip_smoke_profile.txt);
+6. the training path: the full-width KD stack (the serving stack with an
+   fp32 adapter and VAE, plus the CLIP ViT-L and bigG teachers) from
+   cli/train.py's build_demo_full: first one KD step's adapter gradient at
+   batch 1, 512², through the kernels against plain attention (identical
+   draws, relative L2 error below 5e-2); then KDTrainer.fit for 3 steps at
+   micro-batch 10, 640², with the launch counts set to 0: finite losses, an
+   adapter that moved, every frozen tensor bit-identical (checksums), and
+   the launches the dispatch gives (per step: B3 with lse twice per student
+   kernel call, forward and recompute; B4 and B5 once each; B1 and B3
+   without lse once per teacher call); step time, samples/s, peak memory and
+   a torch.profiler trace of one step (table in
+   build/chip_smoke_train_profile.txt).
 
 The last lines are the card, a {"kernels": [...]} line and
-{"ok": true, "device": {...}}. TF32 is off for matmuls and convolutions.
+{"ok": true, "device": {...}}. Each row of the kernels line is one kernel at
+one shape; its launches on a path are those of the path's attention calls
+at that shape (the dispatch's calls times PER_CALL), and the rows of a
+kernel must add up to the launches its wrapper counted on the path; check
+rows (long sequence, ragged, D=128) that no path runs show 0. TF32 is off
+for matmuls and convolutions.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,10 +62,14 @@ from pathlib import Path
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (SXM data sheet)
 H100_BYTES_PER_S = 3.35e12  # HBM3 (SXM data sheet)
 KERNEL_RTOL = 8e-3          # max|out - ref| / max|ref|: 2x bf16's 2^-8 rounding
+BWD_RTOL = 2e-2             # the same per gradient: P and dS rounded to bf16 too
 MODULE_RTOL = 2e-2          # the same, through the bf16 projections around it
+KD_GRAD_RTOL = 5e-2         # adapter gradient, kernels vs plain attention (rel. L2)
 TINY_ATOL = 1e-3            # fp32 tiny stack, card vs CPU (TF32 off)
 STEPS, REQUESTS, SIZE, GUIDANCE = 4, 2, 1024, 7.5
-ATTN_PER_UNET = 70          # SDXL transformer blocks: 10 at S=4096, 60 at S=1024
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SIZE = 3, 10, 640
+TEXT_TOKENS = 52
+SRC = "pea_diffusion_tpu_torch/csrc/"
 
 
 def log(msg):
@@ -87,34 +110,71 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_phases(torch, F):
+KERNELS = {
+    "B1": dict(name="B1 onepass_attention", route="cuda", source=SRC + "attention_fwd.cu",
+               replaces="pea_diffusion_tpu/ops/onepass_attention.py:50"),
+    "B3": dict(name="B3 flash_attention", route="cuda", source=SRC + "attention_fwd.cu",
+               replaces="pea_diffusion_tpu/ops/flash_attention.py:31"),
+    "B4": dict(name="B4 flash_backward_dkdv", route="cuda", source=SRC + "attention_bwd.cu",
+               replaces="pea_diffusion_tpu/ops/flash_attention.py:156"),
+    "B5": dict(name="B5 flash_backward_dq", route="cuda", source=SRC + "attention_bwd.cu",
+               replaces="pea_diffusion_tpu/ops/flash_attention.py:203"),
+}
+
+
+# Kernel launches per attention call of each route (models.layers.
+# attention_route), on each path. Serving runs the UNet without gradients.
+# A training step runs the teacher UNet without gradients (B1; B3 without
+# lse) and the student UNet through the autograd Functions under full remat:
+# each call's forward twice (B3 with lse: forward and recompute) and its
+# backward once (B4, B5).
+PER_CALL = {
+    "serving": {"B1": {"onepass": 1}, "B3": {"flash": 1}},
+    "training": {"B1": {"onepass": 1}, "B3": {"onepass": 2, "flash": 3},
+                 "B3 with lse": {"onepass": 2, "flash": 2},
+                 "B4": {"onepass": 1, "flash": 1}, "B5": {"onepass": 1, "flash": 1}},
+}
+COUNTERS = ("B1", "B3", "B3 with lse", "B4", "B5")
+
+
+def _check(name, what, outs, refs, rtol):
+    """Max abs error and max relative error over the outputs; raises if
+    any output's error over its max |plain| reaches `rtol`."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for out, ref in zip(outs, refs):
+        err, rel = errors(out, ref)
+        if not rel < rtol:
+            raise AssertionError(f"{name} {what}: max abs error {err}, {rel} of "
+                                 f"max |plain| >= {rtol}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+    return worst_abs, worst_rel
+
+
+def forward_cases(torch, F, randn, flush):
     from pea_diffusion_tpu_torch.ops import flash_attention, onepass_attention
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
-
-    b1 = dict(name="B1 onepass_attention", route="cuda",
-              source="pea_diffusion_tpu_torch/csrc/attention_fwd.cu",
-              replaces="pea_diffusion_tpu/ops/onepass_attention.py:50")
-    b3 = dict(name="B3 flash_attention", route="cuda",
-              source="pea_diffusion_tpu_torch/csrc/attention_fwd.cu",
-              replaces="pea_diffusion_tpu/ops/flash_attention.py:31")
-    cases = [  # (kernel, batch, sq, skv, heads, head_dim, launches per UNet forward, what)
-        (b1, 2, 4096, 4096, 10, 64, 10, "main path: self-attention, level 1"),
-        (b1, 2, 1024, 1024, 20, 64, 60, "main path: self-attention, level 2"),
-        (b1, 2, 1024, 1000, 10, 64, 0, "masked ragged KV"),
-        (b1, 2, 1024, 1024, 10, 128, 0, "head_dim 128"),
-        (b3, 20, 4096, 52, 1, 64, 10, "main path: cross-attention, level 1"),
-        (b3, 40, 1024, 52, 1, 64, 60, "main path: cross-attention, level 2"),
+    cases = [  # (kernel, batch, sq, skv, heads, head_dim, {path: (route, sq, skv)}, what)
+        ("B1", 2, 4096, 4096, 10, 64, {"serving": ("onepass", 4096, 4096)},
+         "serving: self-attention, level 1"),
+        ("B1", 2, 1024, 1024, 20, 64, {"serving": ("onepass", 1024, 1024)},
+         "serving: self-attention, level 2"),
+        ("B1", 10, 1600, 1600, 10, 64, {"training": ("onepass", 1600, 1600)},
+         "training teacher: self-attention, level 1"),
+        ("B1", 2, 1024, 1000, 10, 64, {}, "masked ragged KV"),
+        ("B1", 2, 1024, 1024, 10, 128, {}, "head_dim 128"),
+        ("B3", 20, 4096, 52, 1, 64, {"serving": ("flash", 4096, 52)},
+         "serving: cross-attention, level 1"),
+        ("B3", 40, 1024, 52, 1, 64, {"serving": ("flash", 1024, 52)},
+         "serving: cross-attention, level 2"),
+        ("B3", 20, 1600, 52, 1, 64, {"training": ("flash", 1600, 52)},
+         "training: cross-attention, level 1, batch 2 (launched with lse by the student)"),
+        ("B3", 20, 1600, 1600, 1, 64, {"training": ("onepass", 1600, 1600)},
+         "training: self-attention (head-major, lse), batch 2"),
     ]
     entries = []
-    for kern, b, sq, skv, h, d, per_forward, what in cases:
+    for kern, b, sq, skv, h, d, stands_for, what in cases:
         feat = h * d
-        if kern is b1:
+        if kern == "B1":
             q, k, v = randn(b, sq, feat), randn(b, skv, feat), randn(b, skv, feat)
             run = lambda: onepass_attention.onepass_forward(q, k, v, h, d)  # noqa: E731
             plain = lambda: onepass_attention.onepass_forward_ref(  # noqa: E731
@@ -129,11 +189,8 @@ def kernel_phases(torch, F):
         out = run()
         ref = plain()
         torch.cuda.synchronize()
-        err, rel = errors(out, ref)
-        if not rel < KERNEL_RTOL:
-            raise AssertionError(f"{kern['name']} {what}: max abs error {err}, "
-                                 f"{rel} of max |plain| >= {KERNEL_RTOL}")
-        if kern is b3:
+        err, rel = _check(KERNELS[kern]["name"], what, [out], [ref], KERNEL_RTOL)
+        if kern == "B3":
             out_l, lse = flash_attention.flash_forward(q, k, v, with_lse=True)
             _, ref_lse = flash_attention.flash_forward_ref(
                 q.float(), k.float(), v.float(), with_lse=True)
@@ -147,19 +204,168 @@ def kernel_phases(torch, F):
             torch, lambda: F.scaled_dot_product_attention(*views), 20, flush)
         flops = 4 * b * h * sq * skv * d
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        bound_ms, bound_by = bound(flops, nbytes)
-        entries.append(dict(kern, shape=f"batch={b} sq={sq} skv={skv} heads={h} "
-                            f"head_dim={d} bf16", what=what,
-                            per_unet_forward=per_forward,
-                            max_abs_err=err, max_rel_err=rel,
-                            rel_tolerance=KERNEL_RTOL, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms))
-        log(f"[kernel] {kern['name']} {what} ({entries[-1]['shape']}): "
-            f"err {err:.3g} (rel {rel:.3g}) ms {ms:.4f} plain {plain_ms:.4f} "
-            f"sdpa {library_ms:.4f} bound {bound_ms:.4f} ({bound_by})")
+        entries.append(_entry(kern, b, sq, skv, h, d, what, err, rel, KERNEL_RTOL, ms,
+                              plain_ms, flops, nbytes, library_ms, stands_for))
+    return entries
+
+
+def backward_cases(torch, F, randn, flush):
+    """B4 and B5 against flash_backward_ref, head-major [BH, S, D] bf16."""
+    from pea_diffusion_tpu_torch.ops import flash_attention as fa
+
+    cases = [  # (bh, sq, skv, head_dim, {path: (route, sq, skv)}, what)
+        (20, 1600, 1600, 64, {"training": ("onepass", 1600, 1600)},
+         "training: self-attention, level 1, batch 2"),
+        (20, 1600, 52, 64, {"training": ("flash", 1600, 52)},
+         "training: cross-attention, level 1, batch 2"),
+        (20, 6400, 6400, 64, {}, "long sequence: S=6400 (1280² level 1)"),
+        (20, 6400, 52, 64, {}, "long sequence: cross-attention, Sq=6400"),
+        (20, 1000, 1000, 64, {}, "ragged Sq and Skv"),
+        (20, 1024, 1024, 128, {}, "head_dim 128"),
+    ]
+    entries = []
+    for bh, sq, skv, d, stands_for, what in cases:
+        q, k, v, do = randn(bh, sq, d), randn(bh, skv, d), randn(bh, skv, d), randn(bh, sq, d)
+        scale = d ** -0.5
+        with torch.no_grad():
+            out, lse = fa.flash_forward(q, k, v, scale, with_lse=True)
+        delta = (do.float() * out.float()).sum(-1)
+        run4 = lambda: fa.flash_backward_dkdv(q, k, v, do, lse, delta, scale)  # noqa: E731
+        run5 = lambda: fa.flash_backward_dq(q, k, v, do, lse, delta, scale)  # noqa: E731
+        plain = lambda: fa.flash_backward_ref(  # noqa: E731
+            q.float(), k.float(), v.float(), out.float(), lse, do.float(), scale)
+        dk, dv = run4()
+        dq = run5()
+        ref_dq, ref_dk, ref_dv = plain()
+        torch.cuda.synchronize()
+        err4, rel4 = _check("B4", what, [dk, dv], [ref_dk, ref_dv], BWD_RTOL)
+        err5, rel5 = _check("B5", what, [dq], [ref_dq], BWD_RTOL)
+        del ref_dq, ref_dk, ref_dv
+        ms4, ms5 = time_ms(torch, run4, 10, flush), time_ms(torch, run5, 10, flush)
+        plain_ms = time_ms(torch, plain, 2, flush)
+        qs, ks, vs = (t.unsqueeze(0).detach().requires_grad_(True) for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs)
+        g = do.unsqueeze(0)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa, (qs, ks, vs), g, retain_graph=True), 10, flush)
+        del sdpa
+        rows = 2 * bh * sq * 4  # lse and delta, fp32
+        ops = bh * sq * skv * d
+        entries.append(_entry("B4", bh, sq, skv, 1, d, what, err4, rel4, BWD_RTOL, ms4,
+                              plain_ms, 8 * ops, 2 * bh * (2 * sq + 4 * skv) * d + rows,
+                              library_ms, stands_for))
+        entries.append(_entry("B5", bh, sq, skv, 1, d, what, err5, rel5, BWD_RTOL, ms5,
+                              plain_ms, 6 * ops, 2 * bh * (3 * sq + 2 * skv) * d + rows,
+                              library_ms, stands_for))
+    return entries
+
+
+def _entry(kern, b, sq, skv, h, d, what, err, rel, rtol, ms, plain_ms, flops, nbytes,
+           library_ms, stands_for):
+    """One row of the kernels line. `stands_for` maps each path that runs
+    this shape to its attention call key (route, sq, skv); the row's launches
+    on a path are the launches of that path's calls at the key."""
+    bound_ms, bound_by = bound(flops, nbytes)
+    e = dict(KERNELS[kern], shape=f"batch={b} sq={sq} skv={skv} heads={h} head_dim={d} bf16",
+             what=what, max_abs_err=err, max_rel_err=rel, rel_tolerance=rtol, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+             kernel=kern, stands_for=stands_for, launches_by_path={})
+    log(f"[kernel] {e['name']} {what} ({e['shape']}): err {err:.3g} (rel {rel:.3g}) "
+        f"ms {ms:.4f} plain {plain_ms:.4f} library {library_ms:.4f} "
+        f"bound {bound_ms:.4f} ({bound_by})")
+    return e
+
+
+def kernel_phases(torch, F):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    entries = forward_cases(torch, F, randn, flush) + backward_cases(torch, F, randn, flush)
     del flush
     return entries
+
+
+def attention_routes(unet, latent: int, skv: int, device_type="cuda"):
+    """{(route, sq, skv): calls} of one UNet forward at a latent side
+    `latent`, from the dispatch each attention module takes at its level's
+    sequence length."""
+    from collections import Counter
+
+    from pea_diffusion_tpu_torch.models.layers import attention_route
+
+    n = len(unet.down_blocks)
+    levels = ([(blk, i) for i, blk in enumerate(unet.down_blocks)] + [(unet.mid_block, n - 1)]
+              + [(blk, n - 1 - i) for i, blk in enumerate(unet.up_blocks)])
+    counts = Counter()
+    for block, level in levels:
+        sq = (latent >> level) ** 2
+        for tr in getattr(block, "attentions", []):
+            for tb in tr.transformer_blocks:
+                for attn, kv in ((tb.attn1, sq), (tb.attn2, skv)):
+                    route = attention_route(sq, kv, attn.num_heads, attn.head_dim,
+                                            attn.backend, device_type)
+                    counts[route, sq, kv] += 1
+    return counts
+
+
+def path_launches(path, routes, forwards):
+    """{counter: launches} that `forwards` UNet forwards of `path` make with
+    the attention calls `routes` ({(route, sq, skv): calls per forward})."""
+    return {name: forwards * sum(n * PER_CALL[path].get(name, {}).get(key[0], 0)
+                                 for key, n in routes.items())
+            for name in COUNTERS}
+
+
+def stamp_launches(kernels, path, routes, forwards, measured):
+    """Gives each kernel row the launches that `path` made at the shape the
+    row stands for, and checks that the rows account for every launch the
+    wrappers counted on the path."""
+    for e in kernels:
+        key = e["stands_for"].get(path)
+        e["launches_by_path"][path] = 0 if key is None else path_launches(
+            path, {key: routes.get(key, 0)}, forwards)[e["kernel"]]
+    for kern in ("B1", "B3", "B4", "B5"):
+        rows = sum(e["launches_by_path"][path] for e in kernels if e["kernel"] == kern)
+        if rows != measured[kern]:
+            raise AssertionError(f"{path}: the {kern} rows account for {rows} launches, "
+                                 f"the wrapper counted {measured[kern]}")
+
+
+def route_totals(routes):
+    """{route: calls} of `routes`, for the log."""
+    totals = {}
+    for (route, _, _), n in routes.items():
+        totals[route] = totals.get(route, 0) + n
+    return totals
+
+
+def launch_counts():
+    from pea_diffusion_tpu_torch.ops import flash_attention as fa
+    from pea_diffusion_tpu_torch.ops import onepass_attention as op
+
+    return {"B1": op.onepass_forward.launches, "B3": fa.flash_forward.launches,
+            "B3 with lse": fa.flash_forward.lse_launches,
+            "B4": fa.flash_backward_dkdv.launches, "B5": fa.flash_backward_dq.launches}
+
+
+def reset_launch_counts():
+    from pea_diffusion_tpu_torch.ops import flash_attention as fa
+    from pea_diffusion_tpu_torch.ops import onepass_attention as op
+
+    for fn in (op.onepass_forward, fa.flash_forward, fa.flash_backward_dkdv,
+               fa.flash_backward_dq):
+        fn.launches = 0
+    fa.flash_forward.lse_launches = 0
+
+
+def check_launches(path, got, want):
+    log(f"[{path}] launches {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, want {want}")
 
 
 def reference_tiny_stack(torch, build_demo):
@@ -185,19 +391,22 @@ def reference_tiny_stack(torch, build_demo):
 
 
 def reference_attention_modules(torch, models):
-    """The full-width UNet's attention modules at the main path's shapes,
-    through the kernels and through plain attention (relative max error)."""
+    """The full-width UNet's attention modules at the serving shapes, through
+    the kernels and through plain attention: outputs (relative max error),
+    and the input gradients dx and dcontext through the differentiable
+    routes (B3 with lse, B4, B5) against plain attention's autograd."""
     from pea_diffusion_tpu_torch.models.layers import attention_route
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    ctx = torch.randn(2, 52, 2048, generator=gen, device="cuda").bfloat16()
+    ctx = torch.randn(2, TEXT_TOKENS, 2048, generator=gen, device="cuda").bfloat16()
     for level, block in ((1, models.unet.down_blocks[1]), (2, models.unet.down_blocks[2])):
         blk = block.attentions[0].transformer_blocks[0]
         dim = blk.attn1.to_q.in_features
         s = (64 // level) ** 2
         x = torch.randn(2, s, dim, generator=gen, device="cuda").bfloat16()
+        gout = torch.randn(2, s, dim, generator=gen, device="cuda").bfloat16()
         for attn, c in ((blk.attn1, None), (blk.attn2, ctx)):
-            route = attention_route(s, s if c is None else 52, attn.num_heads,
+            route = attention_route(s, s if c is None else TEXT_TOKENS, attn.num_heads,
                                     attn.head_dim, "auto", "cuda")
             with torch.inference_mode():
                 got = attn(x, c).float()
@@ -205,10 +414,23 @@ def reference_attention_modules(torch, models):
                 want = attn(x, c).float()
                 attn.backend = "auto"
             _, rel = errors(got, want)
-            log(f"[reference] level {level} {route} attention module: "
-                f"relative max error {rel:.3g}")
-            if not rel < MODULE_RTOL:
-                raise AssertionError(f"attention module, level {level} {route}: {rel}")
+            grads = {}
+            for backend in ("auto", "xla"):
+                attn.backend = backend
+                xs = x.clone().requires_grad_(True)
+                cs = None if c is None else c.clone().requires_grad_(True)
+                attn(xs, cs).backward(gout)
+                grads[backend] = [t.grad.float() for t in (xs, cs) if t is not None]
+            attn.backend = "auto"
+            rels = [errors(g, w)[1] for g, w in zip(grads["auto"], grads["xla"])]
+            log(f"[reference] level {level} {route} attention module: relative max "
+                f"error {rel:.3g}; input gradients (dx, dcontext) {rels}")
+            if not rel < MODULE_RTOL or not all(r < MODULE_RTOL for r in rels):
+                raise AssertionError(f"attention module, level {level} {route}: "
+                                     f"{rel} {rels}")
+            if not all(g.abs().max().item() > 0 for g in grads["auto"]):
+                raise AssertionError(f"attention module, level {level} {route}: "
+                                     "zero input gradient through the kernels")
 
 
 def main_path(torch, pipe, tokenize, prompts):
@@ -231,7 +453,7 @@ def main_path(torch, pipe, tokenize, prompts):
     return req_s
 
 
-def stage_times(torch, models, tokenize, prompt, kernels):
+def stage_times(torch, models, tokenize, prompt, kernels, forwards):
     """CUDA-event times of one request's stages, each the mean of 3 warm runs."""
     from pea_diffusion_tpu_torch.pipelines.text2image import (
         decode_latents, encode_prompt_sdxl, make_add_time_ids)
@@ -259,23 +481,23 @@ def stage_times(torch, models, tokenize, prompt, kernels):
         enc = timed(lambda: encode_prompt_sdxl(models, ids, uncond))
         unet = timed(lambda: models.unet(x, t, context, added))
         dec = timed(lambda: decode_latents(models, x[:1]))
-    attn_ms = sum(e["ms"] * e["per_unet_forward"] for e in kernels)
+    attn_ms = sum(e["ms"] * e["launches_by_path"]["serving"] for e in kernels) / forwards
     log(f"[stages] prompt encoding {enc:.3f} ms; UNet forward of the CFG pair "
         f"{unet:.3f} ms, of which attention kernels ~{attn_ms:.3f} ms (kernel "
         f"ms x launches per forward); VAE decode {dec:.3f} ms")
 
 
-def profile_request(torch, pipe, tokenize, prompt, repo, request_s):
-    """torch.profiler over one request: device busy time against wall time,
-    and the kernels that take the most device time. The full table goes to
-    build/chip_smoke_profile.txt."""
+def profile_run(torch, fn, unprofiled_s, table_path, tag):
+    """torch.profiler over one call of `fn`: device busy time against wall
+    time and against the unprofiled call (`unprofiled_s`), and the kernels
+    that take the most device time. The full table goes to `table_path`.
+    Returns the idle share of the unprofiled call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t = time.time()
-        pipe(tokenize([prompt]), tokenize([""]), height=SIZE, width=SIZE,
-             num_steps=STEPS, guidance_scale=GUIDANCE, seed=7)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t) * 1e3
     per_kernel = {}
@@ -284,19 +506,115 @@ def profile_request(torch, pipe, tokenize, prompt, repo, request_s):
             per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(per_kernel.values())
     if busy == 0:
-        log("[profile] the profiler saw no device time")
-        return
-    attn = sum(v for k, v in per_kernel.items() if "attention_fwd_kernel" in k)
-    log(f"[profile] one request: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
-        f"wall under the profiler; of the unprofiled request ({request_s * 1e3:.1f} ms) "
-        f"the device is idle {max(0.0, 1 - busy / (request_s * 1e3)):.3f}; "
-        f"B1+B3 kernels {attn:.1f} ms")
+        raise AssertionError(f"[{tag}] the profiler saw no device time")
+    idle = max(0.0, 1 - busy / (unprofiled_s * 1e3))
+    fwd = sum(v for k, v in per_kernel.items() if "attention_fwd_kernel" in k)
+    bwd = sum(v for k, v in per_kernel.items() if "attention_bwd_" in k)
+    log(f"[{tag}] device busy {busy:.1f} ms of {wall_ms:.1f} ms wall under the "
+        f"profiler; of the unprofiled run ({unprofiled_s * 1e3:.1f} ms) the device "
+        f"is idle {idle:.3f}; B1+B3 kernels {fwd:.1f} ms, B4+B5 kernels {bwd:.1f} ms")
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"[profile]   {ms:9.2f} ms  {name[:110]}")
-    out = repo / "build"
-    out.mkdir(exist_ok=True)
-    (out / "chip_smoke_profile.txt").write_text(prof.key_averages().table(
+        log(f"[{tag}]   {ms:9.2f} ms  {name[:110]}")
+    table_path.parent.mkdir(exist_ok=True)
+    table_path.write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=80))
+    return idle
+
+
+def checksums(torch, modules):
+    """{tensor: int64 sum of its raw bits} over every tensor of `modules`."""
+    names, sums = [], []
+    for mname, m in modules.items():
+        for k, t in m.state_dict().items():
+            bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+            names.append(f"{mname}.{k}")
+            sums.append(bits.sum(dtype=torch.int64))
+    return dict(zip(names, torch.stack(sums).tolist()))
+
+
+def reference_kd_step(torch, models):
+    """One KD step's adapter gradient at batch 1, 512², through the kernels
+    and through plain attention, with the same draws (relative L2 error)."""
+    from pea_diffusion_tpu_torch.cli.train import demo_full_batches
+    from pea_diffusion_tpu_torch.configs import TrainConfig
+    from pea_diffusion_tpu_torch.models.layers import MultiHeadAttention
+    from pea_diffusion_tpu_torch.train.kd import kd_loss
+
+    batch = next(demo_full_batches("cuda", 1, 512, seed=5))
+    batch["zh_or_not"] = torch.full((1,), 0.5, device="cuda")  # both loss routes
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    draws, grads, losses = {}, {}, {}
+    attns = [m for m in models.unet.modules() if isinstance(m, MultiHeadAttention)]
+    for backend in ("auto", "xla"):
+        for m in attns:
+            m.backend = backend
+        models.adapter.zero_grad()
+        loss, _ = kd_loss(models, TrainConfig(), batch, gen, draws)
+        loss.backward()
+        losses[backend] = loss.item()
+        grads[backend] = torch.cat([p.grad.flatten() for p in models.adapter.parameters()])
+    for m in attns:
+        m.backend = "auto"
+    models.adapter.zero_grad()
+    rel = ((grads["auto"] - grads["xla"]).norm() / grads["xla"].norm()).item()
+    log(f"[reference] KD step, batch 1, 512²: loss {losses['auto']:.6g} (kernels) vs "
+        f"{losses['xla']:.6g} (plain); adapter gradient relative L2 error {rel:.3g}")
+    if not (rel < KD_GRAD_RTOL and grads["auto"].norm().item() > 0):
+        raise AssertionError(f"KD adapter gradient, kernels vs plain attention: {rel}")
+
+
+def training_path(torch, models, make_batches, repo, kernels):
+    """KDTrainer.fit for TRAIN_STEPS steps at micro-batch TRAIN_BATCH,
+    TRAIN_SIZE², from launch counts of 0; stamps the launches on the kernel
+    rows."""
+    import shutil
+
+    from pea_diffusion_tpu_torch.configs import TrainConfig
+    from pea_diffusion_tpu_torch.train.trainer import KDTrainer
+
+    out = repo / "build" / "chip_smoke_train"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = TrainConfig(warmup_steps=0, warmup_ratio=0.0, output_dir=str(out),
+                      every_n_steps=TRAIN_STEPS, log_every_n_steps=1,
+                      batch_size_per_device=TRAIN_BATCH)
+    trainer = KDTrainer(models, cfg)
+    frozen = checksums(torch, models.frozen_modules())
+    adapter = {k: v.clone() for k, v in models.adapter.state_dict().items()}
+    routes = attention_routes(models.unet, TRAIN_SIZE // 8, TEXT_TOKENS)
+    want = path_launches("training", routes, TRAIN_STEPS)
+    log(f"[train] attention calls per UNet forward at {TRAIN_SIZE}²: {route_totals(routes)}; "
+        f"by (route, sq, skv): {dict(routes)}")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    trainer.fit(make_batches(), max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check_launches("train", launches, want)
+    stamp_launches(kernels, "training", routes, TRAIN_STEPS, launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    recs = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in recs]
+    if len(recs) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses {losses}")
+    moved = any(not torch.equal(v, models.adapter.state_dict()[k]) for k, v in adapter.items())
+    if not moved:
+        raise AssertionError("the adapter did not change")
+    if checksums(torch, models.frozen_modules()) != frozen:
+        raise AssertionError("a frozen tensor changed")
+    if not (out / f"proj_{TRAIN_STEPS}" / "pytorch_model.bin").is_file():
+        raise AssertionError("no exported adapter")
+    step_s = (recs[-1]["time"] - recs[0]["time"]) / (TRAIN_STEPS - 1)
+    log(f"[train] {TRAIN_STEPS} steps at micro-batch {TRAIN_BATCH}, {TRAIN_SIZE}²: losses "
+        f"{losses}; grad norms {[r['grad_norm'] for r in recs]}; step time (mean of steps "
+        f"2-{TRAIN_STEPS}) {step_s:.4f} s, {TRAIN_BATCH / step_s:.4f} samples/s; peak memory "
+        f"{peak:.2f} GiB; adapter moved, {len(frozen)} frozen tensors bit-identical")
+
+    batch = next(make_batches(TRAIN_STEPS))
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    profile_run(torch, lambda: trainer.step_fn(trainer.state, batch, gen), step_s,
+                repo / "build" / "chip_smoke_train_profile.txt", "train profile")
 
 
 def main() -> int:
@@ -314,7 +632,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(repo))
     from pea_diffusion_tpu_torch.cli.generate import build_demo, build_demo_full
-    from pea_diffusion_tpu_torch.ops import flash_attention, kernel_build, onepass_attention
+    from pea_diffusion_tpu_torch.cli.train import build_demo_full as build_train_demo_full
+    from pea_diffusion_tpu_torch.ops import kernel_build
     from pea_diffusion_tpu_torch.pipelines.text2image import StableDiffusionXLPEAPipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -339,28 +658,44 @@ def main() -> int:
     n_params = sum(p.numel() for m in (models.text_encoder, models.adapter,
                                        models.unet, models.vae)
                    for p in m.parameters())
-    log(f"[init] full-width stack on the card in {time.time() - t1:.1f}s, "
+    log(f"[init] full-width serving stack on the card in {time.time() - t1:.1f}s, "
         f"{n_params / 1e9:.3f}B parameters")
     reference_attention_modules(torch, models)
 
     pipe = StableDiffusionXLPEAPipeline(models, sampler_name="ddim")
     prompts = ["一只戴着帽子的可爱猫咪", "雪山下的湖泊，清晨的阳光"]
-    onepass_attention.onepass_forward.launches = 0
-    flash_attention.flash_forward.launches = 0
+    routes = attention_routes(models.unet, SIZE // 8, TEXT_TOKENS)
+    want = path_launches("serving", routes, STEPS * REQUESTS)
+    reset_launch_counts()
     req_s = main_path(torch, pipe, tokenize, prompts)
-    launches = {"B1 onepass_attention": onepass_attention.onepass_forward.launches,
-                "B3 flash_attention": flash_attention.flash_forward.launches}
-    want = ATTN_PER_UNET * STEPS * REQUESTS
-    log(f"[main] launches {launches} (want {want} each); peak memory "
+    serving = launch_counts()
+    log(f"[main] attention calls per UNet forward at {SIZE}²: {route_totals(routes)}; "
+        f"by (route, sq, skv): {dict(routes)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for name, n in launches.items():
-        if n != want:
-            raise AssertionError(f"{name} launched {n} times on the main path, want {want}")
-    for e in kernels:
-        e["launches"] = launches[e["name"]]
+    check_launches("main", serving, want)
+    stamp_launches(kernels, "serving", routes, STEPS * REQUESTS, serving)
 
-    stage_times(torch, models, tokenize, prompts[0], kernels)
-    profile_request(torch, pipe, tokenize, prompts[0], repo, min(req_s))
+    stage_times(torch, models, tokenize, prompts[0], kernels, STEPS * REQUESTS)
+    profile_run(torch, lambda: pipe(tokenize([prompts[0]]), tokenize([""]), height=SIZE,
+                                    width=SIZE, num_steps=STEPS, guidance_scale=GUIDANCE,
+                                    seed=7),
+                min(req_s), repo / "build" / "chip_smoke_profile.txt", "profile")
+    del pipe, models
+    torch.cuda.empty_cache()
+
+    t1 = time.time()
+    models, make_batches = build_train_demo_full("cuda", TRAIN_BATCH, TRAIN_SIZE)
+    torch.cuda.synchronize()
+    log(f"[init] full-width KD stack on the card in {time.time() - t1:.1f}s, "
+        f"{sum(p.numel() for p in models.adapter.parameters()) / 1e6:.3f}M trainable and "
+        f"{sum(p.numel() for m in models.frozen_modules().values() for p in m.parameters()) / 1e9:.3f}B "
+        "frozen parameters")
+    reference_kd_step(torch, models)
+    training_path(torch, models, make_batches, repo, kernels)
+
+    for e in kernels:
+        e["launches"] = sum(e["launches_by_path"].values())
+        del e["kernel"], e["stands_for"]
     log(f"[done] {time.time() - t0:.1f}s")
 
     print(card)

@@ -6,14 +6,19 @@ package, so each module's counterpart has the same path:
 
 configs/      the dataclass configs and presets the port runs
 models/       nn.Modules with diffusers/transformers parameter names:
-              PEA adapter, Chinese-CLIP BERT tower, SDXL UNet, VAE
-ops/          attention dispatch and the hand-written Hopper kernels
-              (B1 one-pass, B3 flash forward) with their plain versions
+              PEA adapter, Chinese-CLIP BERT tower, CLIP teacher towers,
+              SDXL UNet, VAE
+ops/          attention dispatch, the hand-written Hopper kernels (B1
+              one-pass, B3 flash forward, B4/B5 flash backward) with their
+              plain versions, and the autograd Functions over them
 csrc/         the kernels' CUDA sources (built with nvcc at first use)
-schedulers/   DDIM and DPM-Solver++ tables and steps
-pipelines/    SDXL text-to-image, sampler interface, model factory
+schedulers/   DDIM and DPM-Solver++ tables and steps, DDPM add_noise
+pipelines/    SDXL text-to-image, sampler interface, model factories
+train/        KD loss and train step, the optax-equivalent optimizer,
+              the trainer (checkpoints, resume, adapter export)
 checkpoints/  the JAX parameter tree -> the port's state dicts
-cli/          the generate CLI
+utils/        the JSONL metric log
+cli/          the generate and train CLIs
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; on the CPU each kernel wrapper runs its plain version.

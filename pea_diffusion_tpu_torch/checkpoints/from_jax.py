@@ -134,6 +134,27 @@ def bert_text_state_dict(params: Mapping) -> StateDict:
     return w.sd
 
 
+def clip_text_state_dict(params: Mapping) -> StateDict:
+    """CLIPTextEncoder params -> the port's CLIPTextEncoder state dict."""
+    p, w = params["params"], _Writer()
+    w.embed("embeddings.token_embedding", p["token_embedding"])
+    w.sd["embeddings.position_embedding.weight"] = _t(p["position_embedding"])
+    w.norm("final_layer_norm", p["final_layer_norm"])
+    i = 0
+    while f"layers_{i}" in p:
+        pre, layer = f"encoder.layers.{i}", p[f"layers_{i}"]
+        w.norm(f"{pre}.layer_norm1", layer["ln1"])
+        w.norm(f"{pre}.layer_norm2", layer["ln2"])
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            w.lin(f"{pre}.self_attn.{n}", layer["attn"][n])
+        w.lin(f"{pre}.mlp.fc1", layer["fc1"])
+        w.lin(f"{pre}.mlp.fc2", layer["fc2"])
+        i += 1
+    if "text_projection" in p:
+        w.sd["text_projection.weight"] = _t(np.asarray(p["text_projection"], np.float32).T)
+    return w.sd
+
+
 def unet_state_dict(params: Mapping, config: UNetConfig) -> StateDict:
     """UNet2DCondition params -> the port's UNet2DCondition state dict."""
     p, w = params["params"], _Writer()

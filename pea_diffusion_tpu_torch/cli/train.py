@@ -1,0 +1,170 @@
+"""KD training CLI of the PyTorch port.
+
+--demo trains the tiny random-weight stack on synthetic data (the JAX
+package's ``cli/train.py --demo``); --demo-full trains the full-width SDXL
+PEA stack (Chinese-CLIP RoBERTa-large student tower, the sdxl_chinese_clip
+adapter, CLIP ViT-L + OpenCLIP bigG teachers, the SDXL UNet and the fp32
+SDXL VAE encoder) with random weights made on the device, at micro-batch 10
+and 640x640 by default: real shapes and kernels, meaningless data. Training
+from real checkpoints and webdataset shards is not ported yet (ROADMAP
+Queue A items 9 and 14).
+
+Usage:
+  python -m pea_diffusion_tpu_torch.cli.train --demo --device cpu --steps 2 --output run
+  python -m pea_diffusion_tpu_torch.cli.train --demo-full --steps 3 --output run
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def build_demo(device="cuda", batch_size: int = 2, seed: int = 0):
+    """Tiny fp32 SDXL-architecture KD stack (the JAX package's
+    ``cli/train.py::build_demo`` shapes) and a synthetic batch stream
+    ``make_batches(start_step)``."""
+    from ..configs.adapter import AdapterConfig
+    from ..configs.text_encoder import BERT_TINY, CLIPTextConfig
+    from ..configs.unet import SDXL_UNET_TINY, VAE_TINY
+    from ..pipelines.factory import build_kd_models
+
+    T, TT, IMG = 12, 16, 64
+    ucfg = SDXL_UNET_TINY
+    pooled = ucfg.projection_class_embeddings_input_dim - 6 * ucfg.addition_time_embed_dim
+    clip1 = CLIPTextConfig(vocab_size=500, hidden_size=24, num_layers=2,
+                           num_heads=2, intermediate_size=48,
+                           max_position_embeddings=TT, eos_token_id=499)
+    clip2 = CLIPTextConfig(vocab_size=500, hidden_size=40, num_layers=2,
+                           num_heads=2, intermediate_size=64,
+                           projection_dim=pooled, max_position_embeddings=TT,
+                           eos_token_id=499, hidden_act="gelu")
+    models = build_kd_models(
+        family="chinese_clip", text_cfg=BERT_TINY,
+        adapter_cfg=AdapterConfig(BERT_TINY.hidden_size, (96, pooled),
+                                  head_dim=ucfg.cross_attention_dim),
+        unet_cfg=ucfg, vae_cfg=VAE_TINY, teacher_cfgs=(clip1, clip2),
+        dtype=torch.float32, device=device, seed=seed)
+
+    def make_batches(start_step: int = 0):
+        rng = np.random.RandomState(start_step)
+        B = batch_size
+        while True:
+            yield {
+                "pixel_values": rng.uniform(-1, 1, (B, IMG, IMG, 3)).astype(np.float32),
+                "input_ids": rng.randint(4, 500, (B, T)),
+                "input_ids_uncond": np.full((B, T), 4),
+                "teacher_ids_1": rng.randint(4, 499, (B, TT)),
+                "teacher_ids_2": rng.randint(4, 499, (B, TT)),
+                "teacher_uncond_ids_1": np.full((B, TT), 4),
+                "teacher_uncond_ids_2": np.full((B, TT), 4),
+                "time_ids": np.tile(np.array([[IMG, IMG, 0, 0, IMG, IMG]],
+                                             np.float32), (B, 1)),
+                "zh_or_not": rng.randint(0, 2, (B,)).astype(np.float32),
+            }
+
+    return models, make_batches
+
+
+def build_demo_full(device="cuda", batch_size: int = 10, size: int = 640,
+                    seed: int = 0):
+    """The full-width KD stack of the JAX package's ``bench_train.py`` with
+    random weights from `seed`: bf16 frozen towers and UNet, fp32 VAE
+    (encode in chunks of 2), fp32 adapter, full remat of the student UNet;
+    and a stream of synthetic batches made on the device (`size`² images,
+    52 student and 77 teacher tokens)."""
+    from ..configs.adapter import ADAPTER_PRESETS
+    from ..configs.text_encoder import CHINESE_CLIP_LARGE, CLIP_BIG_G, CLIP_VIT_L
+    from ..configs.unet import SDXL_UNET, SDXL_VAE
+    from ..pipelines.factory import build_kd_models
+
+    models = build_kd_models(
+        family="chinese_clip", text_cfg=CHINESE_CLIP_LARGE,
+        adapter_cfg=ADAPTER_PRESETS["sdxl_chinese_clip"], unet_cfg=SDXL_UNET,
+        vae_cfg=SDXL_VAE, teacher_cfgs=(CLIP_VIT_L, CLIP_BIG_G),
+        dtype=torch.bfloat16, vae_dtype=torch.float32, device=device, seed=seed)
+    return models, lambda start_step=0: demo_full_batches(
+        models.device, batch_size, size, seed + 1 + start_step)
+
+
+def demo_full_batches(device, batch_size: int, size: int, seed: int):
+    """Synthetic full-width batches made on the device from `seed`: `size`²
+    images in [-1, 1], 52 student and 77 teacher tokens, random zh_or_not."""
+    from ..configs.text_encoder import CHINESE_CLIP_LARGE, CLIP_BIG_G, CLIP_VIT_L
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    B, T, TT = batch_size, 52, 77
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device)
+
+    while True:
+        yield {
+            "pixel_values": torch.rand((B, size, size, 3), generator=gen,
+                                       device=device) * 2 - 1,
+            "input_ids": ints(4, CHINESE_CLIP_LARGE.vocab_size, (B, T)),
+            "input_ids_uncond": torch.full((B, T), 4, device=device),
+            "teacher_ids_1": ints(4, CLIP_VIT_L.vocab_size - 1, (B, TT)),
+            "teacher_ids_2": ints(4, CLIP_BIG_G.vocab_size - 1, (B, TT)),
+            "teacher_uncond_ids_1": torch.full((B, TT), 4, device=device),
+            "teacher_uncond_ids_2": torch.full((B, TT), 4, device=device),
+            "time_ids": torch.tensor([[size, size, 0, 0, size, size]],
+                                     dtype=torch.float32, device=device).repeat(B, 1),
+            "zh_or_not": ints(0, 2, (B,)).float(),
+        }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--demo", action="store_true", help="tiny random-weight stack")
+    mode.add_argument("--demo-full", action="store_true",
+                      help="full-width SDXL KD stack with random weights")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="rows per step (default: 2 for --demo, 10 for --demo-full)")
+    ap.add_argument("--size", type=int, default=640, help="--demo-full image size")
+    ap.add_argument("--output", default="./checkpoints")
+    ap.add_argument("--lr", type=float, default=1e-5)
+    ap.add_argument("--every-n-steps", type=int, default=5000)
+    ap.add_argument("--log-every", type=int, default=100)
+    ap.add_argument("--no-kd", action="store_true")
+    ap.add_argument("--no-hybrid", action="store_true")
+    args = ap.parse_args(argv)
+
+    if not (args.demo or args.demo_full):
+        raise NotImplementedError(
+            "training from real checkpoints is not ported yet (ROADMAP Queue A "
+            "item 9); run --demo or --demo-full")
+
+    from ..configs.train import TrainConfig
+    from ..train.trainer import KDTrainer
+
+    if args.demo:
+        batch = args.batch_size or 2
+        models, make_batches = build_demo(args.device, batch)
+    else:
+        batch = args.batch_size or 10
+        models, make_batches = build_demo_full(args.device, batch, args.size)
+    cfg = TrainConfig(
+        learning_rate=args.lr, output_dir=args.output,
+        every_n_steps=args.every_n_steps, log_every_n_steps=args.log_every,
+        kd=not args.no_kd, hybrid_training=not args.no_hybrid,
+        batch_size_per_device=batch)
+    if args.demo:
+        cfg = dataclasses.replace(cfg, every_n_steps=max(args.steps or 5, 1),
+                                  log_every_n_steps=1)
+    else:  # no warmup, so that the first update already moves the adapter:
+        # warmup_steps=0 alone falls back to warmup_ratio * total_steps
+        cfg = dataclasses.replace(cfg, warmup_steps=0, warmup_ratio=0.0)
+    trainer = KDTrainer(models, cfg)
+    resumed = trainer.resume()
+    state = trainer.fit(make_batches(resumed), max_steps=args.steps)
+    print(f"done at step {state.step}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,168 @@
+// Building blocks shared by the attention kernels of this directory
+// (attention_fwd.cu: B1, B3; attention_bwd.cu: B4, B5): tile sizes, the
+// bf16/fp16 mma.sync.m16n8k16 wrapper, ldmatrix, cp.async, the tile loader
+// and the per-device launch helpers. Header-only: every function is inline.
+#pragma once
+
+#include <atomic>
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace pea {
+
+constexpr int kBlockM = 64;   // query rows per block (16 per warp)
+constexpr int kBlockN = 64;   // K/V rows per shared-memory tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 8;       // 16-bit elements of row padding: no bank conflicts
+constexpr int kStages = 2;    // K/V tiles in flight
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <typename T>
+struct MmaOp;
+
+template <>
+struct MmaOp<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+template <>
+struct MmaOp<__half> {
+  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 16-bit matrices; lane i gives the address of row i % 8 of matrix
+// i / 8 and receives, for each matrix m, r[m] = its elements
+// (row lane / 4, columns 2 * (lane % 4) + {0, 1}) — or of the transpose.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// 16-byte asynchronous copy global -> shared; zero-fills when !valid.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Start copying rows [row0, row0 + kBlockN) of one (batch, head) K or V
+// slice into a shared-memory tile; rows at or past `rows` are zero-filled so
+// that masked columns contribute exactly 0 to P.V.
+// A-operand fragments (m16k16, one per k-step of 16 columns) of the 16 rows
+// [row0, row0 + 16) of a row-major [rows, D] slice, read straight from
+// device memory by a warp (g = lane / 4, t = lane % 4); rows at or past
+// `rows` read as 0.
+template <int D>
+__device__ __forceinline__ void load_a_fragments(uint32_t (*a)[4], const uint16_t* src,
+                                                 long long row_stride, int row0, int rows,
+                                                 int g, int t) {
+  const int ra = row0 + g, rb = row0 + g + 8;
+  const bool va = ra < rows, vb = rb < rows;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 + t * 2;
+    a[kk][0] = va ? *reinterpret_cast<const uint32_t*>(src + ra * row_stride + c) : 0u;
+    a[kk][1] = vb ? *reinterpret_cast<const uint32_t*>(src + rb * row_stride + c) : 0u;
+    a[kk][2] = va ? *reinterpret_cast<const uint32_t*>(src + ra * row_stride + c + 8) : 0u;
+    a[kk][3] = vb ? *reinterpret_cast<const uint32_t*>(src + rb * row_stride + c + 8) : 0u;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void load_tile_async(uint16_t* dst, const uint16_t* src,
+                                                long long row_stride, int row0,
+                                                int rows) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < kBlockN * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 8;
+    const bool valid = row0 + r < rows;
+    const uint16_t* from = valid ? src + (long long)(row0 + r) * row_stride + col : src;
+    cp_async_16(dst + r * (D + kPad) + col, from, valid);
+  }
+}
+
+constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory without opt-in
+constexpr int kMaxDevices = 64;
+
+// Runs `launch_fn` with `device` current, switching to it only if it is not
+// current, and leaves the caller's current device as it was. Returns the
+// first CUDA error.
+template <typename F>
+inline int on_device(int device, F launch_fn) {
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_fn();
+  if (prev != device) {
+    const cudaError_t restore = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = restore;
+  }
+  return static_cast<int>(err);
+}
+
+// Raises a kernel's dynamic shared-memory limit to `bytes` once per device
+// (`opted_in` is the kernel's own flag array), the first time it launches
+// there; kernels within the default 48 KB never call it.
+template <typename Kernel>
+inline cudaError_t opt_in_smem(Kernel kernel, int bytes, int device,
+                               std::atomic<bool>* opted_in) {
+  if (bytes <= kDefaultSmem) return cudaSuccess;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (opted_in[device].load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) opted_in[device].store(true, std::memory_order_release);
+  return err;
+}
+
+}  // namespace pea

@@ -37,25 +37,9 @@
 // m16n8 tiles is the A layout of one m16k16 tile). K/V tiles are copied
 // with cp.async into two shared-memory stages, so the copy of tile i+1
 // overlaps the math on tile i. wgmma and TMA are later work.
-#include <atomic>
-
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace pea {
-
-constexpr int kBlockM = 64;   // query rows per block (16 per warp)
-constexpr int kBlockN = 64;   // K/V rows per shared-memory tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // 16-bit elements of row padding: no bank conflicts
-constexpr int kStages = 2;    // K/V tiles in flight
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct AttnParams {
   const void* q;
@@ -72,92 +56,6 @@ struct AttnParams {
   int skv;
   float scale;
 };
-
-template <typename T>
-struct MmaOp;
-
-template <>
-struct MmaOp<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <>
-struct MmaOp<__half> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 16-bit matrices; lane i gives the address of row i % 8 of matrix
-// i / 8 and receives, for each matrix m, r[m] = its elements
-// (row lane / 4, columns 2 * (lane % 4) + {0, 1}) — or of the transpose.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(row)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(row)));
-}
-
-// 16-byte asynchronous copy global -> shared; zero-fills when !valid.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Start copying rows [row0, row0 + kBlockN) of one (batch, head) K or V
-// slice into a shared-memory tile; rows at or past `rows` are zero-filled so
-// that masked columns contribute exactly 0 to P.V.
-template <int D>
-__device__ __forceinline__ void load_tile_async(uint16_t* dst, const uint16_t* src,
-                                                long long row_stride, int row0,
-                                                int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kBlockN * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const bool valid = row0 + r < rows;
-    const uint16_t* from = valid ? src + (long long)(row0 + r) * row_stride + col : src;
-    cp_async_16(dst + r * (D + kPad) + col, from, valid);
-  }
-}
 
 template <int D>
 constexpr int smem_bytes() {
@@ -195,18 +93,7 @@ attention_fwd_kernel(const AttnParams p) {
 
   // Q fragments stay in registers for the whole KV walk.
   uint32_t qa[kKSteps][4];
-  {
-    const int ra = row0 + g, rb = row0 + g + 8;
-    const bool va = ra < p.sq, vb = rb < p.sq;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      const int c = kk * 16 + t * 2;
-      qa[kk][0] = va ? *reinterpret_cast<const uint32_t*>(qp + ra * p.q_row_stride + c) : 0u;
-      qa[kk][1] = vb ? *reinterpret_cast<const uint32_t*>(qp + rb * p.q_row_stride + c) : 0u;
-      qa[kk][2] = va ? *reinterpret_cast<const uint32_t*>(qp + ra * p.q_row_stride + c + 8) : 0u;
-      qa[kk][3] = vb ? *reinterpret_cast<const uint32_t*>(qp + rb * p.q_row_stride + c + 8) : 0u;
-    }
-  }
+  load_a_fragments<D>(qa, qp, p.q_row_stride, row0, p.sq, g, t);
 
   float acc[kDTiles][4];
 #pragma unroll
@@ -335,56 +222,31 @@ attention_fwd_kernel(const AttnParams p) {
   }
 }
 
-constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory without opt-in
-constexpr int kMaxDevices = 64;
-
-// Launches one instantiation on the current device (`device`). A kernel
-// that needs more than 48 KB of dynamic shared memory (D = 128) opts in
-// once per device, the first time it launches there; D = 64 needs 36 KB
-// and never calls the attribute.
+// Launches one instantiation on the current device (`device`). D = 128
+// needs more than the default 48 KB of dynamic shared memory and opts in
+// once per device; D = 64 needs 36 KB.
 template <typename T, int D>
 inline cudaError_t launch(const AttnParams& p, dim3 grid, int device, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
-  if constexpr (bytes > kDefaultSmem) {
-    static std::atomic<bool> opted_in[kMaxDevices];
-    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-    if (!opted_in[device].load(std::memory_order_acquire)) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          attention_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return err;
-      opted_in[device].store(true, std::memory_order_release);
-    }
-  }
+  static std::atomic<bool> opted_in[kMaxDevices];
+  const cudaError_t err = opt_in_smem(attention_fwd_kernel<T, D>, bytes, device, opted_in);
+  if (err != cudaSuccess) return err;
   attention_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-// dtype: 0 = bfloat16, 1 = float16. Launches on `device`, switching to it
-// only if it is not current, and leaves the caller's current device as it
-// was. Returns the launch's CUDA error code.
+// dtype: 0 = bfloat16, 1 = float16. Launches on `device` and returns the
+// launch's CUDA error code.
 inline int launch_attention_fwd(const AttnParams& p, int batch, int head_dim,
                                 int dtype, int device, cudaStream_t stream) {
-  int prev = device;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.heads, batch);
-  if (dtype == 0 && head_dim == 64) {
-    err = launch<__nv_bfloat16, 64>(p, grid, device, stream);
-  } else if (dtype == 0 && head_dim == 128) {
-    err = launch<__nv_bfloat16, 128>(p, grid, device, stream);
-  } else if (dtype == 1 && head_dim == 64) {
-    err = launch<__half, 64>(p, grid, device, stream);
-  } else if (dtype == 1 && head_dim == 128) {
-    err = launch<__half, 128>(p, grid, device, stream);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  if (prev != device) {
-    const cudaError_t restore = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = restore;
-  }
-  return static_cast<int>(err);
+  const dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.heads, batch);
+  return on_device(device, [&]() -> cudaError_t {
+    if (dtype == 0 && head_dim == 64) return launch<__nv_bfloat16, 64>(p, grid, device, stream);
+    if (dtype == 0 && head_dim == 128) return launch<__nv_bfloat16, 128>(p, grid, device, stream);
+    if (dtype == 1 && head_dim == 64) return launch<__half, 64>(p, grid, device, stream);
+    if (dtype == 1 && head_dim == 128) return launch<__half, 128>(p, grid, device, stream);
+    return cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace pea

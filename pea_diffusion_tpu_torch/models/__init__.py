@@ -1,6 +1,8 @@
 from .adapter import PEAAdapter
 from .bert_text import BertTextEncoder
+from .clip_text import CLIPTextEncoder
 from .unet import UNet2DCondition
 from .vae import AutoencoderKL
 
-__all__ = ["PEAAdapter", "BertTextEncoder", "UNet2DCondition", "AutoencoderKL"]
+__all__ = ["PEAAdapter", "BertTextEncoder", "CLIPTextEncoder", "UNet2DCondition",
+           "AutoencoderKL"]

@@ -173,7 +173,9 @@ def attention_route(sq: int, skv: int, heads: int, head_dim: int,
 
 class MultiHeadAttention(nn.Module):
     """to_q/k/v (bias-free in the UNet, biased in the VAE) and a biased
-    to_out, over the attention dispatch (diffusers Attention names)."""
+    to_out, over the attention dispatch (diffusers Attention names). Both
+    kernel routes are differentiable: "onepass" through ``bshd_attention``,
+    "flash" through ``dot_product_attention``'s ``flash_attention``."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  context_dim: Optional[int] = None, qkv_bias: bool = False,
@@ -196,10 +198,10 @@ class MultiHeadAttention(nn.Module):
         scale = 1.0 / math.sqrt(d)
         route = attention_route(sq, skv, h, d, self.backend, q.device.type)
         if route == "onepass":
-            out = onepass_attention.onepass_forward(q, k, v, h, d, scale)
+            out = onepass_attention.bshd_attention(q, k, v, h, d, scale)
         elif route == "flash":
             def split(t, s):  # head-major layout for the flash kernel
-                return t.reshape(b, s, h, d).transpose(1, 2).reshape(b * h, s, d)
+                return t.reshape(b, s, h, d).transpose(1, 2).reshape(b * h, s, d).contiguous()
 
             out = dot_product_attention(split(q, sq), split(k, skv),
                                         split(v, skv), scale=scale,

@@ -5,7 +5,7 @@ plain attention path (`backend="xla"`), as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,6 +113,18 @@ class AutoencoderKL(nn.Module):
         moments = _nhwc(self.quant_conv(self.encoder(_nchw(x.to(dtype)))))
         mean, logvar = moments.chunk(2, dim=-1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
+
+    def encode_sample(self, x: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A latent drawn from the encoder's Gaussian: mean + exp(logvar / 2)
+        * eps, with eps ~ N(0, 1) [B, H/8, W/8, 4] in the VAE's type, drawn
+        from `generator` unless given (as a test gives the JAX package's)."""
+        mean, logvar = self.encode_moments(x)
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=generator, device=mean.device,
+                              dtype=mean.dtype)
+        return mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z [B, h, w, 4] (unscaled latents) -> image [B, 8h, 8w, 3]."""

@@ -1,6 +1,7 @@
 """Attention dispatch (port of ``pea_diffusion_tpu/ops/attention.py``): the
-flash kernel (B3) for long query sequences on the card, plain PyTorch math
-otherwise. "On a TPU" in the JAX package reads "on a CUDA tensor" here."""
+differentiable flash attention (B3 forward, B4/B5 backward) for long query
+sequences on the card, plain PyTorch math otherwise. "On a TPU" in the JAX
+package reads "on a CUDA tensor" here."""
 from __future__ import annotations
 
 import math
@@ -8,7 +9,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_forward
+from .flash_attention import flash_attention
 
 # Minimum query length for the kernel paths (the JAX package's threshold).
 FLASH_MIN_SEQ = 1024
@@ -49,5 +50,5 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if mask is None and use_flash(q.shape[1], backend, q.device.type):
-        return flash_forward(q, k, v, scale)
+        return flash_attention(q, k, v, scale)
     return xla_attention(q, k, v, scale, mask)

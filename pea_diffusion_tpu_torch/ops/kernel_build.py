@@ -1,11 +1,14 @@
-"""Builds the CUDA source ``csrc/attention_fwd.cu`` and loads it with ctypes.
+"""Builds the CUDA sources ``csrc/*.cu`` into one library and loads it with
+ctypes.
 
-The source compiles with nvcc for ``sm_90a`` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds). The
-library goes to ``build/kernels/`` at the root of the checkout, named by a
-hash of the source and flags, so an edited source builds anew and an
-unchanged one is reused. Nothing is built when a module is imported: the
-wrappers build on their first CUDA call, or ``build()`` builds ahead.
+Each source compiles with nvcc for ``sm_90a`` into an object, all of them at
+once in parallel processes, and the objects link into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds).
+The library goes to ``build/kernels/`` at the root of the checkout, named by
+a hash of every source and header and of the flags, so an edited source
+builds anew and an unchanged one is reused. Nothing is built when a module
+is imported: the wrappers build on their first CUDA call, or ``build()``
+builds ahead.
 """
 from __future__ import annotations
 
@@ -15,13 +18,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCE = CSRC / "attention_fwd.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _functions: Dict[str, Callable[..., int]] = {}
 
@@ -37,28 +39,53 @@ def _nvcc() -> str:
     return str(path)
 
 
+def sources() -> List[Path]:
+    """The kernels' sources, one object each."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    """Where the source builds to under the current source and flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+    """Where the sources build to under the current sources, headers and
+    flags."""
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libattention_fwd-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libpea_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> str:
-    """Compiles the library unless it is built already. Returns nvcc's
-    output (register and shared-memory use from ptxas; empty if nothing was
-    compiled) and raises with that output if the build fails."""
+    """Compiles the library unless it is built already: one nvcc process per
+    source, all started together, then one link. Returns nvcc's output
+    (register and shared-memory use from ptxas; empty if nothing was
+    compiled) and raises with that output if a step fails."""
     target = library_path()
     if target.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    nvcc, tag = _nvcc(), f"{target.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objects)]
+    log = []
+    for src, proc in zip(sources(), procs):
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            for other in procs:
+                other.wait()
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stdout}")
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link {target.name}:\n{link.stdout}")
     os.replace(tmp, target)
-    return proc.stdout
+    for obj in objects:
+        obj.unlink()
+    return "".join(log)
 
 
 def launch(symbol: str, argtypes: Sequence, *args) -> None:

@@ -1,13 +1,17 @@
-"""B1: one-pass attention on the projections' [B, S, H*D] layout.
+"""B1: one-pass attention on the projections' [B, S, H*D] layout, and B2,
+``bshd_attention``, the differentiable function over it.
 
-Port of ``pea_diffusion_tpu/ops/onepass_attention.py`` (forward). On a CUDA
-tensor ``onepass_forward`` launches the hand-written Hopper kernel in
+Port of ``pea_diffusion_tpu/ops/onepass_attention.py``. On a CUDA tensor
+``onepass_forward`` launches the hand-written Hopper kernel in
 ``csrc/attention_fwd.cu`` (entry point ``pea_onepass_attention_fwd``,
 replacing the TPU kernels ``_kernel`` and ``_kernel_bb``), which reads
 Q/K/V and writes O in place in [B, S, H*D]; on a CPU tensor it runs
 ``onepass_forward_ref``, the plain version of the same function. The kernel
 is bound by tensor-core operations at the SDXL self-attention shapes; its
-design is described in that source.
+design is described in that source. Its output carries no autograd history,
+so on CUDA tensors that need a gradient it raises: ``bshd_attention`` takes
+that case through the head-major flash forward with lse (B3) and the flash
+backward (B4, B5), as the JAX package's custom VJP does.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Optional
 import torch
 
 from . import kernel_build
+from .flash_attention import check_no_grad, flash_backward, flash_forward, needs_grad
 
 # The JAX gate's VMEM budget: max fp32 score-matrix elements per grid step.
 _MAX_SCORE_ELEMS = 1024 * 1024
@@ -76,11 +81,13 @@ def onepass_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors (bfloat16 or float16, head_dim 64 or 128) launch the Hopper
     kernel and count the launch in ``onepass_forward.launches``; anything the
-    kernel does not take raises. CPU tensors run ``onepass_forward_ref``."""
+    kernel does not take raises, and so do inputs that need a gradient. CPU
+    tensors run ``onepass_forward_ref``."""
     if scale is None:
         scale = 1.0 / math.sqrt(head_dim)
     if not q.is_cuda:
         return onepass_forward_ref(q, k, v, heads, head_dim, scale)
+    check_no_grad("onepass_forward", q, k, v)
     dtype = kernel_build.half_dtype_code(q, k, v)
     b, sq, feat = q.shape
     skv = k.shape[1]
@@ -100,3 +107,49 @@ def onepass_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 onepass_forward.launches = 0
+
+
+def _to_head_major(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    b, s, _ = t.shape
+    return (t.reshape(b, s, heads, head_dim).transpose(1, 2)
+            .reshape(b * heads, s, head_dim).contiguous())
+
+
+def _from_head_major(t: torch.Tensor, b: int, heads: int, head_dim: int) -> torch.Tensor:
+    s = t.shape[1]
+    return (t.reshape(b, heads, s, head_dim).transpose(1, 2)
+            .reshape(b, s, heads * head_dim))
+
+
+class BSHDAttention(torch.autograd.Function):
+    """Gradient route of ``bshd_attention`` (``_bshd_fwd_rule`` and
+    ``_bshd_bwd_rule`` of the JAX package): the head-major flash forward
+    with lse, and the flash backward (B4, B5) on head-major copies."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, head_dim, scale):
+        qm, km, vm = (_to_head_major(t, heads, head_dim) for t in (q, k, v))
+        out, lse = flash_forward(qm, km, vm, scale, with_lse=True)
+        ctx.save_for_backward(qm, km, vm, out, lse)
+        ctx.heads, ctx.head_dim, ctx.scale = heads, head_dim, scale
+        return _from_head_major(out, q.shape[0], heads, head_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        qm, km, vm, out, lse = ctx.saved_tensors
+        h, d, b = ctx.heads, ctx.head_dim, g.shape[0]
+        grads = flash_backward(qm, km, vm, out, lse, _to_head_major(g, h, d),
+                               ctx.scale)
+        return tuple(_from_head_major(t, b, h, d) for t in grads) + (None,) * 3
+
+
+def bshd_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   heads: int, head_dim: int,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable [B, S, H*D] attention: the one-pass forward (B1) when
+    no input needs a gradient, ``BSHDAttention`` when one does."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(head_dim)
+    if needs_grad(q, k, v):
+        return BSHDAttention.apply(q, k, v, heads, head_dim, scale)
+    return onepass_forward(q, k, v, heads, head_dim, scale)

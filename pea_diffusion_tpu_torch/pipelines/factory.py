@@ -1,5 +1,6 @@
-"""Builds a PEA deployment (text tower + adapter + UNet + VAE) with random
-weights made on the device (port of ``pea_diffusion_tpu/pipelines/factory.py``).
+"""Builds a PEA deployment (text tower + adapter + UNet + VAE), or the KD
+training stack (the same plus the CLIP teacher towers), with random weights
+made on the device (port of ``pea_diffusion_tpu/pipelines/factory.py``).
 
 Modules are created on the meta device, given storage on the target device,
 and filled there from one seeded ``torch.Generator``: norm weights 1, biases
@@ -10,16 +11,17 @@ Real weights load with ``load_state_dict`` (see
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..configs.adapter import AdapterConfig
-from ..configs.text_encoder import BertTextConfig
+from ..configs.text_encoder import BertTextConfig, CLIPTextConfig
 from ..configs.unet import UNetConfig, VAEConfig
 from ..models.adapter import PEAAdapter
 from ..models.bert_text import BertTextEncoder
+from ..models.clip_text import CLIPTextEncoder
 from ..models.layers import GroupNorm, LayerNormFP32
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
@@ -69,15 +71,16 @@ def build_models(*, family: str, text_cfg: BertTextConfig,
                  schedule: NoiseScheduleConfig = SDXL_SCHEDULE,
                  dtype: torch.dtype = torch.bfloat16,
                  vae_dtype: torch.dtype = torch.float32,
-                 attn_backend: str = "auto", device="cuda",
-                 seed: int = 0) -> PEAModels:
+                 adapter_dtype: Optional[torch.dtype] = None,
+                 device="cuda", seed: int = 0) -> PEAModels:
     """The text tower and UNet hold `dtype` weights, the VAE `vae_dtype`;
-    the adapter keeps fp32 weights and computes in `dtype`."""
+    the adapter keeps fp32 weights and computes in `adapter_dtype` (by
+    default `dtype`)."""
     device = resolve_device(device)
     with torch.device("meta"):
         text, text_fn = make_text_encoder_fn(family, text_cfg)
-        adapter = PEAAdapter(adapter_cfg, dtype=dtype)
-        unet = UNet2DCondition(unet_cfg, attn_backend=attn_backend)
+        adapter = PEAAdapter(adapter_cfg, dtype=adapter_dtype or dtype)
+        unet = UNet2DCondition(unet_cfg)
         vae = AutoencoderKL(vae_cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     return PEAModels(
@@ -90,3 +93,27 @@ def build_models(*, family: str, text_cfg: BertTextConfig,
         vae_scaling=vae_cfg.scaling_factor,
         device=device,
     )
+
+
+def build_kd_models(*, teacher_cfgs: Tuple[CLIPTextConfig, ...],
+                    dtype: torch.dtype = torch.bfloat16, device="cuda",
+                    seed: int = 0, vae_encode_chunk: Optional[int] = 2, **stack):
+    """The KD training stack (``train.kd.KDModels``): ``build_models``'s
+    stack (`stack` and `dtype` as there) with the adapter computing in
+    fp32, as the JAX package's training adapter does, and the only
+    trainable part; plus the frozen CLIP teachers in `dtype`, from seed
+    `seed` + 1. The VAE encodes in chunks of `vae_encode_chunk` samples."""
+    from ..train.kd import KDModels
+
+    m = build_models(dtype=dtype, adapter_dtype=torch.float32, device=device,
+                     seed=seed, **stack)
+    with torch.device("meta"):
+        teachers = [CLIPTextEncoder(c) for c in teacher_cfgs]
+    gen = torch.Generator(device=m.device).manual_seed(seed + 1)
+    teachers = [_materialize(t, dtype, m.device, gen) for t in teachers] + [None, None]
+    return KDModels(
+        adapter=m.adapter.train(), unet=m.unet, vae=m.vae,
+        text_encoder=m.text_encoder, text_encoder_fn=m.text_encoder_fn,
+        teacher_clip1=teachers[0], teacher_clip2=teachers[1],
+        schedule=m.schedule, vae_scaling=m.vae_scaling,
+        vae_encode_chunk=vae_encode_chunk).freeze()

@@ -1,4 +1,4 @@
-from . import common, ddim, dpm_solver
+from . import common, ddim, ddpm, dpm_solver
 from .common import NoiseScheduleConfig
 
 # Scheduler config of the reference SDXL checkpoint's scheduler/config.json
@@ -7,4 +7,4 @@ SDXL_SCHEDULE = NoiseScheduleConfig(
     timestep_spacing="leading", steps_offset=1,
 )
 
-__all__ = ["common", "ddim", "dpm_solver", "NoiseScheduleConfig", "SDXL_SCHEDULE"]
+__all__ = ["common", "ddim", "ddpm", "dpm_solver", "NoiseScheduleConfig", "SDXL_SCHEDULE"]

@@ -79,3 +79,14 @@ def predict_x0(prediction_type: str, sample: torch.Tensor,
     if prediction_type == "sample":
         return model_output
     raise ValueError(prediction_type)
+
+
+def add_noise(alphas_cumprod: torch.Tensor, sample: torch.Tensor,
+              noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_0), the forward diffusion (DDPMScheduler.add_noise parity):
+    the schedule's fp32 alphas_cumprod at `timesteps`, cast to the sample's
+    type, then sqrt(acp) * sample + sqrt(1 - acp) * noise in that type."""
+    acp = alphas_cumprod.to(sample.device)[timesteps].to(sample.dtype)
+    shape = (-1,) + (1,) * (sample.ndim - 1)
+    return (torch.sqrt(acp).reshape(shape) * sample
+            + torch.sqrt(1.0 - acp).reshape(shape) * noise)

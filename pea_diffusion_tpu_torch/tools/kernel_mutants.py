@@ -4,7 +4,7 @@
 
 For each deliberate fault below it copies the package and ``chip_smoke.py``
 into ``build/mutants/<n>/`` at the root of the checkout, plants the fault in
-the copy's ``csrc/attention_fwd.cu``, and runs the copy's kernel phase (the
+the copy's ``csrc/`` sources, and runs the copy's kernel phase (the
 comparison only, no timing) in a process of its own, so that each mutant
 builds and loads its own library. It prints each case's relative error and
 whether the comparison failed the run, as it must for a fault it is meant to
@@ -20,17 +20,28 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 MASK = "if (ragged && n0 + j * 8 + t * 2 + (e & 1) >= p.skv) x = kNegInf;"
+FWD, BWD = "attention_fwd.cu", "attention_bwd.cu"
+B4_P = "const float pr = exp2f(x - ls[col]);"
 
-# (what, text in the source, its replacement, must the check catch it?)
+# (what, [(source, text in it, its replacement)], must the check catch it?)
 MUTANTS = [
-    ("K/V tile 17 dropped (S > 1088 only)", MASK,
-     "if ((ragged && n0 + j * 8 + t * 2 + (e & 1) >= p.skv) || tile == 17) x = kNegInf;",
+    ("K/V tile 17 dropped (S > 1088 only)", [(FWD, MASK,
+     "if ((ragged && n0 + j * 8 + t * 2 + (e & 1) >= p.skv) || tile == 17) x = kNegInf;")],
      True),
-    ("KV mask off by one (a zero-filled column counted)", MASK,
-     MASK.replace(">= p.skv", "> p.skv"), False),
+    ("KV mask off by one (a zero-filled column counted)",
+     [(FWD, MASK, MASK.replace(">= p.skv", "> p.skv"))], False),
     ("running sum not rescaled when the max grows",
-     "l_run[r] = l_run[r] * corr[r] + l_tile[r];", "l_run[r] = l_run[r] + l_tile[r];",
+     [(FWD, "l_run[r] = l_run[r] * corr[r] + l_tile[r];", "l_run[r] = l_run[r] + l_tile[r];")],
      True),
+    ("B4 skips Q tile 17 of its walk (Sq > 1088 only)",
+     [(BWD, B4_P, "const float pr = tile == 17 ? 0.f : exp2f(x - ls[col]);")], True),
+    # K and V rows past skv are zero-filled, so a counted padded column adds
+    # P * 0 to dQ, and B4 never stores the padded rows: the output cannot
+    # change, and the mask is a second guard
+    ("backward KV mask dropped in B4 and B5 (zero-filled columns counted)",
+     [(BWD, "        if (kv_masked[e >> 1]) x = kNegInf;\n", ""),
+      (BWD, "        if (n0 + j * 8 + t * 2 + (e & 1) >= p.skv) x = kNegInf;\n", "")],
+     False),
 ]
 
 _RUN = """
@@ -51,17 +62,18 @@ else:
 
 def main() -> int:
     missed = []
-    for n, (what, old, new, must) in enumerate(MUTANTS):
+    for n, (what, edits, must) in enumerate(MUTANTS):
         root = REPO / "build" / "mutants" / str(n)
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(REPO / "pea_diffusion_tpu_torch", root / "pea_diffusion_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(REPO / "chip_smoke.py", root)
-        src = root / "pea_diffusion_tpu_torch" / "csrc" / "attention_fwd.cu"
-        text = src.read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"mutant {what!r}: its target is not in the source once")
-        src.write_text(text.replace(old, new))
+        for name, old, new in edits:
+            src = root / "pea_diffusion_tpu_torch" / "csrc" / name
+            text = src.read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"mutant {what!r}: its target is not in {name} once")
+            src.write_text(text.replace(old, new))
         proc = subprocess.run([sys.executable, "-c", _RUN], cwd=root,
                               capture_output=True, text=True)
         print(f"--- mutant {n}: {what} (must be caught: {must})")

@@ -1,11 +1,15 @@
-"""The port's attention kernels (B1 one-pass, B3 flash forward) held against
-the JAX package's Pallas kernels, run in interpret mode on the CPU.
+"""The port's attention kernels (B1 one-pass, B3 flash forward, B4/B5 flash
+backward) and the differentiable functions over them (flash_attention,
+bshd_attention) held against the JAX package's Pallas kernels and custom
+VJPs, run in interpret mode on the CPU.
 
 On the CPU the port's wrappers run their plain versions; the tolerance is
-the JAX package's own kernel tests' (fp32, atol 2e-5). The kernels
-themselves are compared with the plain versions on the card by
+the JAX package's own kernel tests' (fp32, atol 2e-5 forward, 2e-4 to 3e-4
+for gradients, as tests/test_flash_vjp.py). The kernels themselves are
+compared with the plain versions on the card by
 test_torch_kernels_on_card.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,3 +124,119 @@ def test_dispatch_matches_jax_on_card(monkeypatch, sq, skv, heads, head_dim,
     # on a CPU tensor, "auto" always takes the plain path
     if backend == "auto":
         assert attention_route(sq, skv, heads, head_dim, backend, "cpu") == "plain"
+
+
+# --- the backward (B4, B5) and the autograd Functions -------------------------
+
+BWD_ATOL = 2e-4  # fp32, as tests/test_flash_vjp.py
+
+
+@pytest.mark.parametrize("sq,skv", [(384, 300), (300, 52)])
+def test_flash_backward_ref_matches_jax_kernels(sq, skv):
+    """Several Q and KV blocks of 128 and a ragged KV tail on the JAX side."""
+    from pea_diffusion_tpu.ops.flash_attention import _flash_backward_impl
+
+    bh, d = 2, 64
+    q, k, v = _qkv((bh, sq, d), (bh, skv, d), seed=sq + skv)
+    g = np.random.default_rng(5).standard_normal((bh, sq, d)).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    out, lse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+                              block_q=128, block_k=128, interpret=True, with_lse=True)
+    want = _flash_backward_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), out, lse,
+                                jnp.asarray(g), scale, block_q=128, block_k=128,
+                                interpret=True)
+    got = flash_attention.flash_backward(
+        *(torch.from_numpy(np.array(x)) for x in (q, k, v, out, lse, g)), scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=BWD_ATOL, err_msg=name)
+
+
+def _jax_grads(fn, arrays, cotangent_fn):
+    return jax.grad(lambda *xs: cotangent_fn(fn(*xs)), argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in arrays))
+
+
+@pytest.mark.parametrize("shape_q,shape_kv,scale,loss", [
+    ((2, 130, 32), (2, 70, 32), 0.2, "cos"),
+    ((1, 384, 64), (1, 300, 64), None, "square"),
+])
+def test_flash_attention_grads_match_jax(shape_q, shape_kv, scale, loss):
+    q, k, v = _qkv(shape_q, shape_kv, seed=shape_q[1])
+    jloss = (lambda o: jnp.sum(o * jnp.cos(o))) if loss == "cos" else (lambda o: jnp.sum(o ** 2))
+    tloss = (lambda o: (o * torch.cos(o)).sum()) if loss == "cos" else (lambda o: (o ** 2).sum())
+    want = _jax_grads(lambda a, b, c: jax_flash(a, b, c, scale, 128, 128, True),
+                      (q, k, v), jloss)
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention.flash_attention(*ts, scale)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(tloss(out), ts)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=3e-4)
+
+
+def test_bshd_attention_grads_match_jax():
+    from pea_diffusion_tpu.ops.onepass_attention import bshd_attention as jax_bshd
+
+    b, sq, skv, h, d = 1, 256, 520, 2, 64
+    q, k, v = _qkv((b, sq, h * d), (b, skv, h * d), seed=9)
+    want = _jax_grads(lambda x, y, z: jax_bshd(x, y, z, h, d, None, True), (q, k, v),
+                      lambda o: jnp.sum(o ** 2))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = onepass_attention.bshd_attention(*ts, h, d)
+    assert type(out.grad_fn).__name__ == "BSHDAttentionBackward"
+    got = torch.autograd.grad((out ** 2).sum(), ts)
+    for a, b_ in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b_), atol=2e-4)
+    # without a gradient the primal is the one-pass forward
+    with torch.no_grad():
+        torch.testing.assert_close(onepass_attention.bshd_attention(*ts, h, d),
+                                   onepass_attention.onepass_forward_ref(*ts, h, d))
+
+
+def _function_nodes(t, depth=6):
+    """Names of the autograd nodes within `depth` steps of t.grad_fn."""
+    names, frontier = set(), [t.grad_fn]
+    for _ in range(depth):
+        nxt = []
+        for node in frontier:
+            if node is None:
+                continue
+            names.add(type(node).__name__)
+            nxt += [n for n, _ in node.next_functions]
+        frontier = nxt
+    return names
+
+
+@pytest.mark.parametrize("context_len,route,node", [
+    (None, "onepass", "BSHDAttentionBackward"),
+    (52, "flash", "FlashAttentionBackward"),
+])
+def test_attention_module_grads_go_through_the_functions(context_len, route, node):
+    """backend="flash" takes both kernel routes on the CPU: the attention
+    output hangs off the route's Function, and the input gradients equal
+    the plain route's."""
+    from pea_diffusion_tpu_torch.models.layers import MultiHeadAttention
+
+    torch.manual_seed(0)
+    attn = MultiHeadAttention(32, 2, 64, context_dim=context_len and 24, backend="flash")
+    attn.requires_grad_(False)
+    x = torch.randn(1, 512, 32)
+    ctx = None if context_len is None else torch.randn(1, context_len, 24)
+    assert attention_route(512, context_len or 512, 2, 64, "flash", "cpu") == route
+    seen = {}
+    attn.to_out[0].register_forward_hook(lambda m, inp, out: seen.update(inp=inp[0]))
+
+    def grads(backend):
+        attn.backend = backend
+        xs = x.clone().requires_grad_(True)
+        cs = None if ctx is None else ctx.clone().requires_grad_(True)
+        attn(xs, cs).pow(2).sum().backward()
+        return [t.grad for t in (xs, cs) if t is not None]
+
+    got = grads("flash")
+    assert node in _function_nodes(seen["inp"])
+    want = grads("xla")
+    assert node not in _function_nodes(seen["inp"])
+    for a, b in zip(got, want):
+        assert a.abs().max() > 0
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)

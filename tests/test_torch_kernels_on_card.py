@@ -1,7 +1,11 @@
-"""The port's attention kernels (B1 one-pass, B3 flash forward) against
-their plain versions on a CUDA card, in the working types bf16/fp16: the
-max error must stay below 8e-3 of the largest output, twice the most that
-rounding the output to bf16 (2^-8 of its size) can move it.
+"""The port's attention kernels (B1 one-pass, B3 flash forward, B4/B5 flash
+backward) against their plain versions on a CUDA card, in the working types
+bf16/fp16. Forward: the max error must stay below 8e-3 of the largest
+output, twice the most that rounding the output to bf16 (2^-8 of its size)
+can move it. Backward: below 2e-2 of the largest gradient, per output (P
+and dS are rounded to bf16 before their products, and dS is a difference of
+rounded terms). The attention modules' input gradients through the kernels
+must match the plain route's within 2e-2 too.
 
 This file imports neither JAX nor the JAX package, so it runs where the
 card is, without the repository's conftest:
@@ -13,9 +17,11 @@ On a host without a card every test skips.
 import pytest
 import torch
 
+from pea_diffusion_tpu_torch.models.layers import MultiHeadAttention, attention_route
 from pea_diffusion_tpu_torch.ops import flash_attention, onepass_attention
 
 RTOL = 8e-3  # max |kernel - plain| / max |plain|
+BWD_RTOL = 2e-2  # the same, per gradient
 
 
 def _rel_err(out, ref):
@@ -71,4 +77,103 @@ def test_kernels_reject_fp32_on_card():
     with pytest.raises(TypeError):
         onepass_attention.onepass_forward(x, x, x, 2, 64)
     with pytest.raises(TypeError):
+        flash_attention.flash_forward(x, x, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,sq,skv,d,dtype", [
+    (4, 1600, 1600, 64, torch.bfloat16),   # self-attention, level 2
+    (4, 6400, 52, 64, torch.bfloat16),     # cross-attention, Skv < one tile
+    (2, 1000, 1000, 64, torch.bfloat16),   # ragged Sq and Skv
+    (2, 300, 520, 128, torch.float16),
+])
+def test_flash_backward_kernels_match_plain_on_card(bh, sq, skv, d, dtype):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(bh, s, d, device=dev, generator=g).to(dtype)
+               for s in (sq, skv, skv))
+    do = torch.randn(bh, sq, d, device=dev, generator=g).to(dtype)
+    out, lse = flash_attention.flash_forward(q, k, v, with_lse=True)
+    scale = d ** -0.5
+    n4, n5 = (flash_attention.flash_backward_dkdv.launches,
+              flash_attention.flash_backward_dq.launches)
+    got = flash_attention.flash_backward(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_backward_dkdv.launches == n4 + 1
+    assert flash_attention.flash_backward_dq.launches == n5 + 1
+    want = flash_attention.flash_backward_ref(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float(), scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) < BWD_RTOL, (name, _rel_err(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,skv_ctx", [(1024, None), (1024, 52), (1600, None)])
+def test_attention_module_input_grads_through_kernels_on_card(sq, skv_ctx):
+    """dx and dcontext through the kernel routes (onepass: B3 with lse, B4,
+    B5 via bshd_attention; flash: the same via flash_attention) are
+    non-zero and match the plain route."""
+    dev = _card()
+    torch.manual_seed(0)
+    attn = MultiHeadAttention(640, 10, 64, context_dim=skv_ctx and 64).to(dev, torch.bfloat16)
+    attn.requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(1, sq, 640, device=dev, generator=g).bfloat16()
+    ctx = (None if skv_ctx is None else
+           torch.randn(1, skv_ctx, 64, device=dev, generator=g).bfloat16())
+    route = attention_route(sq, sq if ctx is None else skv_ctx, 10, 64, "flash", "cuda")
+    assert route == ("onepass" if ctx is None else "flash")
+
+    def grads(backend):
+        attn.backend = backend
+        xs = x.clone().requires_grad_(True)
+        cs = None if ctx is None else ctx.clone().requires_grad_(True)
+        out = attn(xs, cs)
+        out.float().pow(2).sum().backward()
+        return [t.grad for t in (xs, cs) if t is not None]
+
+    n4 = flash_attention.flash_backward_dkdv.launches
+    got = grads("flash")
+    assert flash_attention.flash_backward_dkdv.launches == n4 + 1
+    want = grads("xla")
+    for a, b in zip(got, want):
+        assert a.abs().max().item() > 0
+        assert _rel_err(a, b.float()) < BWD_RTOL
+
+
+@pytest.mark.gpu
+def test_bshd_attention_grads_through_kernels_on_card():
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(2, s, 640, device=dev, generator=g).bfloat16().requires_grad_(True)
+               for s in (1600, 1600, 1600))
+    assert onepass_attention.supports(1600, 1600, 10, 64)
+    out = onepass_attention.bshd_attention(q, k, v, 10, 64)
+    assert type(out.grad_fn).__name__ == "BSHDAttentionBackward"
+    gout = torch.randn(out.shape, device=dev, generator=g).bfloat16()
+    got = torch.autograd.grad(out, (q, k, v), gout)
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    ref = onepass_attention.onepass_forward_ref(qf, kf, vf, 10, 64)
+    want = torch.autograd.grad(ref, (qf, kf, vf), gout.float())
+    for a, b in zip(got, want):
+        assert a.abs().max().item() > 0
+        assert _rel_err(a, b) < BWD_RTOL
+
+
+@pytest.mark.gpu
+def test_bare_kernel_wrappers_refuse_inputs_that_need_grad_on_card():
+    dev = _card()
+    x = torch.zeros(2, 128, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    lse = torch.zeros(2, 128, device=dev)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        flash_attention.flash_forward(x, x, x)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        onepass_attention.onepass_forward(x.view(1, 256, 64), x.view(1, 256, 64),
+                                          x.view(1, 256, 64), 1, 64)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        flash_attention.flash_backward_dkdv(x, x, x, x, lse, lse, 0.125)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        flash_attention.flash_backward_dq(x, x, x, x, lse, lse, 0.125)
+    with torch.no_grad():  # without grad mode the kernels run
         flash_attention.flash_forward(x, x, x)

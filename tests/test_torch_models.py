@@ -1,8 +1,9 @@
 """The port's models held against the JAX package's, in fp32 on the CPU, at
 the same weights (carried over by checkpoints/from_jax.py): the PEA adapter
 for every preset (widths cut by 32), the BERT text tower on BERT_TINY, the
-UNet on SDXL_UNET_TINY with the SDXL added conditioning, and the VAE on
-VAE_TINY.
+CLIP teacher towers at small widths (both activations), the UNet on
+SDXL_UNET_TINY with the SDXL added conditioning, and the VAE on VAE_TINY
+(decode, encode moments and the sampled encode).
 
 Each model's state dict also goes back through the JAX package's own
 `convert_*` and must give the original JAX tree exactly: the port's
@@ -24,6 +25,8 @@ from pea_diffusion_tpu.checkpoints.torch_convert import (convert_adapter,
                                                          convert_unet,
                                                          convert_vae)
 from pea_diffusion_tpu.configs import adapter as jax_adapter_cfg
+from pea_diffusion_tpu.configs import text_encoder as jax_text_cfg
+from pea_diffusion_tpu.configs.train import TrainConfig as JaxTrainConfig
 from pea_diffusion_tpu.configs.text_encoder import BERT_TINY as JAX_BERT_TINY
 from pea_diffusion_tpu.configs.unet import SDXL_UNET_TINY as JAX_UNET_TINY
 from pea_diffusion_tpu.configs.unet import VAE_TINY as JAX_VAE_TINY
@@ -33,7 +36,8 @@ from pea_diffusion_tpu.models.unet import UNet2DCondition as JaxUNet
 from pea_diffusion_tpu.models.vae import AutoencoderKL as JaxVAE
 from pea_diffusion_tpu_torch.checkpoints import from_jax
 from pea_diffusion_tpu_torch.configs import (ADAPTER_PRESETS, BERT_TINY,
-                                             SDXL_UNET_TINY, VAE_TINY)
+                                             SDXL_UNET_TINY, VAE_TINY, TrainConfig)
+from pea_diffusion_tpu_torch.configs import text_encoder as port_text_cfg
 from pea_diffusion_tpu_torch.configs.adapter import AdapterConfig
 from pea_diffusion_tpu_torch.models import (AutoencoderKL, BertTextEncoder,
                                             PEAAdapter, UNet2DCondition)
@@ -51,6 +55,12 @@ def test_configs_are_copies_of_the_jax_presets():
     assert dataclasses.asdict(SDXL_UNET_TINY) == dataclasses.asdict(JAX_UNET_TINY)
     assert dataclasses.asdict(VAE_TINY) == dataclasses.asdict(JAX_VAE_TINY)
     assert dataclasses.asdict(BERT_TINY) == dataclasses.asdict(JAX_BERT_TINY)
+    for name in ("CLIP_VIT_L", "CLIP_BIG_G", "CLIP_TINY"):
+        assert dataclasses.asdict(getattr(port_text_cfg, name)) == dataclasses.asdict(
+            getattr(jax_text_cfg, name)), name
+    port_train = dataclasses.asdict(TrainConfig())
+    jax_train = dataclasses.asdict(JaxTrainConfig())
+    assert jax_train.pop("mesh_shape") and port_train == jax_train
     assert {k: dataclasses.asdict(v) for k, v in ADAPTER_PRESETS.items()} == {
         k: dataclasses.asdict(v)
         for k, v in jax_adapter_cfg.ADAPTER_PRESETS.items()}
@@ -154,3 +164,51 @@ def test_vae_tiny_decode_and_encode():
     _close(got_mean, mean)
     _close(got_logvar, logvar)
     assert_tree_equal(convert_vae(to_numpy_sd(pm), JAX_VAE_TINY), params)
+
+
+def test_vae_tiny_encode_sample_with_injected_eps():
+    """encode_sample = mean + exp(logvar / 2) * eps, with JAX's eps handed in."""
+    x = _rand(2, 16, 16, 3, seed=2)
+    jm = JaxVAE(JAX_VAE_TINY)
+    params = host_params(jm, x, jax.random.PRNGKey(1), seed=3)
+    pm = AutoencoderKL(VAE_TINY)
+    pm.load_state_dict(from_jax.vae_state_dict(params, VAE_TINY), strict=True)
+    key = jax.random.PRNGKey(4)
+    want = jax.jit(lambda p, x: jm.apply(p, x, key, method=jm.encode_sample))(params, x)
+    mean, _ = jm.apply(params, x, method=jm.encode_moments)
+    eps = np.asarray(jax.random.normal(key, mean.shape, mean.dtype))
+    _close(pm.encode_sample(t(x), eps=t(eps)), want)
+    drawn = pm.encode_sample(t(x), generator=torch.Generator().manual_seed(0))
+    assert drawn.shape == tuple(want.shape) and torch.isfinite(drawn).all()
+
+
+@pytest.mark.parametrize("hidden_act,projection_dim", [("quick_gelu", None), ("gelu", 24)])
+def test_clip_text_encoder(hidden_act, projection_dim):
+    """All four outputs (last, penultimate, pooled at the first eos,
+    projected) against the JAX encoder, and the convert_clip_text round
+    trip; one row has no eos (pooled from position 0)."""
+    from pea_diffusion_tpu.checkpoints.torch_convert import convert_clip_text
+    from pea_diffusion_tpu.configs.text_encoder import CLIPTextConfig as JaxCLIPConfig
+    from pea_diffusion_tpu.models.clip_text import CLIPTextEncoder as JaxCLIP
+    from pea_diffusion_tpu_torch.configs import CLIPTextConfig
+    from pea_diffusion_tpu_torch.models import CLIPTextEncoder
+
+    small = dict(vocab_size=300, hidden_size=32, num_layers=3, num_heads=4,
+                 intermediate_size=48, max_position_embeddings=16, eos_token_id=299,
+                 hidden_act=hidden_act, projection_dim=projection_dim)
+    ids = np.random.default_rng(1).integers(4, 299, (3, 16))
+    ids[0, 5] = ids[0, 9] = 299
+    ids[1, 15] = 299
+    jm = JaxCLIP(JaxCLIPConfig(**small))
+    params = host_params(jm, ids)
+    pm = CLIPTextEncoder(CLIPTextConfig(**small))
+    pm.load_state_dict(from_jax.clip_text_state_dict(params), strict=True)
+    want = jm.apply(params, ids)
+    got = pm(torch.from_numpy(ids))
+    for name in ("last_hidden_state", "penultimate_hidden_state", "pooled", "projected"):
+        w, g = getattr(want, name), getattr(got, name)
+        if projection_dim is None and name == "projected":
+            assert w is None and g is None
+            continue
+        _close(g, w)
+    assert_tree_equal(convert_clip_text(to_numpy_sd(pm), small["num_layers"]), params)
