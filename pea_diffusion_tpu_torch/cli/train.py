@@ -1,17 +1,25 @@
 """KD training CLI of the PyTorch port.
 
---demo trains the tiny random-weight stack on synthetic data (the JAX
-package's ``cli/train.py --demo``); --demo-full trains the full-width SDXL
-PEA stack (Chinese-CLIP RoBERTa-large student tower, the sdxl_chinese_clip
-adapter, CLIP ViT-L + OpenCLIP bigG teachers, the SDXL UNet and the fp32
-SDXL VAE encoder) with random weights made on the device, at micro-batch 10
-and 640x640 by default: real shapes and kernels, meaningless data. Training
-from real checkpoints and webdataset shards is not ported yet (ROADMAP
-Queue A items 9 and 14).
+--model picks SDXL (default) or SD1.5. --demo trains a tiny random-weight
+stack of that architecture on synthetic data (the JAX package's
+``cli/train.py --demo`` and ``tests/test_kd_sd15.py`` shapes); --demo-full
+trains the full-width PEA stack with random weights made on the device:
+real shapes and kernels, meaningless data.
+- SDXL: the Chinese-CLIP RoBERTa-large student tower, the sdxl_chinese_clip
+  adapter, CLIP ViT-L + OpenCLIP bigG teachers, the SDXL UNet and the fp32
+  SDXL VAE encoder, at micro-batch 10 and 640x640 by default
+  (``bench_train.py``).
+- SD1.5: the same student tower, the sd15_chinese_clip adapter, the CLIP
+  ViT-L teacher alone, the SD1.5 UNet and the fp32 SD1.5 VAE encoder, at
+  micro-batch 40 and 512x512 by default (the reference's train_sd_zh.py
+  operating point).
+Training from real checkpoints and webdataset shards is not ported yet
+(ROADMAP Queue A items 9 and 14).
 
 Usage:
   python -m pea_diffusion_tpu_torch.cli.train --demo --device cpu --steps 2 --output run
   python -m pea_diffusion_tpu_torch.cli.train --demo-full --steps 3 --output run
+  python -m pea_diffusion_tpu_torch.cli.train --model sd15 --demo-full --steps 3 --output run
 """
 from __future__ import annotations
 
@@ -22,76 +30,95 @@ import numpy as np
 import torch
 
 
-def build_demo(device="cuda", batch_size: int = 2, seed: int = 0):
-    """Tiny fp32 SDXL-architecture KD stack (the JAX package's
-    ``cli/train.py::build_demo`` shapes) and a synthetic batch stream
-    ``make_batches(start_step)``."""
-    from ..configs.adapter import AdapterConfig
+# --model's choices, with the (micro-batch, image side) of --demo-full: bench_train.py's SDXL operating
+# point; the reference's SD1.5 one (train_sd_zh.py, 40 per GPU at 512²)
+DEMO_FULL_DEFAULTS = {"sdxl": (10, 640), "sd15": (40, 512)}
+
+
+def build_demo(device="cuda", batch_size: int = 2, seed: int = 0, model: str = "sdxl"):
+    """Tiny fp32 KD stack and a synthetic batch stream
+    ``make_batches(start_step)``: SDXL-architecture with the dual CLIP
+    teacher (the JAX package's ``cli/train.py::build_demo`` shapes), or
+    SD1.5-architecture with one CLIP teacher as wide as the UNet's
+    cross-attention (``tests/test_kd_sd15.py``'s full path)."""
     from ..configs.text_encoder import BERT_TINY, CLIPTextConfig
-    from ..configs.unet import SDXL_UNET_TINY, VAE_TINY
+    from ..configs.unet import SD15_UNET_TINY, SDXL_UNET_TINY, VAE_TINY
     from ..pipelines.factory import build_kd_models
+    from .generate import tiny_adapter_config
 
     T, TT, IMG = 12, 16, 64
-    ucfg = SDXL_UNET_TINY
-    pooled = ucfg.projection_class_embeddings_input_dim - 6 * ucfg.addition_time_embed_dim
-    clip1 = CLIPTextConfig(vocab_size=500, hidden_size=24, num_layers=2,
-                           num_heads=2, intermediate_size=48,
-                           max_position_embeddings=TT, eos_token_id=499)
-    clip2 = CLIPTextConfig(vocab_size=500, hidden_size=40, num_layers=2,
-                           num_heads=2, intermediate_size=64,
-                           projection_dim=pooled, max_position_embeddings=TT,
-                           eos_token_id=499, hidden_act="gelu")
+    sd15 = model == "sd15"
+    ucfg = SD15_UNET_TINY if sd15 else SDXL_UNET_TINY
+    if sd15:
+        teachers = (CLIPTextConfig(vocab_size=500, hidden_size=ucfg.cross_attention_dim,
+                                   num_layers=2, num_heads=2, intermediate_size=64,
+                                   max_position_embeddings=TT, eos_token_id=499),)
+    else:
+        pooled = ucfg.projection_class_embeddings_input_dim - 6 * ucfg.addition_time_embed_dim
+        teachers = (CLIPTextConfig(vocab_size=500, hidden_size=24, num_layers=2,
+                                   num_heads=2, intermediate_size=48,
+                                   max_position_embeddings=TT, eos_token_id=499),
+                    CLIPTextConfig(vocab_size=500, hidden_size=40, num_layers=2,
+                                   num_heads=2, intermediate_size=64,
+                                   projection_dim=pooled, max_position_embeddings=TT,
+                                   eos_token_id=499, hidden_act="gelu"))
     models = build_kd_models(
-        family="chinese_clip", text_cfg=BERT_TINY,
-        adapter_cfg=AdapterConfig(BERT_TINY.hidden_size, (96, pooled),
-                                  head_dim=ucfg.cross_attention_dim),
-        unet_cfg=ucfg, vae_cfg=VAE_TINY, teacher_cfgs=(clip1, clip2),
+        family="chinese_clip", text_cfg=BERT_TINY, adapter_cfg=tiny_adapter_config(model),
+        unet_cfg=ucfg, vae_cfg=VAE_TINY, teacher_cfgs=teachers,
         dtype=torch.float32, device=device, seed=seed)
 
     def make_batches(start_step: int = 0):
         rng = np.random.RandomState(start_step)
         B = batch_size
         while True:
-            yield {
+            batch = {
                 "pixel_values": rng.uniform(-1, 1, (B, IMG, IMG, 3)).astype(np.float32),
                 "input_ids": rng.randint(4, 500, (B, T)),
                 "input_ids_uncond": np.full((B, T), 4),
                 "teacher_ids_1": rng.randint(4, 499, (B, TT)),
-                "teacher_ids_2": rng.randint(4, 499, (B, TT)),
                 "teacher_uncond_ids_1": np.full((B, TT), 4),
-                "teacher_uncond_ids_2": np.full((B, TT), 4),
-                "time_ids": np.tile(np.array([[IMG, IMG, 0, 0, IMG, IMG]],
-                                             np.float32), (B, 1)),
                 "zh_or_not": rng.randint(0, 2, (B,)).astype(np.float32),
             }
+            if not sd15:
+                batch.update({
+                    "teacher_ids_2": rng.randint(4, 499, (B, TT)),
+                    "teacher_uncond_ids_2": np.full((B, TT), 4),
+                    "time_ids": np.tile(np.array([[IMG, IMG, 0, 0, IMG, IMG]],
+                                                 np.float32), (B, 1))})
+            yield batch
 
     return models, make_batches
 
 
 def build_demo_full(device="cuda", batch_size: int = 10, size: int = 640,
-                    seed: int = 0):
-    """The full-width KD stack of the JAX package's ``bench_train.py`` with
-    random weights from `seed`: bf16 frozen towers and UNet, fp32 VAE
-    (encode in chunks of 2), fp32 adapter, full remat of the student UNet;
-    and a stream of synthetic batches made on the device (`size`² images,
-    52 student and 77 teacher tokens)."""
+                    seed: int = 0, model: str = "sdxl"):
+    """The full-width KD stack with random weights from `seed` (SDXL: the
+    JAX package's ``bench_train.py`` stack; SD1.5: the same with the SD1.5
+    UNet and VAE, the sd15_chinese_clip adapter and the CLIP ViT-L teacher
+    alone): bf16 frozen towers and UNet, fp32 VAE (encode in chunks of 2),
+    fp32 adapter, full remat of the student UNet; and a stream of synthetic
+    batches made on the device (`size`² images, 52 student and 77 teacher
+    tokens)."""
     from ..configs.adapter import ADAPTER_PRESETS
     from ..configs.text_encoder import CHINESE_CLIP_LARGE, CLIP_BIG_G, CLIP_VIT_L
-    from ..configs.unet import SDXL_UNET, SDXL_VAE
+    from ..configs.unet import SD15_UNET, SD15_VAE, SDXL_UNET, SDXL_VAE
     from ..pipelines.factory import build_kd_models
 
+    sd15 = model == "sd15"
     models = build_kd_models(
         family="chinese_clip", text_cfg=CHINESE_CLIP_LARGE,
-        adapter_cfg=ADAPTER_PRESETS["sdxl_chinese_clip"], unet_cfg=SDXL_UNET,
-        vae_cfg=SDXL_VAE, teacher_cfgs=(CLIP_VIT_L, CLIP_BIG_G),
+        adapter_cfg=ADAPTER_PRESETS["sd15_chinese_clip" if sd15 else "sdxl_chinese_clip"],
+        unet_cfg=SD15_UNET if sd15 else SDXL_UNET, vae_cfg=SD15_VAE if sd15 else SDXL_VAE,
+        teacher_cfgs=(CLIP_VIT_L,) if sd15 else (CLIP_VIT_L, CLIP_BIG_G),
         dtype=torch.bfloat16, vae_dtype=torch.float32, device=device, seed=seed)
     return models, lambda start_step=0: demo_full_batches(
-        models.device, batch_size, size, seed + 1 + start_step)
+        models.device, batch_size, size, seed + 1 + start_step, model)
 
 
-def demo_full_batches(device, batch_size: int, size: int, seed: int):
+def demo_full_batches(device, batch_size: int, size: int, seed: int, model: str = "sdxl"):
     """Synthetic full-width batches made on the device from `seed`: `size`²
-    images in [-1, 1], 52 student and 77 teacher tokens, random zh_or_not."""
+    images in [-1, 1], 52 student and 77 teacher tokens (one teacher tower's
+    for SD1.5, two and the SDXL time ids for SDXL), random zh_or_not."""
     from ..configs.text_encoder import CHINESE_CLIP_LARGE, CLIP_BIG_G, CLIP_VIT_L
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -101,19 +128,21 @@ def demo_full_batches(device, batch_size: int, size: int, seed: int):
         return torch.randint(lo, hi, shape, generator=gen, device=device)
 
     while True:
-        yield {
+        batch = {
             "pixel_values": torch.rand((B, size, size, 3), generator=gen,
                                        device=device) * 2 - 1,
             "input_ids": ints(4, CHINESE_CLIP_LARGE.vocab_size, (B, T)),
             "input_ids_uncond": torch.full((B, T), 4, device=device),
             "teacher_ids_1": ints(4, CLIP_VIT_L.vocab_size - 1, (B, TT)),
-            "teacher_ids_2": ints(4, CLIP_BIG_G.vocab_size - 1, (B, TT)),
             "teacher_uncond_ids_1": torch.full((B, TT), 4, device=device),
-            "teacher_uncond_ids_2": torch.full((B, TT), 4, device=device),
-            "time_ids": torch.tensor([[size, size, 0, 0, size, size]],
-                                     dtype=torch.float32, device=device).repeat(B, 1),
-            "zh_or_not": ints(0, 2, (B,)).float(),
         }
+        if model != "sd15":
+            batch["teacher_ids_2"] = ints(4, CLIP_BIG_G.vocab_size - 1, (B, TT))
+            batch["teacher_uncond_ids_2"] = torch.full((B, TT), 4, device=device)
+            batch["time_ids"] = torch.tensor([[size, size, 0, 0, size, size]],
+                                             dtype=torch.float32, device=device).repeat(B, 1)
+        batch["zh_or_not"] = ints(0, 2, (B,)).float()
+        yield batch
 
 
 def main(argv=None):
@@ -121,12 +150,15 @@ def main(argv=None):
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--demo", action="store_true", help="tiny random-weight stack")
     mode.add_argument("--demo-full", action="store_true",
-                      help="full-width SDXL KD stack with random weights")
+                      help="full-width KD stack with random weights")
+    ap.add_argument("--model", default="sdxl", choices=list(DEMO_FULL_DEFAULTS))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None,
-                    help="rows per step (default: 2 for --demo, 10 for --demo-full)")
-    ap.add_argument("--size", type=int, default=640, help="--demo-full image size")
+                    help="rows per step (default: 2 for --demo; for --demo-full 10 "
+                         "for sdxl, 40 for sd15)")
+    ap.add_argument("--size", type=int, default=None,
+                    help="--demo-full image size (default: 640 for sdxl, 512 for sd15)")
     ap.add_argument("--output", default="./checkpoints")
     ap.add_argument("--lr", type=float, default=1e-5)
     ap.add_argument("--every-n-steps", type=int, default=5000)
@@ -145,10 +177,12 @@ def main(argv=None):
 
     if args.demo:
         batch = args.batch_size or 2
-        models, make_batches = build_demo(args.device, batch)
+        models, make_batches = build_demo(args.device, batch, model=args.model)
     else:
-        batch = args.batch_size or 10
-        models, make_batches = build_demo_full(args.device, batch, args.size)
+        default_batch, default_size = DEMO_FULL_DEFAULTS[args.model]
+        batch = args.batch_size or default_batch
+        models, make_batches = build_demo_full(args.device, batch, args.size or default_size,
+                                               model=args.model)
     cfg = TrainConfig(
         learning_rate=args.lr, output_dir=args.output,
         every_n_steps=args.every_n_steps, log_every_n_steps=args.log_every,

@@ -67,6 +67,8 @@ class UNetConfig:
         return rev + (rev[-1],) * (n - len(rev))
 
 
+SD15_UNET = UNetConfig()  # the defaults are SD1.5
+
 SDXL_UNET = UNetConfig(
     block_out_channels=(320, 640, 1280),
     transformer_layers=(0, 2, 10),
@@ -78,7 +80,13 @@ SDXL_UNET = UNetConfig(
     use_linear_projection=True,
 )
 
-# Tiny config for tests (same topology, small dims).
+# Tiny configs for tests (same topology, small dims).
+SD15_UNET_TINY = UNetConfig(
+    block_out_channels=(32, 64, 64, 64),
+    num_attention_heads=(2, 2, 2, 2),
+    cross_attention_dim=64,
+    norm_num_groups=8,
+)
 SDXL_UNET_TINY = UNetConfig(
     block_out_channels=(32, 64, 128),
     transformer_layers=(0, 1, 2),
@@ -105,5 +113,6 @@ class VAEConfig:
     force_upcast: bool = True
 
 
+SD15_VAE = VAEConfig()
 SDXL_VAE = VAEConfig(scaling_factor=0.13025)
 VAE_TINY = VAEConfig(block_out_channels=(16, 32), norm_num_groups=8)

@@ -33,7 +33,10 @@
 //   K and V stream through two stages, as in the forward.
 // The TPU kernels walk 1024-row KV blocks because VMEM is large; here a
 // block holds 64 rows of each operand. Fusing B4 and B5 (dQ by atomics) is
-// later work.
+// later work. Head dims 40, 64, 80 and 128: the k-step and n-tile tails
+// and the zero padding of D = 40 are described in attention_common.cuh.
+// B4's fp32 dK and dV accumulators take D / 2 registers per thread each
+// (40 at D = 80), beside the S^T and dP^T tiles and the K/V fragments.
 //
 // Masking. KV rows at or past skv are zero-filled and their scores set to
 // -1e30, so P = 0 there; they are not stored. Q rows at or past sq read
@@ -59,13 +62,13 @@ struct BwdParams {
 };
 
 template <int D>
-constexpr int dq_smem_bytes() {  // [stage][K | V][row][D + kPad]
-  return kStages * 2 * kBlockN * (D + kPad) * 2;
+constexpr int dq_smem_bytes() {  // [stage][K | V][row][k_ld<D>]
+  return kStages * 2 * kBlockN * k_ld<D>() * 2;
 }
 
 template <int D>
 constexpr int dkdv_smem_bytes() {  // K | V, [stage][Q | dO], [stage][lse | delta]
-  return (2 + kStages * 2) * kBlockN * (D + kPad) * 2 + kStages * 2 * kBlockM * 4;
+  return (2 + kStages * 2) * kBlockN * k_ld<D>() * 2 + kStages * 2 * kBlockM * 4;
 }
 
 // Copies rows [q0, q0 + kBlockM) of lse (times log2(e)) and delta into
@@ -84,11 +87,11 @@ __device__ __forceinline__ void load_rows(float* dst, const float* lse, const fl
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkdv_kernel(const BwdParams p) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int kKSteps = D / 16;       // k-steps over the head dim
-  constexpr int kDTiles = D / 8;        // n-tiles of dK and dV
-  constexpr int kNTiles = kBlockM / 8;  // n-tiles of the S^T tile (Q rows)
-  constexpr int kLd = D + kPad;
+  static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
+  constexpr int kKSteps = k_dpad<D>() / 16;  // k-steps over the head dim
+  constexpr int kDTiles = D / 8;             // n-tiles of dK and dV
+  constexpr int kNTiles = kBlockM / 8;       // n-tiles of the S^T tile (Q rows)
+  constexpr int kLd = k_ld<D>();
   constexpr int kTile = kBlockN * kLd;
 
   extern __shared__ __align__(16) uint16_t smem[];
@@ -114,6 +117,7 @@ attention_bwd_dkdv_kernel(const BwdParams p) {
   const float* lsep = p.lse + bh * p.sq;
   const float* deltap = p.delta + bh * p.sq;
 
+  zero_pad_columns<D>(smem, (2 + kStages * 2) * kBlockN);
   load_tile_async<D>(kts, kp, D, n0, p.skv);
   load_tile_async<D>(vts, vp, D, n0, p.skv);
   load_tile_async<D>(stages, qp, D, 0, p.sq);
@@ -166,13 +170,8 @@ attention_bwd_dkdv_kernel(const BwdParams p) {
         for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < kKSteps; kk += 2) {
-          uint32_t b[4];
-          ldmatrix_x4(b, qs + (j * 8 + lm_row) * kLd + kk * 16 + lm_mat * 8);
-          MmaOp<T>::run(st[j], ka[kk], b);
-          MmaOp<T>::run(st[j], ka[kk + 1], b + 2);
-          ldmatrix_x4(b, dos + (j * 8 + lm_row) * kLd + kk * 16 + lm_mat * 8);
-          MmaOp<T>::run(dpt[j], va[kk], b);
-          MmaOp<T>::run(dpt[j], va[kk + 1], b + 2);
+          mma_ksteps<T, D>(st[j], ka, qs + (j * 8 + lm_row) * kLd, kk, lm_mat);
+          mma_ksteps<T, D>(dpt[j], va, dos + (j * 8 + lm_row) * kLd, kk, lm_mat);
         }
       }
     }
@@ -197,20 +196,15 @@ attention_bwd_dkdv_kernel(const BwdParams p) {
       dsa[j / 2][(j & 1) * 2 + 1] = MmaOp<T>::pack(dpt[j][2], dpt[j][3]);
     }
 
-    // dV += P^T dO, dK += dS^T Q: transposed ldmatrix gives the B operands
-    // (k = Q row, n = head-dim column) of two n-tiles for one k-step
+    // dV += P^T dO, dK += dS^T Q: dO and Q rows are the k index (Q row),
+    // their columns the n index (head-dim column), read transposed
 #pragma unroll
     for (int kk = 0; kk < kNTiles / 2; ++kk) {
+      const int off = (kk * 16 + (lm_mat & 1) * 8 + lm_row) * kLd;
 #pragma unroll
       for (int j = 0; j < kDTiles; j += 2) {
-        const int off = (kk * 16 + (lm_mat & 1) * 8 + lm_row) * kLd + (j + (lm_mat >> 1)) * 8;
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, dos + off);
-        MmaOp<T>::run(dv[j], pa[kk], b);
-        MmaOp<T>::run(dv[j + 1], pa[kk], b + 2);
-        ldmatrix_x4_trans(b, qs + off);
-        MmaOp<T>::run(dk[j], dsa[kk], b);
-        MmaOp<T>::run(dk[j + 1], dsa[kk], b + 2);
+        mma_ntiles<T, D>(dv, pa[kk], dos + off, j, lm_mat);
+        mma_ntiles<T, D>(dk, dsa[kk], qs + off, j, lm_mat);
       }
     }
     __syncthreads();  // the next prefetch overwrites this stage
@@ -233,13 +227,12 @@ attention_bwd_dkdv_kernel(const BwdParams p) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const BwdParams p) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int kKSteps = D / 16;
+__device__ __forceinline__ void bwd_dq(const BwdParams& p) {
+  static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
+  constexpr int kKSteps = k_dpad<D>() / 16;
   constexpr int kDTiles = D / 8;
   constexpr int kNTiles = kBlockN / 8;  // n-tiles of the S tile (KV rows)
-  constexpr int kLd = D + kPad;
+  constexpr int kLd = k_ld<D>();
   constexpr int kTile = kBlockN * kLd;
 
   extern __shared__ __align__(16) uint16_t smem[];  // [stage][K | V][row][kLd]
@@ -259,6 +252,7 @@ attention_bwd_dq_kernel(const BwdParams p) {
   const uint16_t* vp = static_cast<const uint16_t*>(p.v) + bh * p.skv * D;
 
   const int n_tiles = (p.skv + kBlockN - 1) / kBlockN;
+  zero_pad_columns<D>(smem, kStages * 2 * kBlockN);
   load_tile_async<D>(smem, kp, D, 0, p.skv);
   load_tile_async<D>(smem + kTile, vp, D, 0, p.skv);
   cp_async_commit();
@@ -304,13 +298,8 @@ attention_bwd_dq_kernel(const BwdParams p) {
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kKSteps; kk += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, ks + (j * 8 + lm_row) * kLd + kk * 16 + lm_mat * 8);
-        MmaOp<T>::run(s[j], qa[kk], b);
-        MmaOp<T>::run(s[j], qa[kk + 1], b + 2);
-        ldmatrix_x4(b, vs + (j * 8 + lm_row) * kLd + kk * 16 + lm_mat * 8);
-        MmaOp<T>::run(dp[j], da[kk], b);
-        MmaOp<T>::run(dp[j], da[kk + 1], b + 2);
+        mma_ksteps<T, D>(s[j], qa, ks + (j * 8 + lm_row) * kLd, kk, lm_mat);
+        mma_ksteps<T, D>(dp[j], da, vs + (j * 8 + lm_row) * kLd, kk, lm_mat);
       }
     }
 
@@ -329,18 +318,14 @@ attention_bwd_dq_kernel(const BwdParams p) {
       dsa[j / 2][(j & 1) * 2 + 1] = MmaOp<T>::pack(s[j][2], s[j][3]);
     }
 
-    // dQ += dS K: transposed ldmatrix of K gives the B operands (k = KV row,
-    // n = head-dim column) of two n-tiles for one k-step
+    // dQ += dS K: K's rows are the k index (KV row), its columns the n
+    // index (head-dim column), read transposed
 #pragma unroll
     for (int kk = 0; kk < kNTiles / 2; ++kk) {
 #pragma unroll
-      for (int j = 0; j < kDTiles; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, ks + (kk * 16 + (lm_mat & 1) * 8 + lm_row) * kLd +
-                                 (j + (lm_mat >> 1)) * 8);
-        MmaOp<T>::run(acc[j], dsa[kk], b);
-        MmaOp<T>::run(acc[j + 1], dsa[kk], b + 2);
-      }
+      for (int j = 0; j < kDTiles; j += 2)
+        mma_ntiles<T, D>(acc, dsa[kk], ks + (kk * 16 + (lm_mat & 1) * 8 + lm_row) * kLd, j,
+                         lm_mat);
     }
     __syncthreads();  // the next prefetch overwrites this stage
   }
@@ -359,6 +344,32 @@ attention_bwd_dq_kernel(const BwdParams p) {
 }
 
 template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdParams p) {
+  bwd_dq<T, D>(p);
+}
+
+// B5 at D = 64 asks for four blocks per SM, i.e. at most 128 registers a
+// thread: without the hint ptxas takes 131-132 and the SM holds three
+// blocks, 13 % slower at S = 1600 on the H100; with it a few bytes spill and
+// the time is back at that of the 128-register build. Only D = 64 launches this
+// variant: at D = 40 the hint spills more and runs slower than three blocks,
+// and a hint of one block lets ptxas take up to 255 registers.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 4) attention_bwd_dq_kernel_4blocks(const BwdParams p) {
+  bwd_dq<T, D>(p);
+}
+
+// The B5 kernel of one instantiation (only the variant used is compiled).
+template <typename T, int D>
+inline auto dq_kernel() {
+  if constexpr (D == 64) {
+    return attention_bwd_dq_kernel_4blocks<T, D>;
+  } else {
+    return attention_bwd_dq_kernel<T, D>;
+  }
+}
+
+template <typename T, int D>
 inline cudaError_t launch_dkdv(const BwdParams& p, int bh, int device, cudaStream_t stream) {
   constexpr int bytes = dkdv_smem_bytes<D>();
   static std::atomic<bool> opted_in[kMaxDevices];
@@ -373,29 +384,36 @@ template <typename T, int D>
 inline cudaError_t launch_dq(const BwdParams& p, int bh, int device, cudaStream_t stream) {
   constexpr int bytes = dq_smem_bytes<D>();
   static std::atomic<bool> opted_in[kMaxDevices];
-  const cudaError_t err = opt_in_smem(attention_bwd_dq_kernel<T, D>, bytes, device, opted_in);
+  const auto kernel = dq_kernel<T, D>();
+  const cudaError_t err = opt_in_smem(kernel, bytes, device, opted_in);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + kBlockM - 1) / kBlockM, bh);
-  attention_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, stream>>>(p);
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+inline cudaError_t launch_bwd(const BwdParams& p, bool dkdv, int bh, int device,
+                              cudaStream_t stream) {
+  return dkdv ? launch_dkdv<T, D>(p, bh, device, stream) : launch_dq<T, D>(p, bh, device, stream);
+}
+
+template <typename T>
+inline cudaError_t launch_bwd_dim(const BwdParams& p, bool dkdv, int bh, int head_dim,
+                                  int device, cudaStream_t stream) {
+  if (head_dim == 40) return launch_bwd<T, 40>(p, dkdv, bh, device, stream);
+  if (head_dim == 64) return launch_bwd<T, 64>(p, dkdv, bh, device, stream);
+  if (head_dim == 80) return launch_bwd<T, 80>(p, dkdv, bh, device, stream);
+  if (head_dim == 128) return launch_bwd<T, 128>(p, dkdv, bh, device, stream);
+  return cudaErrorInvalidValue;
 }
 
 // dtype: 0 = bfloat16, 1 = float16; `dkdv` picks B4, else B5.
 inline int launch_attention_bwd(const BwdParams& p, bool dkdv, int bh, int head_dim,
                                 int dtype, int device, cudaStream_t stream) {
   return on_device(device, [&]() -> cudaError_t {
-    if (dtype == 0 && head_dim == 64)
-      return dkdv ? launch_dkdv<__nv_bfloat16, 64>(p, bh, device, stream)
-                  : launch_dq<__nv_bfloat16, 64>(p, bh, device, stream);
-    if (dtype == 0 && head_dim == 128)
-      return dkdv ? launch_dkdv<__nv_bfloat16, 128>(p, bh, device, stream)
-                  : launch_dq<__nv_bfloat16, 128>(p, bh, device, stream);
-    if (dtype == 1 && head_dim == 64)
-      return dkdv ? launch_dkdv<__half, 64>(p, bh, device, stream)
-                  : launch_dq<__half, 64>(p, bh, device, stream);
-    if (dtype == 1 && head_dim == 128)
-      return dkdv ? launch_dkdv<__half, 128>(p, bh, device, stream)
-                  : launch_dq<__half, 128>(p, bh, device, stream);
+    if (dtype == 0) return launch_bwd_dim<__nv_bfloat16>(p, dkdv, bh, head_dim, device, stream);
+    if (dtype == 1) return launch_bwd_dim<__half>(p, dkdv, bh, head_dim, device, stream);
     return cudaErrorInvalidValue;
   });
 }
@@ -422,10 +440,11 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v, const v
 //
 // Bound on the H100: 8*BH*Sq*Skv*D operations (four products of the S^T
 // tile's size) on 2*BH*(2*Sq + 4*Skv)*D bytes plus 8*BH*Sq of lse and
-// delta. At the SDXL self-attention shapes (S = 1600 and 6400, D = 64) it is
-// bound by tensor-core operations; at the cross-attention shapes (Skv = 52)
-// by device memory, and there one block per (bh, KV tile) walks all of Sq
-// alone: with one KV tile per head, BH blocks serialise 100 Q tiles each.
+// delta. At the self-attention shapes (SDXL: S = 1600, D = 64; SD1.5: S =
+// 4096 at D = 40, 1024 at D = 80) it is bound by tensor-core operations; at
+// the cross-attention shapes (Skv = 52) by device memory, and there one
+// block per (bh, KV tile) walks all of Sq alone: with one KV tile per head,
+// BH blocks serialise Sq / 64 Q tiles each.
 extern "C" int pea_flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
                                             const void* dout, const float* lse,
                                             const float* delta, void* dk, void* dv, int bh,

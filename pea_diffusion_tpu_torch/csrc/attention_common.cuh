@@ -2,6 +2,21 @@
 // (attention_fwd.cu: B1, B3; attention_bwd.cu: B4, B5): tile sizes, the
 // bf16/fp16 mma.sync.m16n8k16 wrapper, ldmatrix, cp.async, the tile loader
 // and the per-device launch helpers. Header-only: every function is inline.
+//
+// Head dims. The kernels take D = 40, 64, 80 and 128 (SD1.5's 40 and 80,
+// SDXL's 64). A product over D runs in k-steps of 16 columns: D = 80 has
+// five, an odd number, so the loops that load two k-steps per ldmatrix.x4
+// finish with one x2 load (mma_ksteps). D = 40 is not a multiple of 16: its
+// contraction is padded to kDPad = 48 with zeros, on both operands. Q and
+// dO fragments read from device memory give 0 for columns 40-47
+// (load_a_fragments; reading them would take the next row's values, or run
+// past the tensor's end on its last row), and columns 40-47 of every
+// shared-memory tile, which cp.async never writes, are zeroed once when a
+// block starts (zero_pad_columns), so that no uninitialised bits (possibly
+// a NaN) enter a product. The products over KV rows give D / 8 output
+// n-tiles, five at D = 40: the loops that pair n-tiles per transposed
+// ldmatrix.x4 finish with one x2 load (mma_ntiles). The tensors keep their
+// true D: nothing is padded in device memory, and the scale is 1/sqrt(D).
 #pragma once
 
 #include <atomic>
@@ -23,6 +38,14 @@ constexpr int kStages = 2;    // K/V tiles in flight
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// The head dim padded to whole k-steps of 16, and the shared-memory row
+// stride: 8 elements past it keep ldmatrix's eight row reads on distinct
+// banks (row strides of 112, 144, 176 and 272 bytes).
+template <int D>
+__host__ __device__ constexpr int k_dpad() { return (D + 15) / 16 * 16; }
+template <int D>
+__host__ __device__ constexpr int k_ld() { return k_dpad<D>() + kPad; }
 
 template <typename T>
 struct MmaOp;
@@ -78,6 +101,78 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) 
                : "r"(smem_addr(row)));
 }
 
+// Two 8x8 matrices; lanes 0-15 give the row addresses (lane i: row i % 8 of
+// matrix i / 8), the other lanes' addresses are not read.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(row)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(row)));
+}
+
+// c (one m16n8 tile) += A . B^T over k-steps kk and kk + 1 of the padded
+// head dim, or over k-step kk alone when it is the odd last one (D = 40,
+// 80): A is a warp's 16 rows as register fragments a[k-step], B's 8 rows
+// (the n index) lie in shared memory, `brow` pointing at row (lane % 8) of
+// them. Two k-steps take one ldmatrix.x4, a lone one an x2. Callers step
+// kk by 2 and, where they run two products over the same k-steps, call it
+// for both in turn, so the two products' loads and mma interleave.
+template <typename T, int D>
+__device__ __forceinline__ void mma_ksteps(float* c, const uint32_t (*a)[4],
+                                           const uint16_t* brow, int kk, int lm_mat) {
+  if (kk + 1 < k_dpad<D>() / 16) {
+    uint32_t b[4];
+    ldmatrix_x4(b, brow + kk * 16 + lm_mat * 8);
+    MmaOp<T>::run(c, a[kk], b);
+    MmaOp<T>::run(c, a[kk + 1], b + 2);
+  } else {
+    uint32_t b[2];
+    ldmatrix_x2(b, brow + kk * 16 + (lm_mat & 1) * 8);
+    MmaOp<T>::run(c, a[kk], b);
+  }
+}
+
+// acc[j] and acc[j + 1] (output n-tiles of 8 head-dim columns) += A . B,
+// or acc[j] alone when it is the odd last n-tile (D = 40), for one k-step
+// of 16 rows of a shared-memory tile: A is the m16k16 fragment `a`, B those
+// 16 rows with the head dim as n, read transposed (one ldmatrix.x4 for two
+// n-tiles, an x2 for one); `brow` points at row (lm_mat & 1) * 8 + lane % 8
+// of the 16. Callers step j by 2 over the D / 8 n-tiles.
+template <typename T, int D>
+__device__ __forceinline__ void mma_ntiles(float (*acc)[4], const uint32_t* a,
+                                           const uint16_t* brow, int j, int lm_mat) {
+  if (j + 1 < D / 8) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, brow + (j + (lm_mat >> 1)) * 8);
+    MmaOp<T>::run(acc[j], a, b);
+    MmaOp<T>::run(acc[j + 1], a, b + 2);
+  } else {
+    uint32_t b[2];
+    ldmatrix_x2_trans(b, brow + j * 8);
+    MmaOp<T>::run(acc[j], a, b);
+  }
+}
+
+// Zeroes columns [D, kDPad) of `rows` shared-memory rows of stride k_ld<D>:
+// the padded part of the contraction, which cp.async never writes. A block
+// calls it once before its first copy; nothing to do where D % 16 == 0.
+template <int D>
+__device__ __forceinline__ void zero_pad_columns(uint16_t* smem, int rows) {
+  if constexpr (k_dpad<D>() > D) {
+    static_assert((k_dpad<D>() - D) % 8 == 0, "pad is whole 16-byte chunks");
+    for (int c = threadIdx.x; c < rows * (k_dpad<D>() - D) / 8; c += kThreads) {
+      const int per_row = (k_dpad<D>() - D) / 8;
+      *reinterpret_cast<uint4*>(smem + (c / per_row) * k_ld<D>() + D + (c % per_row) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
 // 16-byte asynchronous copy global -> shared; zero-fills when !valid.
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -93,13 +188,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// Start copying rows [row0, row0 + kBlockN) of one (batch, head) K or V
-// slice into a shared-memory tile; rows at or past `rows` are zero-filled so
-// that masked columns contribute exactly 0 to P.V.
-// A-operand fragments (m16k16, one per k-step of 16 columns) of the 16 rows
-// [row0, row0 + 16) of a row-major [rows, D] slice, read straight from
-// device memory by a warp (g = lane / 4, t = lane % 4); rows at or past
-// `rows` read as 0.
+// A-operand fragments (m16k16, one per k-step of 16 columns of the padded
+// head dim) of the 16 rows [row0, row0 + 16) of a row-major [rows, D]
+// slice, read straight from device memory by a warp (g = lane / 4,
+// t = lane % 4); rows at or past `rows`, and columns at or past D, read as
+// 0. D % 8 == 0, so a column half is wholly in or out of the row, known at
+// compile time.
 template <int D>
 __device__ __forceinline__ void load_a_fragments(uint32_t (*a)[4], const uint16_t* src,
                                                  long long row_stride, int row0, int rows,
@@ -107,15 +201,19 @@ __device__ __forceinline__ void load_a_fragments(uint32_t (*a)[4], const uint16_
   const int ra = row0 + g, rb = row0 + g + 8;
   const bool va = ra < rows, vb = rb < rows;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < k_dpad<D>() / 16; ++kk) {
     const int c = kk * 16 + t * 2;
+    const bool hi = kk * 16 + 8 < D;  // columns c + 8, c + 9 inside the row
     a[kk][0] = va ? *reinterpret_cast<const uint32_t*>(src + ra * row_stride + c) : 0u;
     a[kk][1] = vb ? *reinterpret_cast<const uint32_t*>(src + rb * row_stride + c) : 0u;
-    a[kk][2] = va ? *reinterpret_cast<const uint32_t*>(src + ra * row_stride + c + 8) : 0u;
-    a[kk][3] = vb ? *reinterpret_cast<const uint32_t*>(src + rb * row_stride + c + 8) : 0u;
+    a[kk][2] = va && hi ? *reinterpret_cast<const uint32_t*>(src + ra * row_stride + c + 8) : 0u;
+    a[kk][3] = vb && hi ? *reinterpret_cast<const uint32_t*>(src + rb * row_stride + c + 8) : 0u;
   }
 }
 
+// Start copying rows [row0, row0 + kBlockN) of one (batch, head) slice, D
+// columns each, into a shared-memory tile of stride k_ld<D>; rows at or past
+// `rows` are zero-filled so that masked columns contribute exactly 0.
 template <int D>
 __device__ __forceinline__ void load_tile_async(uint16_t* dst, const uint16_t* src,
                                                 long long row_stride, int row0,
@@ -126,7 +224,7 @@ __device__ __forceinline__ void load_tile_async(uint16_t* dst, const uint16_t* s
     const int col = (c % kChunks) * 8;
     const bool valid = row0 + r < rows;
     const uint16_t* from = valid ? src + (long long)(row0 + r) * row_stride + col : src;
-    cp_async_16(dst + r * (D + kPad) + col, from, valid);
+    cp_async_16(dst + r * k_ld<D>() + col, from, valid);
   }
 }
 

@@ -59,18 +59,18 @@ struct AttnParams {
 
 template <int D>
 constexpr int smem_bytes() {
-  return kStages * 2 * kBlockN * (D + kPad) * 2;
+  return kStages * 2 * kBlockN * k_ld<D>() * 2;
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const AttnParams p) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int kKSteps = D / 16;      // k-steps of Q.K^T
-  constexpr int kDTiles = D / 8;       // n-tiles of the output
-  constexpr int kNTiles = kBlockN / 8; // n-tiles of the score tile
-  constexpr int kLd = D + kPad;        // shared-memory row stride
-  constexpr int kTile = kBlockN * kLd; // elements of one K or V tile
+  static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
+  constexpr int kKSteps = k_dpad<D>() / 16;  // k-steps of Q.K^T
+  constexpr int kDTiles = D / 8;             // n-tiles of the output
+  constexpr int kNTiles = kBlockN / 8;       // n-tiles of the score tile
+  constexpr int kLd = k_ld<D>();             // shared-memory row stride
+  constexpr int kTile = kBlockN * kLd;       // elements of one K or V tile
 
   extern __shared__ __align__(16) uint16_t smem[];  // [stage][K | V][row][kLd]
 
@@ -87,6 +87,7 @@ attention_fwd_kernel(const AttnParams p) {
   const uint16_t* vp = static_cast<const uint16_t*>(p.v) + bidx * p.v_batch_stride + head * p.v_head_stride;
 
   const int n_tiles = (p.skv + kBlockN - 1) / kBlockN;
+  zero_pad_columns<D>(smem, kStages * 2 * kBlockN);
   load_tile_async<D>(smem, kp, p.k_row_stride, 0, p.skv);
   load_tile_async<D>(smem + kTile, vp, p.v_row_stride, 0, p.skv);
   cp_async_commit();
@@ -122,19 +123,14 @@ attention_fwd_kernel(const AttnParams p) {
     const uint16_t* ks = smem + (tile % kStages) * 2 * kTile;
     const uint16_t* vs = ks + kTile;
 
-    // S = Q.K^T for this warp's 16 rows x 64 KV columns, fp32. One
-    // ldmatrix.x4 gives the B operands of one n-tile for two k-steps.
+    // S = Q.K^T for this warp's 16 rows x 64 KV columns, fp32
     float s[kNTiles][4];
 #pragma unroll
     for (int j = 0; j < kNTiles; ++j) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; kk += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, ks + (j * 8 + lm_row) * kLd + kk * 16 + lm_mat * 8);
-        MmaOp<T>::run(s[j], qa[kk], b);
-        MmaOp<T>::run(s[j], qa[kk + 1], b + 2);
-      }
+      for (int kk = 0; kk < kKSteps; kk += 2)
+        mma_ksteps<T, D>(s[j], qa, ks + (j * 8 + lm_row) * kLd, kk, lm_mat);
     }
 
     // scale into the log2 domain, mask the KV tail, tile row max
@@ -188,18 +184,14 @@ attention_fwd_kernel(const AttnParams p) {
       acc[j][3] *= corr[1];
     }
 
-    // O += P.V: one transposed ldmatrix.x4 gives the B operands (k = KV
-    // row, n = head-dim column) of two output n-tiles for one k-step
+    // O += P.V: V's rows are the k index (KV row), its columns the n index
+    // (head-dim column), read transposed
 #pragma unroll
     for (int kk = 0; kk < kNTiles / 2; ++kk) {
 #pragma unroll
-      for (int j = 0; j < kDTiles; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vs + (kk * 16 + (lm_mat & 1) * 8 + lm_row) * kLd +
-                                 (j + (lm_mat >> 1)) * 8);
-        MmaOp<T>::run(acc[j], pa[kk], b);
-        MmaOp<T>::run(acc[j + 1], pa[kk], b + 2);
-      }
+      for (int j = 0; j < kDTiles; j += 2)
+        mma_ntiles<T, D>(acc, pa[kk], vs + (kk * 16 + (lm_mat & 1) * 8 + lm_row) * kLd, j,
+                         lm_mat);
     }
     __syncthreads();  // the next prefetch overwrites this stage
   }
@@ -224,7 +216,7 @@ attention_fwd_kernel(const AttnParams p) {
 
 // Launches one instantiation on the current device (`device`). D = 128
 // needs more than the default 48 KB of dynamic shared memory and opts in
-// once per device; D = 64 needs 36 KB.
+// once per device; D = 40, 64 and 80 need 28, 36 and 44 KB.
 template <typename T, int D>
 inline cudaError_t launch(const AttnParams& p, dim3 grid, int device, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
@@ -241,10 +233,17 @@ inline int launch_attention_fwd(const AttnParams& p, int batch, int head_dim,
                                 int dtype, int device, cudaStream_t stream) {
   const dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.heads, batch);
   return on_device(device, [&]() -> cudaError_t {
-    if (dtype == 0 && head_dim == 64) return launch<__nv_bfloat16, 64>(p, grid, device, stream);
-    if (dtype == 0 && head_dim == 128) return launch<__nv_bfloat16, 128>(p, grid, device, stream);
-    if (dtype == 1 && head_dim == 64) return launch<__half, 64>(p, grid, device, stream);
-    if (dtype == 1 && head_dim == 128) return launch<__half, 128>(p, grid, device, stream);
+    if (dtype == 0) {
+      if (head_dim == 40) return launch<__nv_bfloat16, 40>(p, grid, device, stream);
+      if (head_dim == 64) return launch<__nv_bfloat16, 64>(p, grid, device, stream);
+      if (head_dim == 80) return launch<__nv_bfloat16, 80>(p, grid, device, stream);
+      if (head_dim == 128) return launch<__nv_bfloat16, 128>(p, grid, device, stream);
+    } else if (dtype == 1) {
+      if (head_dim == 40) return launch<__half, 40>(p, grid, device, stream);
+      if (head_dim == 64) return launch<__half, 64>(p, grid, device, stream);
+      if (head_dim == 80) return launch<__half, 80>(p, grid, device, stream);
+      if (head_dim == 128) return launch<__half, 128>(p, grid, device, stream);
+    }
     return cudaErrorInvalidValue;
   });
 }
@@ -291,12 +290,17 @@ extern "C" int pea_onepass_attention_fwd(const void* q, const void* k, const voi
 // parts are dropped: D is not padded to 128 lanes and lse is a plain
 // [BH, Sq] array instead of the [BH, 8, Sq] lane layout.
 //
-// Bound on the H100: on the main path this runs the SDXL cross-attention,
-// Sq = 1024 or 4096 query rows against Skv = 52 text tokens at D = 64. The
-// work is 4*BH*Sq*Skv*D operations on 2*BH*(2*Sq + 2*Skv)*D bytes, about 50
+// Bound on the H100: on the SDXL path this runs the cross-attention, Sq =
+// 1024 or 4096 query rows against Skv = 52 text tokens at D = 64. The work
+// is 4*BH*Sq*Skv*D operations on 2*BH*(2*Sq + 2*Skv)*D bytes, about 50
 // operations per byte, below the card's ~295: it is bound by device memory.
 // Each query row is read once and written once, and K/V (52 rows, one
-// tile) are read once per 64-row block and then hit in L2.
+// tile) are read once per 64-row block and then hit in L2. On the SD1.5
+// path it runs every attention call of levels 0 and 1 (D = 40 at S = 4096,
+// D = 80 at S = 1024): the cross-attention as above, the self-attention
+// (S/2 operations per byte, 2048 and 512) bound by tensor-core operations.
+// D = 40 pads its Q.K^T contraction to 48 in registers and shared memory
+// only, a fifth more products than the bound counts.
 extern "C" int pea_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        void* o, float* lse, int bh, int sq, int skv,
                                        int head_dim, float scale, int dtype, int device,

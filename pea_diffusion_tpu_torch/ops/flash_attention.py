@@ -67,11 +67,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
+# Head dims the kernels are built for: SD1.5's 40 and 80, SDXL's 64, and 128.
+HEAD_DIMS = (40, 64, 80, 128)
+
+
 def _check_shapes(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     bh, sq, d = q.shape
     skv = k.shape[1]
-    if d not in (64, 128):
-        raise ValueError(f"{what}: head_dim {d} (takes 64 or 128)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {d} (takes {', '.join(map(str, HEAD_DIMS))})")
     if k.shape != (bh, skv, d) or v.shape != k.shape or skv < 1 or sq < 1:
         raise ValueError(f"{what}: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -81,7 +85,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: Optional[float] = None, with_lse: bool = False):
     """[BH, Sq, D] x [BH, Skv, D] -> out [BH, Sq, D] (+ fp32 lse [BH, Sq]).
 
-    CUDA tensors (bfloat16 or float16, D 64 or 128) launch the Hopper kernel
+    CUDA tensors (bfloat16 or float16, D in ``HEAD_DIMS``) launch the Hopper kernel
     and count the launch in ``flash_forward.launches`` (and, with the lse,
     in ``flash_forward.lse_launches`` too); anything the kernel does not
     take raises, and so do inputs that need a gradient. CPU tensors run

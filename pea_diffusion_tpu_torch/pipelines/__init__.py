@@ -1,12 +1,13 @@
 from .factory import build_models
 from .sampling import make_sampler, rescale_noise_cfg
-from .text2image import (PEAModels, StableDiffusionXLPEAPipeline, cfg_combine,
-                         decode_latents, denoise_loop, encode_prompt_sdxl,
-                         generate_sdxl, make_add_time_ids, to_pil)
+from .text2image import (PEAModels, StableDiffusionPEAPipeline,
+                         StableDiffusionXLPEAPipeline, cfg_combine, decode_latents,
+                         denoise_loop, encode_prompt_sd, encode_prompt_sdxl,
+                         generate_sd, generate_sdxl, make_add_time_ids, to_pil)
 
 __all__ = [
     "build_models", "make_sampler", "rescale_noise_cfg", "PEAModels",
-    "StableDiffusionXLPEAPipeline", "cfg_combine", "decode_latents",
-    "denoise_loop", "encode_prompt_sdxl", "generate_sdxl",
-    "make_add_time_ids", "to_pil",
+    "StableDiffusionPEAPipeline", "StableDiffusionXLPEAPipeline", "cfg_combine",
+    "decode_latents", "denoise_loop", "encode_prompt_sd", "encode_prompt_sdxl",
+    "generate_sd", "generate_sdxl", "make_add_time_ids", "to_pil",
 ]

@@ -1,6 +1,10 @@
 """Builds a PEA deployment (text tower + adapter + UNet + VAE), or the KD
-training stack (the same plus the CLIP teacher towers), with random weights
-made on the device (port of ``pea_diffusion_tpu/pipelines/factory.py``).
+training stack (the same plus the CLIP teacher towers: CLIP ViT-L and bigG
+for SDXL, ViT-L alone for SD1.5), with random weights made on the device
+(port of ``pea_diffusion_tpu/pipelines/factory.py``). The configs decide
+the model: the VAE's scaling factor (0.18215 for SD1.5, 0.13025 for SDXL)
+comes from its config; both models share one noise schedule
+(``SD15_SCHEDULE`` is ``SDXL_SCHEDULE``, as in the reference checkpoints).
 
 Modules are created on the meta device, given storage on the target device,
 and filled there from one seeded ``torch.Generator``: norm weights 1, biases
@@ -102,7 +106,9 @@ def build_kd_models(*, teacher_cfgs: Tuple[CLIPTextConfig, ...],
     stack (`stack` and `dtype` as there) with the adapter computing in
     fp32, as the JAX package's training adapter does, and the only
     trainable part; plus the frozen CLIP teachers in `dtype`, from seed
-    `seed` + 1. The VAE encodes in chunks of `vae_encode_chunk` samples."""
+    `seed` + 1: two configs for SDXL's dual teacher, one for SD1.5's
+    (``teacher_clip2`` is then None). The VAE encodes in chunks of
+    `vae_encode_chunk` samples."""
     from ..train.kd import KDModels
 
     m = build_models(dtype=dtype, adapter_dtype=torch.float32, device=device,

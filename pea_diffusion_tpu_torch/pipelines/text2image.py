@@ -1,9 +1,12 @@
-"""PEA text-to-image for SDXL (port of ``pea_diffusion_tpu/pipelines/text2image.py``).
+"""PEA text-to-image for SD1.5 and SDXL (port of
+``pea_diffusion_tpu/pipelines/text2image.py``).
 
 Prompt ids go through the text tower and the PEA adapter (the negative prompt
 too), the UNet runs the CFG pair as one batch ([uncond; cond]) under the
 sampler with `cfg_combine` after each step, and the VAE decodes the latents
-to NHWC images in [0, 1]. Generation runs under ``torch.inference_mode()``.
+to NHWC images in [0, 1]. SD1.5's adapter gives the cross-attention states
+only; SDXL's also the pooled embedding for the added conditioning.
+Generation runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -108,6 +111,15 @@ def make_add_time_ids(original_size, crops_coords_top_left, target_size,
     return ids[None].repeat(batch, 1)
 
 
+def encode_prompt_sd(models: PEAModels, ids: torch.Tensor,
+                     uncond_ids: torch.Tensor) -> torch.Tensor:
+    """Adapter-projected cross-attention states [2B, T, 768], CFG-stacked
+    [uncond; cond]. The negative prompt also goes through the adapter."""
+    seq = models.adapter(models.text_encoder_fn(ids))
+    seq_u = models.adapter(models.text_encoder_fn(uncond_ids))
+    return torch.cat([seq_u, seq], dim=0)
+
+
 def encode_prompt_sdxl(models: PEAModels, ids: torch.Tensor,
                        uncond_ids: torch.Tensor):
     """Adapter-projected (context [2B, T, 2048], pooled [2B, 1280]),
@@ -122,6 +134,39 @@ def encode_prompt_sdxl(models: PEAModels, ids: torch.Tensor,
 
 def _ids(ids, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(ids), dtype=torch.long, device=device)
+
+
+def _initial_noise(shape, generator, init_noise, device) -> torch.Tensor:
+    if init_noise is None:
+        return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return torch.as_tensor(init_noise, dtype=torch.float32, device=device)
+
+
+def generate_sd(models: PEAModels, ids, uncond_ids, *,
+                generator: Optional[torch.Generator] = None,
+                sampler_name: str = "dpm++", height: int = 512, width: int = 512,
+                num_steps: int = 30, guidance_scale: float = 7.5,
+                init_noise=None) -> torch.Tensor:
+    """SD1.5: ids, uncond_ids [B, T] -> images [B, height, width, 3] in
+    [0, 1], always with CFG. `init_noise` [B, H/8, W/8, C] replaces the
+    initial latents drawn from `generator`."""
+    device = models.device
+    with torch.inference_mode():
+        ids, uncond_ids = _ids(ids, device), _ids(uncond_ids, device)
+        context = encode_prompt_sd(models, ids, uncond_ids)
+        b = ids.shape[0]
+        sampler = make_sampler(sampler_name, models.schedule, num_steps)
+        noise = _initial_noise((b, height // 8, width // 8, models.unet.config.in_channels),
+                               generator, init_noise, device)
+        gs = torch.as_tensor(guidance_scale, dtype=torch.float32, device=device)
+
+        def eps_fn(x, i):
+            t = torch.full((2 * b,), int(sampler.timesteps[i]), dtype=torch.long,
+                           device=device)
+            out = models.unet(torch.cat([x, x], dim=0), t, context).float()
+            return cfg_combine(out, gs)
+
+        return decode_latents(models, denoise_loop(eps_fn, sampler, noise))
 
 
 def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
@@ -148,12 +193,8 @@ def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
         if not do_cfg:
             context, pooled = context[b:], pooled[b:]
         sampler = make_sampler(sampler_name, models.schedule, num_steps)
-        if init_noise is None:
-            noise = torch.randn((b, height // 8, width // 8, 4),
-                                generator=generator, dtype=torch.float32,
-                                device=device)
-        else:
-            noise = torch.as_tensor(init_noise, dtype=torch.float32, device=device)
+        noise = _initial_noise((b, height // 8, width // 8, 4), generator, init_noise,
+                               device)
         mult = 2 if do_cfg else 1
         time_ids = make_add_time_ids(
             original_size or (height, width), crops_coords_top_left,
@@ -171,6 +212,23 @@ def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
 
         latents = denoise_loop(eps_fn, sampler, noise)
         return decode_latents(models, latents)
+
+
+class StableDiffusionPEAPipeline:
+    """SD1.5 + PEA adapter (seq-only projection). Calling it returns the
+    images as a [B, H, W, 3] tensor in [0, 1]."""
+
+    def __init__(self, models: PEAModels, sampler_name: str = "dpm++"):
+        self.models, self.sampler_name = models, sampler_name
+
+    def __call__(self, ids, uncond_ids, *, height=512, width=512, num_steps=30,
+                 guidance_scale=7.5, seed=0, init_noise=None) -> torch.Tensor:
+        gen = torch.Generator(device=self.models.device).manual_seed(seed)
+        return generate_sd(
+            self.models, ids, uncond_ids, generator=gen,
+            sampler_name=self.sampler_name, height=height, width=width,
+            num_steps=num_steps, guidance_scale=float(guidance_scale),
+            init_noise=init_noise)
 
 
 class StableDiffusionXLPEAPipeline:

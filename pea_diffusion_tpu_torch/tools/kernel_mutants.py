@@ -20,8 +20,14 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 MASK = "if (ragged && n0 + j * 8 + t * 2 + (e & 1) >= p.skv) x = kNegInf;"
-FWD, BWD = "attention_fwd.cu", "attention_bwd.cu"
+FWD, BWD, COMMON = "attention_fwd.cu", "attention_bwd.cu", "attention_common.cuh"
 B4_P = "const float pr = exp2f(x - ls[col]);"
+# D = 40: the zeroing of shared-memory columns 40-47, and the guard that
+# makes load_a_fragments give 0 for them instead of reading past the row
+PAD_ZERO = ("      *reinterpret_cast<uint4*>(smem + (c / per_row) * k_ld<D>() + D + "
+            "(c % per_row) * 8) =\n          make_uint4(0u, 0u, 0u, 0u);\n")
+PAD_UNZEROED = (COMMON, PAD_ZERO, "      (void)per_row;\n")
+A_PAST_D = (COMMON, "const bool hi = kk * 16 + 8 < D;", "const bool hi = true;")
 
 # (what, [(source, text in it, its replacement)], must the check catch it?)
 MUTANTS = [
@@ -42,6 +48,20 @@ MUTANTS = [
      [(BWD, "        if (kv_masked[e >> 1]) x = kNegInf;\n", ""),
       (BWD, "        if (n0 + j * 8 + t * 2 + (e & 1) >= p.skv) x = kNegInf;\n", "")],
      False),
+    # D = 40. Left unzeroed, the pad columns of the shared-memory tiles keep
+    # what an earlier kernel left there. B3 and B5 multiply them (K, V) with
+    # Q / dO fragments that load_a_fragments zeroes, so only a NaN or Inf
+    # there would show; B4 takes both operands of S^T = K Q^T and dP^T =
+    # V dO^T from shared-memory tiles, so the stale values meet each other
+    # and dK / dV change. The fragments reading past D (the next row's first
+    # 8 values) meet zeroed K / V columns in B3 and B5, and B4 does not read
+    # fragments from device memory: that guard cannot change the output on
+    # its own (it keeps the last row's read inside the tensor); both faults
+    # at once put stale values times Q into every score of B3 and B5.
+    ("D=40: shared-memory pad columns 40-47 left unzeroed", [PAD_UNZEROED], True),
+    ("D=40: load_a_fragments reads columns 40-47 (the next row) as Q / dO", [A_PAST_D],
+     False),
+    ("D=40: both of the above", [PAD_UNZEROED, A_PAST_D], True),
 ]
 
 _RUN = """

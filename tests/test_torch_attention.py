@@ -1,7 +1,8 @@
 """The port's attention kernels (B1 one-pass, B3 flash forward, B4/B5 flash
 backward) and the differentiable functions over them (flash_attention,
 bshd_attention) held against the JAX package's Pallas kernels and custom
-VJPs, run in interpret mode on the CPU.
+VJPs, run in interpret mode on the CPU, at SDXL's head dim 64 and SD1.5's
+40 and 80 (which the JAX kernels pad to 128 lanes, and the port's do not).
 
 On the CPU the port's wrappers run their plain versions; the tolerance is
 the JAX package's own kernel tests' (fp32, atol 2e-5 forward, 2e-4 to 3e-4
@@ -70,6 +71,41 @@ def test_flash_ref_matches_jax_kernel(with_lse):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("d,sq,skv", [
+    (40, 300, 77),    # SD1.5 level-0 heads; teacher-length KV
+    (40, 130, 200),   # ragged Sq and Skv over blocks of 128
+    (80, 300, 52),    # SD1.5 level-1 heads; student-length KV
+    (80, 257, 300),
+])
+def test_flash_ref_matches_jax_kernel_sd15_head_dims(d, sq, skv, with_lse):
+    bh = 2
+    q, k, v = _qkv((bh, sq, d), (bh, skv, d), seed=d + sq + skv)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    scale = 1.0 / np.sqrt(d)  # the true head dim's, as JAX takes it before padding
+    want = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+                          block_q=128, block_k=128, interpret=True, with_lse=with_lse)
+    got = flash_attention.flash_forward(tq, tk, tv, with_lse=with_lse)
+    if with_lse:
+        (want, want_lse), (got, got_lse) = want, got
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=ATOL)
+    assert got.shape == (bh, sq, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_kernel_shape_check_names_the_head_dim():
+    """What the CUDA kernels take: head dims 40, 64, 80 and 128. Any other
+    (SD1.5's 160 at level 2 and the mid block among them) raises before a
+    launch, naming the width."""
+    for d in flash_attention.HEAD_DIMS:
+        x = torch.zeros(2, 8, d)
+        flash_attention._check_shapes("flash kernel", x, x, x)
+    for d in (160, 32, 96, 48):
+        x = torch.zeros(2, 8, d)
+        with pytest.raises(ValueError, match=f"head_dim {d} "):
+            flash_attention._check_shapes("flash kernel", x, x, x)
+
+
 def test_cpu_wrappers_run_plain_versions_without_launching():
     q, k, v = (torch.from_numpy(x) for x in _qkv((1, 64, 128), (1, 64, 128), 3))
     b1, b3 = onepass_attention.onepass_forward.launches, \
@@ -115,6 +151,13 @@ def _jax_route(sq, skv, heads, head_dim, backend):
     (256, 256, 2, 64, "auto", "plain"),        # short S
     (52, 52, 16, 64, "auto", "plain"),         # the text tower
     (16384, 16384, 1, 512, "xla", "plain"),    # the VAE mid attention
+    (4096, 4096, 8, 40, "auto", "flash"),      # SD1.5 self-attention, level 0
+    (4096, 52, 8, 40, "auto", "flash"),        # SD1.5 cross-attention, level 0
+    (4096, 77, 8, 40, "auto", "flash"),        # SD1.5 teacher cross-attention
+    (1024, 1024, 8, 80, "auto", "flash"),      # SD1.5 self-attention, level 1
+    (1024, 52, 8, 80, "auto", "flash"),        # SD1.5 cross-attention, level 1
+    (256, 256, 8, 160, "auto", "plain"),       # SD1.5 level 2 at 512²
+    (64, 52, 8, 160, "auto", "plain"),         # SD1.5 mid block at 512²
 ])
 def test_dispatch_matches_jax_on_card(monkeypatch, sq, skv, heads, head_dim,
                                       backend, want):
@@ -151,6 +194,27 @@ def test_flash_backward_ref_matches_jax_kernels(sq, skv):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=BWD_ATOL, err_msg=name)
 
 
+@pytest.mark.parametrize("d,sq,skv", [(40, 384, 300), (40, 300, 77), (80, 300, 52),
+                                      (80, 200, 260)])
+def test_flash_backward_ref_matches_jax_kernels_sd15_head_dims(d, sq, skv):
+    from pea_diffusion_tpu.ops.flash_attention import _flash_backward_impl
+
+    bh = 2
+    q, k, v = _qkv((bh, sq, d), (bh, skv, d), seed=d * sq + skv)
+    g = np.random.default_rng(6).standard_normal((bh, sq, d)).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    out, lse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+                              block_q=128, block_k=128, interpret=True, with_lse=True)
+    want = _flash_backward_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), out, lse,
+                                jnp.asarray(g), scale, block_q=128, block_k=128,
+                                interpret=True)
+    got = flash_attention.flash_backward(
+        *(torch.from_numpy(np.array(x)) for x in (q, k, v, out, lse, g)), scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=BWD_ATOL, err_msg=name)
+
+
 def _jax_grads(fn, arrays, cotangent_fn):
     return jax.grad(lambda *xs: cotangent_fn(fn(*xs)), argnums=(0, 1, 2))(
         *(jnp.asarray(x) for x in arrays))
@@ -170,6 +234,21 @@ def test_flash_attention_grads_match_jax(shape_q, shape_kv, scale, loss):
     out = flash_attention.flash_attention(*ts, scale)
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     got = torch.autograd.grad(tloss(out), ts)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=3e-4)
+
+
+@pytest.mark.parametrize("d,sq,skv", [(40, 260, 77), (80, 300, 300)])
+def test_flash_attention_grads_match_jax_sd15_head_dims(d, sq, skv):
+    """The differentiable flash_attention (B3 with lse, B4, B5) against the
+    JAX custom VJP at SD1.5's head dims, default scale 1/sqrt(D)."""
+    q, k, v = _qkv((2, sq, d), (2, skv, d), seed=sq + d)
+    want = _jax_grads(lambda a, b, c: jax_flash(a, b, c, None, 128, 128, True),
+                      (q, k, v), lambda o: jnp.sum(o * jnp.cos(o)))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention.flash_attention(*ts)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad((out * torch.cos(out)).sum(), ts)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=3e-4)
 

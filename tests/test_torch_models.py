@@ -2,8 +2,9 @@
 the same weights (carried over by checkpoints/from_jax.py): the PEA adapter
 for every preset (widths cut by 32), the BERT text tower on BERT_TINY, the
 CLIP teacher towers at small widths (both activations), the UNet on
-SDXL_UNET_TINY with the SDXL added conditioning, and the VAE on VAE_TINY
-(decode, encode moments and the sampled encode).
+SDXL_UNET_TINY with the SDXL added conditioning and on SD15_UNET_TINY (1x1
+conv projections, four blocks with an attention-free last one), and the VAE
+on VAE_TINY (decode, encode moments and the sampled encode).
 
 Each model's state dict also goes back through the JAX package's own
 `convert_*` and must give the original JAX tree exactly: the port's
@@ -27,6 +28,7 @@ from pea_diffusion_tpu.checkpoints.torch_convert import (convert_adapter,
 from pea_diffusion_tpu.configs import adapter as jax_adapter_cfg
 from pea_diffusion_tpu.configs import text_encoder as jax_text_cfg
 from pea_diffusion_tpu.configs.train import TrainConfig as JaxTrainConfig
+from pea_diffusion_tpu.configs import unet as jax_unet_cfg
 from pea_diffusion_tpu.configs.text_encoder import BERT_TINY as JAX_BERT_TINY
 from pea_diffusion_tpu.configs.unet import SDXL_UNET_TINY as JAX_UNET_TINY
 from pea_diffusion_tpu.configs.unet import VAE_TINY as JAX_VAE_TINY
@@ -38,6 +40,7 @@ from pea_diffusion_tpu_torch.checkpoints import from_jax
 from pea_diffusion_tpu_torch.configs import (ADAPTER_PRESETS, BERT_TINY,
                                              SDXL_UNET_TINY, VAE_TINY, TrainConfig)
 from pea_diffusion_tpu_torch.configs import text_encoder as port_text_cfg
+from pea_diffusion_tpu_torch.configs import unet as port_unet_cfg
 from pea_diffusion_tpu_torch.configs.adapter import AdapterConfig
 from pea_diffusion_tpu_torch.models import (AutoencoderKL, BertTextEncoder,
                                             PEAAdapter, UNet2DCondition)
@@ -54,6 +57,9 @@ def _close(got, want, atol=1e-4):
 def test_configs_are_copies_of_the_jax_presets():
     assert dataclasses.asdict(SDXL_UNET_TINY) == dataclasses.asdict(JAX_UNET_TINY)
     assert dataclasses.asdict(VAE_TINY) == dataclasses.asdict(JAX_VAE_TINY)
+    for name in ("SD15_UNET", "SD15_UNET_TINY", "SDXL_UNET", "SD15_VAE", "SDXL_VAE"):
+        assert dataclasses.asdict(getattr(port_unet_cfg, name)) == dataclasses.asdict(
+            getattr(jax_unet_cfg, name)), name
     assert dataclasses.asdict(BERT_TINY) == dataclasses.asdict(JAX_BERT_TINY)
     for name in ("CLIP_VIT_L", "CLIP_BIG_G", "CLIP_TINY"):
         assert dataclasses.asdict(getattr(port_text_cfg, name)) == dataclasses.asdict(
@@ -150,6 +156,40 @@ def test_unet_sdxl_tiny_with_added_cond_residuals_and_features():
     assert_tree_equal(convert_unet(to_numpy_sd(pm), JAX_UNET_TINY), params)
 
 
+def test_unet_sd15_tiny_with_residuals_and_features():
+    """SD1.5's UNet: no added conditioning, Transformer2D projections stored
+    as 1x1 convs (carried from the JAX Dense by conv1x1_from_dense), an
+    attention-free last down block and first up block, and a mid block that
+    takes the last block's heads."""
+    cfg = port_unet_cfg.SD15_UNET_TINY
+    jcfg = jax_unet_cfg.SD15_UNET_TINY
+    assert not cfg.use_linear_projection and cfg.transformer_layers[-1] == 0
+    x, ehs = _rand(2, 8, 8, 4, seed=3), _rand(2, 7, cfg.cross_attention_dim, seed=4)
+    ts = np.array([981, 21], np.int32)
+    skips, mid = _skip_shapes(cfg, 2, 8)
+    down_res = tuple(0.1 * _rand(*s, seed=30 + i) for i, s in enumerate(skips))
+    mid_res = 0.1 * _rand(*mid, seed=29)
+    jm = JaxUNet(jcfg)
+    params = host_params(jm, x, ts, ehs, seed=5)
+    want, want_f = jax.jit(lambda p, *a: jm.apply(p, *a, capture_features=True))(
+        params, x, ts, ehs, None, down_res, mid_res)
+    pm = UNet2DCondition(cfg)
+    assert isinstance(pm.down_blocks[0].attentions[0].proj_in, torch.nn.Conv2d)
+    assert not hasattr(pm.down_blocks[-1], "attentions")
+    assert not hasattr(pm.up_blocks[0], "attentions")
+    assert pm.mid_block.attentions[0].transformer_blocks[0].attn1.num_heads == 2
+    pm.load_state_dict(from_jax.unet_state_dict(params, cfg), strict=True)
+    got, got_f = pm(t(x), torch.from_numpy(ts).long(), t(ehs),
+                    down_block_additional_residuals=[t(r) for r in down_res],
+                    mid_block_additional_residual=t(mid_res), capture_features=True)
+    _close(got, want, atol=2e-4)
+    assert sorted(got_f) == sorted(want_f) == ["d0", "d1", "d2", "d3", "m",
+                                               "u0", "u1", "u2", "u3"]
+    for k in want_f:
+        _close(got_f[k], want_f[k], atol=2e-4)
+    assert_tree_equal(convert_unet(to_numpy_sd(pm), jcfg), params)
+
+
 def test_vae_tiny_decode_and_encode():
     x, z = _rand(2, 16, 16, 3), _rand(2, 4, 4, 4, seed=1)
     jm = JaxVAE(JAX_VAE_TINY)
@@ -164,6 +204,20 @@ def test_vae_tiny_decode_and_encode():
     _close(got_mean, mean)
     _close(got_logvar, logvar)
     assert_tree_equal(convert_vae(to_numpy_sd(pm), JAX_VAE_TINY), params)
+
+
+def test_vae_sd15_state_dict_round_trip():
+    """The SD1.5 VAE at its real config (four levels, 128-512 channels,
+    scaling 0.18215): every JAX parameter lands in the port's module and
+    converts back to the same tree (no forward: the tiny VAE holds the
+    arithmetic)."""
+    cfg = port_unet_cfg.SD15_VAE
+    assert cfg.scaling_factor == 0.18215 and cfg.block_out_channels == (128, 256, 512, 512)
+    jm = JaxVAE(jax_unet_cfg.SD15_VAE)
+    params = host_params(jm, np.zeros((1, 64, 64, 3), np.float32), jax.random.PRNGKey(0))
+    pm = AutoencoderKL(cfg)
+    pm.load_state_dict(from_jax.vae_state_dict(params, cfg), strict=True)
+    assert_tree_equal(convert_vae(to_numpy_sd(pm), jax_unet_cfg.SD15_VAE), params)
 
 
 def test_vae_tiny_encode_sample_with_injected_eps():

@@ -1,9 +1,10 @@
-"""The port's samplers and SDXL pipeline held against the JAX package's, in
-fp32 on the CPU: scheduler steps on fixed tensors, `cfg_combine`, the ragged
-chunked VAE decode, and the whole tiny text-to-image slice (text tower ->
-adapter -> UNet under DDIM with CFG -> VAE) at the same weights, with the
-initial noise passed in because the two frameworks draw different random
-numbers.
+"""The port's samplers and SD1.5 and SDXL pipelines held against the JAX
+package's, in fp32 on the CPU: scheduler steps on fixed tensors,
+`cfg_combine`, the ragged chunked VAE decode, and the whole tiny
+text-to-image slices (text tower -> adapter -> UNet under DDIM or DPM++
+with CFG -> VAE) at the same weights, with the initial noise passed in
+because the two frameworks draw different random numbers (for SD1.5, the
+noise JAX's generate_sd draws from its key).
 
 Tolerances: 1e-5 on the sampler trajectories (the same float32 arithmetic),
 1e-4 on the decode, 2e-3 on the final images.
@@ -17,18 +18,21 @@ import torch
 from _torch_parity import perturb, t
 from pea_diffusion_tpu.configs.adapter import AdapterConfig as JaxAdapterConfig
 from pea_diffusion_tpu.configs.text_encoder import BERT_TINY as JAX_BERT_TINY
+from pea_diffusion_tpu.configs.unet import SD15_UNET_TINY as JAX_SD15_UNET_TINY
 from pea_diffusion_tpu.configs.unet import SDXL_UNET_TINY as JAX_UNET_TINY
 from pea_diffusion_tpu.configs.unet import VAE_TINY as JAX_VAE_TINY
 from pea_diffusion_tpu.pipelines import factory as jax_factory
 from pea_diffusion_tpu.pipelines import sampling as jax_sampling
 from pea_diffusion_tpu.pipelines import text2image as jax_t2i
+from pea_diffusion_tpu.schedulers import SD15_SCHEDULE as JAX_SD15_SCHEDULE
 from pea_diffusion_tpu.schedulers import SDXL_SCHEDULE as JAX_SCHEDULE
 from pea_diffusion_tpu_torch.checkpoints import from_jax
 from pea_diffusion_tpu_torch.cli.generate import build_demo, main, make_tokenizer
-from pea_diffusion_tpu_torch.pipelines import (StableDiffusionXLPEAPipeline,
+from pea_diffusion_tpu_torch.pipelines import (StableDiffusionPEAPipeline,
+                                               StableDiffusionXLPEAPipeline,
                                                cfg_combine, decode_latents,
-                                               generate_sdxl, make_add_time_ids,
-                                               make_sampler)
+                                               generate_sd, generate_sdxl,
+                                               make_add_time_ids, make_sampler)
 from pea_diffusion_tpu_torch.schedulers import SDXL_SCHEDULE
 
 
@@ -129,6 +133,54 @@ def test_generate_sdxl_slice_matches_jax(stacks, guidance_scale, guidance_rescal
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3)
 
 
+@pytest.fixture(scope="module")
+def sd15_stacks():
+    """The tiny SD1.5 stack (seq-only adapter, 1x1-conv projections) in both
+    frameworks at the same weights."""
+    ucfg = JAX_SD15_UNET_TINY
+    jmodels = jax_factory.build_models(
+        family="chinese_clip", text_cfg=JAX_BERT_TINY,
+        adapter_cfg=JaxAdapterConfig(JAX_BERT_TINY.hidden_size,
+                                     (96, 96, ucfg.cross_attention_dim)),
+        unet_cfg=ucfg, vae_cfg=JAX_VAE_TINY, schedule=JAX_SD15_SCHEDULE,
+        dtype=jnp.float32)
+    params = perturb(jax_factory.init_params_host(jmodels, "chinese_clip",
+                                                  JAX_BERT_TINY), seed=4)
+    pmodels, tokenize, _ = build_demo(device="cpu", model="sd15")
+    assert pmodels.vae_scaling == jmodels.vae_scaling == 0.18215
+    pmodels.text_encoder.load_state_dict(
+        from_jax.bert_text_state_dict(params["text"]), strict=True)
+    pmodels.adapter.load_state_dict(
+        from_jax.adapter_state_dict(params["adapter"]), strict=True)
+    pmodels.unet.load_state_dict(
+        from_jax.unet_state_dict(params["unet"], pmodels.unet.config), strict=True)
+    pmodels.vae.load_state_dict(
+        from_jax.vae_state_dict(params["vae"], pmodels.vae.config), strict=True)
+    return jmodels, params, pmodels, tokenize
+
+
+@pytest.mark.parametrize("sampler_name", ["ddim", "dpm++"])
+def test_generate_sd_slice_matches_jax(sd15_stacks, sampler_name):
+    """SD1.5 text-to-image with CFG 7.5: the port's generate_sd, given the
+    noise JAX's generate_sd draws from its key, against JAX's images."""
+    jmodels, params, pmodels, tokenize = sd15_stacks
+    ids, uncond = tokenize(["雪山下的湖泊"]), tokenize([""])
+    key = jax.random.PRNGKey(5)
+    want = jax_t2i.generate_sd(
+        jmodels, params, jnp.asarray(ids, jnp.int32), jnp.asarray(uncond, jnp.int32), key,
+        sampler_name=sampler_name, height=64, width=64, num_steps=3, guidance_scale=7.5)
+    noise = np.array(jax.random.normal(key, (1, 8, 8, 4), jnp.float32))
+    if sampler_name == "ddim":
+        got = generate_sd(pmodels, ids, uncond, sampler_name="ddim", height=64, width=64,
+                          num_steps=3, guidance_scale=7.5, init_noise=noise)
+    else:
+        got = StableDiffusionPEAPipeline(pmodels, "dpm++")(
+            ids, uncond, height=64, width=64, num_steps=3, init_noise=noise)
+    assert got.shape == (1, 16, 16, 3)
+    assert float(np.abs(np.asarray(want)).max()) > 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3)
+
+
 def test_unported_samplers_name_the_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 15"):
         make_sampler("euler_a", SDXL_SCHEDULE, 4)
@@ -141,6 +193,15 @@ def test_cli_demo_writes_an_image(tmp_path):
     main(["--demo", "--device", "cpu", "--sampler", "ddim", "--steps", "2",
           "--size", "64", "-o", str(out)])
     assert Image.open(out).size == (16, 16)  # VAE_TINY upsamples 2x
+
+
+def test_cli_demo_sd15_writes_an_image(tmp_path):
+    from PIL import Image
+
+    out = tmp_path / "sd15.png"
+    main(["--model", "sd15", "--demo", "--device", "cpu", "--sampler", "dpm++",
+          "--steps", "2", "--size", "64", "-o", str(out)])
+    assert Image.open(out).size == (16, 16)
 
 
 def test_demo_tokenizer_is_deterministic():

@@ -1,6 +1,8 @@
 """The port's KD training (train/kd.py, optim.py, trainer.py, cli/train.py)
-held against the JAX package's on the tiny stack of tests/test_kd_train.py,
-in fp32 on the CPU.
+held against the JAX package's on the tiny stack of tests/test_kd_train.py
+(SDXL: dual CLIP teacher, pooled and time-id conditioning) and on the full
+path of tests/test_kd_sd15.py (SD1.5: one CLIP teacher's last states, a
+seq-only adapter, no added conditioning), in fp32 on the CPU.
 
 Parameters are made with numpy from a seed for the JAX modules and carried
 to the port by checkpoints/from_jax.py; the random draws of a step (VAE
@@ -8,7 +10,8 @@ eps, noise, offset noise, timesteps, CFG-drop uniforms) are JAX's, made
 from its key splits and injected into the port's kd_loss. Tolerances: atol
 1e-5 on the losses, 1e-4 on the adapter gradients (fp32 sums in another
 order through the UNet's backward), 1e-5 on the adapter after three
-optimizer steps.
+optimizer steps on the same gradients, 1e-4 after three whole train steps
+(ADAM_ATOL).
 """
 import json
 import os
@@ -26,6 +29,7 @@ from pea_diffusion_tpu.configs.adapter import AdapterConfig as JAdapterConfig
 from pea_diffusion_tpu.configs.text_encoder import BERT_TINY as J_BERT_TINY
 from pea_diffusion_tpu.configs.text_encoder import CLIPTextConfig as JCLIPTextConfig
 from pea_diffusion_tpu.configs.train import TrainConfig as JTrainConfig
+from pea_diffusion_tpu.configs.unet import SD15_UNET_TINY as J_SD15_UNET_TINY
 from pea_diffusion_tpu.configs.unet import SDXL_UNET_TINY as J_UNET_TINY
 from pea_diffusion_tpu.configs.unet import VAE_TINY as J_VAE_TINY
 from pea_diffusion_tpu.models.adapter import PEAAdapter as JPEAAdapter
@@ -33,14 +37,17 @@ from pea_diffusion_tpu.models.bert_text import BertTextEncoder as JBert
 from pea_diffusion_tpu.models.clip_text import CLIPTextEncoder as JCLIP
 from pea_diffusion_tpu.models.unet import UNet2DCondition as JUNet
 from pea_diffusion_tpu.models.vae import AutoencoderKL as JVAE
+from pea_diffusion_tpu.schedulers import SD15_SCHEDULE as J_SD15_SCHEDULE
 from pea_diffusion_tpu.schedulers import SDXL_SCHEDULE as J_SDXL_SCHEDULE
 from pea_diffusion_tpu.train import kd as jax_kd
 from pea_diffusion_tpu.train.optim import _decay_mask, make_optimizer
 from pea_diffusion_tpu_torch.checkpoints import from_jax
 from pea_diffusion_tpu_torch.cli import train as train_cli
-from pea_diffusion_tpu_torch.configs import (BERT_TINY, SDXL_UNET_TINY, VAE_TINY,
-                                             AdapterConfig, CLIPTextConfig, TrainConfig)
+from pea_diffusion_tpu_torch.configs import (BERT_TINY, SD15_UNET_TINY, SDXL_UNET_TINY,
+                                             VAE_TINY, AdapterConfig, CLIPTextConfig,
+                                             TrainConfig)
 from pea_diffusion_tpu_torch.pipelines.factory import build_kd_models
+from pea_diffusion_tpu_torch.schedulers import SD15_SCHEDULE
 from pea_diffusion_tpu_torch.train import kd, optim
 from pea_diffusion_tpu_torch.train.trainer import KDTrainer, export_adapter, import_adapter
 
@@ -54,6 +61,11 @@ CLIP2 = dict(vocab_size=500, hidden_size=40, num_layers=2, num_heads=2,
              intermediate_size=64, projection_dim=POOLED,
              max_position_embeddings=TT, eos_token_id=499, hidden_act="gelu")
 LOSS_ATOL, GRAD_ATOL, PARAM_ATOL = 1e-5, 1e-4, 1e-5
+# The adapter after whole train steps: Adam's m / (sqrt(v) + eps) turns a
+# gradient element near 0 into up to +-lr, so an element whose fp32
+# gradient differs in its last bits between the frameworks can move by a
+# fraction of lr (1e-3 here); a tenth of one step's largest update.
+ADAM_ATOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -266,6 +278,128 @@ def test_grad_accum_is_the_mean_of_micro_batch_grads(stacks):
         torch.testing.assert_close(after[k], want[k], rtol=0, atol=1e-7)
 
 
+# --- SD1.5: tests/test_kd_sd15.py's full path -------------------------------
+
+SD15_B, SD15_T, SD15_TT = 2, 10, 14
+SD15_CLIP = dict(vocab_size=500, hidden_size=SD15_UNET_TINY.cross_attention_dim, num_layers=2,
+                 num_heads=2, intermediate_size=64, max_position_embeddings=SD15_TT,
+                 eos_token_id=499)
+
+
+@pytest.fixture(scope="module")
+def sd15_stacks():
+    """The tiny SD1.5 KD stack on both sides, with the same weights: one
+    CLIP teacher as wide as the UNet's cross-attention, a seq-only adapter."""
+    ucfg = J_SD15_UNET_TINY
+    adapter_cfg = (BERT_TINY.hidden_size, (96, 96, ucfg.cross_attention_dim))
+    enc = JBert(J_BERT_TINY)
+    jm = jax_kd.KDModels(
+        adapter=JPEAAdapter(JAdapterConfig(*adapter_cfg)), unet=JUNet(ucfg),
+        vae=JVAE(J_VAE_TINY),
+        text_encoder_fn=lambda p, ids: enc.apply(p, ids).last_hidden_state,
+        teacher_clip1=JCLIP(JCLIPTextConfig(**SD15_CLIP)), teacher_clip2=None,
+        schedule=J_SD15_SCHEDULE, vae_scaling=J_VAE_TINY.scaling_factor)
+    frozen = {
+        "text": host_params(enc, jnp.zeros((1, SD15_T), jnp.int32), seed=21),
+        "unet": host_params(jm.unet, jnp.zeros((1, 8, 8, 4)), jnp.array([0]),
+                            jnp.zeros((1, SD15_T, ucfg.cross_attention_dim)), seed=22),
+        "vae": host_params(jm.vae, jnp.zeros((1, IMG, IMG, 3)), jax.random.PRNGKey(0),
+                           seed=23),
+        "teacher_clip1": host_params(jm.teacher_clip1, jnp.zeros((1, SD15_TT), jnp.int32),
+                                     seed=24),
+    }
+    adapter_params = host_params(jm.adapter, jnp.zeros((1, SD15_T, BERT_TINY.hidden_size)),
+                                 seed=25)
+    tm = build_kd_models(
+        family="chinese_clip", text_cfg=BERT_TINY, adapter_cfg=AdapterConfig(*adapter_cfg),
+        unet_cfg=SD15_UNET_TINY, vae_cfg=VAE_TINY,
+        teacher_cfgs=(CLIPTextConfig(**SD15_CLIP),), schedule=SD15_SCHEDULE,
+        dtype=torch.float32, device="cpu")
+    assert tm.teacher_clip2 is None and tm.vae_scaling == jm.vae_scaling == 0.18215
+    tm.text_encoder.load_state_dict(from_jax.bert_text_state_dict(frozen["text"]))
+    tm.unet.load_state_dict(from_jax.unet_state_dict(frozen["unet"], SD15_UNET_TINY))
+    tm.vae.load_state_dict(from_jax.vae_state_dict(frozen["vae"], VAE_TINY))
+    tm.teacher_clip1.load_state_dict(from_jax.clip_text_state_dict(frozen["teacher_clip1"]))
+    tm.adapter.load_state_dict(from_jax.adapter_state_dict(adapter_params))
+    return jm, frozen, adapter_params, tm
+
+
+def _sd15_batch(seed=2, zh=(1, 0)):
+    """tests/test_kd_sd15.py's batch: no second teacher, no time ids."""
+    rng = np.random.RandomState(seed)
+    return {
+        "pixel_values": rng.uniform(-1, 1, (SD15_B, IMG, IMG, 3)).astype(np.float32),
+        "input_ids": rng.randint(4, 500, (SD15_B, SD15_T)),
+        "input_ids_uncond": np.full((SD15_B, SD15_T), 4),
+        "teacher_ids_1": rng.randint(4, 499, (SD15_B, SD15_TT)),
+        "teacher_uncond_ids_1": np.full((SD15_B, SD15_TT), 4),
+        "zh_or_not": np.asarray(zh, np.float32),
+    }
+
+
+@pytest.mark.parametrize("options", [dict(cfg_dropout=0.5), dict(kd=False)],
+                         ids=["full_path", "no_kd"])
+def test_sd15_kd_loss_and_adapter_grads_match_jax(sd15_stacks, options):
+    """kd_loss's SD1.5 branch (teacher_clip2 None: the teacher's last hidden
+    state; no pooled, no added conditioning): loss, metrics and adapter
+    gradients against the JAX package's on the same batch and draws."""
+    key = jax.random.PRNGKey(4)
+    batch = _sd15_batch(zh=(1, 0) if options.get("kd", True) else (1, 1))
+    want_loss, want_m, want_g = _jax_loss_and_grads(sd15_stacks, JTrainConfig(**options),
+                                                    batch, key)
+    tm = sd15_stacks[3]
+    tm.adapter.zero_grad()
+    loss, m = kd.kd_loss(tm, TrainConfig(**options), _torch_batch(batch),
+                         draws=_jax_draws(key, b=SD15_B))
+    loss.backward()
+    got = {k: p.grad.clone() for k, p in tm.adapter.named_parameters()}
+    tm.adapter.zero_grad()
+    assert np.isfinite(loss.item())
+    np.testing.assert_allclose(loss.item(), want_loss, atol=LOSS_ATOL)
+    assert set(m) == set(want_m)
+    assert ("train_loss_features" in m) == options.get("kd", True)
+    for k in want_m:
+        np.testing.assert_allclose(float(m[k]), want_m[k], atol=LOSS_ATOL, err_msg=k)
+    assert set(got) == set(want_g) and "fc.weight" not in got
+    for k in want_g:
+        assert got[k].abs().max() > 0, k
+        np.testing.assert_allclose(got[k].numpy(), want_g[k].numpy(), atol=GRAD_ATOL,
+                                   err_msg=k)
+
+
+def test_sd15_train_steps_match_jax(sd15_stacks):
+    """Three make_train_step steps on each side (test_kd_sd15.py's config:
+    lr 1e-3, no CFG dropout; no warmup, so every step moves the adapter),
+    each step with JAX's draws from its key: per-step metrics and the
+    adapter after the steps."""
+    jm, frozen, adapter_params, tm = sd15_stacks
+    opts = dict(total_steps=100, warmup_steps=0, warmup_ratio=0.0, learning_rate=1e-3,
+                cfg_dropout=0.0)
+    j_init, j_step = jax_kd.make_train_step(jm, JTrainConfig(**opts))
+    jstate, _ = j_init(adapter_params)
+    j_step = jax.jit(j_step)
+    before = {k: v.clone() for k, v in tm.adapter.state_dict().items()}
+    t_init, t_step = kd.make_train_step(tm, TrainConfig(**opts))
+    tstate = t_init()
+    batch = _sd15_batch()
+    for i in range(3):
+        key = jax.random.PRNGKey(10 + i)
+        jstate, jm_ = j_step(jstate, frozen, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+        tstate, tm_ = t_step(tstate, _torch_batch(batch), draws=[_jax_draws(key, b=SD15_B)])
+        assert set(tm_) == set(jm_)
+        for k in jm_:
+            np.testing.assert_allclose(float(tm_[k]), float(jm_[k]), atol=LOSS_ATOL,
+                                       rtol=1e-5, err_msg=f"step {i} {k}")
+    after = {k: v.clone() for k, v in tm.adapter.state_dict().items()}
+    tm.adapter.load_state_dict(before)
+    want = from_jax.adapter_state_dict(jax.tree.map(np.asarray, jstate.adapter_params))
+    assert tstate.step == 3
+    for k in want:
+        assert not torch.equal(after[k], before[k]), k
+        np.testing.assert_allclose(after[k].numpy(), want[k].numpy(), atol=ADAM_ATOL,
+                                   err_msg=k)
+
+
 def _tiny_adapter_params():
     cfg = JAdapterConfig(16, (24, 8), head_dim=12)
     params = host_params(JPEAAdapter(cfg), jnp.zeros((1, 5, 16)), seed=11)
@@ -365,6 +499,14 @@ def test_exported_adapter_round_trips_through_jax_import_adapter(tmp_path, stack
     back = import_adapter(PEAAdapter(tm.adapter.config), os.path.join(d, "pytorch_model.bin"))
     for k, v in tm.adapter.state_dict().items():
         assert torch.equal(back.state_dict()[k], v), k
+
+
+def test_cli_train_demo_sd15_on_cpu(tmp_path, capsys):
+    out = str(tmp_path / "sd15")
+    train_cli.main(["--model", "sd15", "--demo", "--device", "cpu", "--steps", "2",
+                    "--output", out])
+    assert "done at step 2" in capsys.readouterr().out
+    assert os.path.exists(os.path.join(out, "proj_2", "pytorch_model.bin"))
 
 
 def test_cli_train_demo_on_cpu(tmp_path, capsys):
