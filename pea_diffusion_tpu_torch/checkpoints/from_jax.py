@@ -18,7 +18,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from ..configs.unet import UNetConfig, VAEConfig
+from ..configs.unet import ControlNetConfig, UNetConfig, VAEConfig
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -155,18 +155,17 @@ def clip_text_state_dict(params: Mapping) -> StateDict:
     return w.sd
 
 
-def unet_state_dict(params: Mapping, config: UNetConfig) -> StateDict:
-    """UNet2DCondition params -> the port's UNet2DCondition state dict."""
-    p, w = params["params"], _Writer()
-    lin_proj = config.use_linear_projection
-    w.conv("conv_in", p["conv_in"])
+def _time_embeddings(w: _Writer, p: Mapping):
     w.lin("time_embedding.linear_1", p["time_embedding"]["linear_1"])
     w.lin("time_embedding.linear_2", p["time_embedding"]["linear_2"])
     if "add_embedding" in p:
         w.lin("add_embedding.linear_1", p["add_embedding"]["linear_1"])
         w.lin("add_embedding.linear_2", p["add_embedding"]["linear_2"])
-    w.norm("conv_norm_out", p["conv_norm_out"])
-    w.conv("conv_out", p["conv_out"])
+
+
+def _down_and_mid(w: _Writer, p: Mapping, config: UNetConfig):
+    """The down and mid blocks, which a UNet and a ControlNet share."""
+    lin_proj = config.use_linear_projection
     for i in range(config.num_blocks):
         for j in range(config.layers_per_block):
             w.resnet(f"down_blocks.{i}.resnets.{j}", p[f"down_{i}_resnet_{j}"])
@@ -180,6 +179,17 @@ def unet_state_dict(params: Mapping, config: UNetConfig) -> StateDict:
     w.resnet("mid_block.resnets.1", p["mid_resnet_1"])
     if "mid_attn" in p:
         w.transformer("mid_block.attentions.0", p["mid_attn"], lin_proj)
+
+
+def unet_state_dict(params: Mapping, config: UNetConfig) -> StateDict:
+    """UNet2DCondition params -> the port's UNet2DCondition state dict."""
+    p, w = params["params"], _Writer()
+    lin_proj = config.use_linear_projection
+    w.conv("conv_in", p["conv_in"])
+    _time_embeddings(w, p)
+    w.norm("conv_norm_out", p["conv_norm_out"])
+    w.conv("conv_out", p["conv_out"])
+    _down_and_mid(w, p, config)
     for i in range(config.num_blocks):
         for j in range(config.layers_per_block + 1):
             w.resnet(f"up_blocks.{i}.resnets.{j}", p[f"up_{i}_resnet_{j}"])
@@ -189,6 +199,30 @@ def unet_state_dict(params: Mapping, config: UNetConfig) -> StateDict:
         if i < config.num_blocks - 1:
             w.conv(f"up_blocks.{i}.upsamplers.0.conv",
                    p[f"up_{i}_upsample"]["conv"])
+    return w.sd
+
+
+def controlnet_state_dict(params: Mapping, config: ControlNetConfig) -> StateDict:
+    """ControlNet params -> the port's ControlNet state dict (diffusers
+    ControlNetModel names: the inverse of the JAX package's
+    ``convert_controlnet``). The zero convs keep the order both sides append
+    them in: conv_in's output, each down-path skip, then the mid output."""
+    p, w = params["params"], _Writer()
+    w.conv("conv_in", p["conv_in"])
+    _time_embeddings(w, p)
+    emb = p["cond_embedder"]
+    w.conv("controlnet_cond_embedding.conv_in", emb["conv_in"])
+    i = 0
+    while f"conv_{i}" in emb:
+        w.conv(f"controlnet_cond_embedding.blocks.{i}", emb[f"conv_{i}"])
+        i += 1
+    w.conv("controlnet_cond_embedding.conv_out", emb["conv_out"])
+    _down_and_mid(w, p, config.unet)
+    k = 0
+    while f"zero_conv_{k}" in p:
+        w.conv(f"controlnet_down_blocks.{k}", p[f"zero_conv_{k}"])
+        k += 1
+    w.conv("controlnet_mid_block", p["zero_conv_mid"])
     return w.sd
 
 

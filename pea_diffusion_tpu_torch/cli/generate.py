@@ -5,12 +5,17 @@ stack of that architecture; --demo-full runs the full-size stack
 (Chinese-CLIP RoBERTa-large, the sdxl_chinese_clip or sd15_chinese_clip
 adapter, the model's UNet and VAE in bf16: the stacks of ``bench.py``) with
 random weights made on the device: real shapes and kernels, meaningless
-pixels. Loading real checkpoints is not ported yet (ROADMAP Queue A item 9).
+pixels. --control-image turns on ControlNet mode (SDXL): a tiny random
+ControlNet under --demo, the full SDXL ControlNet under --demo-full.
+Loading real checkpoints (--controlnet DIR among them) is not ported yet
+(ROADMAP Queue A item 9).
 
 Usage:
   python -m pea_diffusion_tpu_torch.cli.generate --demo --device cpu -o out.png
   python -m pea_diffusion_tpu_torch.cli.generate --demo-full --sampler ddim --steps 4 -o out.png
   python -m pea_diffusion_tpu_torch.cli.generate --model sd15 --demo-full --sampler ddim --steps 20 -o out.png
+  python -m pea_diffusion_tpu_torch.cli.generate --demo --device cpu --control-image edges.png \
+      --control-canny --control-scale 0.8 --control-end 0.6 -o out.png
 """
 from __future__ import annotations
 
@@ -84,6 +89,44 @@ def build_demo_full(device="cuda", seed: int = 0, model: str = "sdxl"):
     return models, make_tokenizer(CHINESE_CLIP_LARGE.vocab_size, 52), 512 if sd15 else 1024
 
 
+def _load_image(path):
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def make_controlnet_run(args, models, size: int, steps: int):
+    """ControlNet mode: the control image (Canny edges of it with
+    --control-canny) at the output size, a ControlNet matching the UNet
+    (tiny, fp32, seed 2 under --demo, as the JAX CLI builds it; the full
+    SDXL one in bf16 under --demo-full), and a function that generates one
+    image per prompt."""
+    from ..pipelines.controlnet import (canny_edges, generate_sdxl_controlnet,
+                                        prepare_control_image)
+    from ..pipelines.factory import build_controlnet
+
+    arr = _load_image(args.control_image)
+    if args.control_canny:
+        arr = canny_edges(arr)
+    control = prepare_control_image(arr, size, size, 1)
+    if args.demo:
+        cn = build_controlnet(models.unet.config, (8, 8, 16, 16), dtype=torch.float32,
+                              device=args.device, seed=2)
+    else:
+        cn = build_controlnet(models.unet.config, device=args.device)
+
+    def run(ids, uncond, seed):
+        gen = torch.Generator(device=models.device).manual_seed(seed)
+        return generate_sdxl_controlnet(
+            models, cn, ids, uncond, control, generator=gen, sampler_name=args.sampler,
+            height=size, width=size, num_steps=steps, guidance_scale=args.guidance,
+            guidance_rescale=args.guidance_rescale,
+            controlnet_conditioning_scale=args.control_scale, guess_mode=args.control_guess,
+            control_guidance_start=args.control_start, control_guidance_end=args.control_end)
+
+    return run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     mode = ap.add_mutually_exclusive_group(required=True)
@@ -104,7 +147,24 @@ def main(argv=None):
                     help="image side (default: the model's, 1024 or 512)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("-o", "--output", default="out.png")
+    cn = ap.add_argument_group("ControlNet mode (SDXL)")
+    cn.add_argument("--controlnet", metavar="DIR",
+                    help="a diffusers ControlNetModel checkpoint (not ported yet)")
+    cn.add_argument("--control-image", metavar="PATH",
+                    help="conditioning image (turns ControlNet mode on)")
+    cn.add_argument("--control-canny", action="store_true",
+                    help="use the Canny edges of --control-image")
+    cn.add_argument("--control-scale", type=float, default=1.0)
+    cn.add_argument("--control-guess", action="store_true",
+                    help="guess mode: control from the conditional half only")
+    cn.add_argument("--control-start", type=float, default=0.0)
+    cn.add_argument("--control-end", type=float, default=1.0)
     args = ap.parse_args(argv)
+    if args.controlnet:
+        raise NotImplementedError("loading a ControlNet checkpoint waits for the "
+                                  "safetensors reader (ROADMAP Queue A item 9)")
+    if args.control_image and args.model != "sdxl":
+        ap.error("ControlNet mode runs the SDXL stack (--model sdxl)")
 
     from ..pipelines.text2image import (StableDiffusionPEAPipeline,
                                         StableDiffusionXLPEAPipeline, to_pil)
@@ -117,6 +177,12 @@ def main(argv=None):
         steps = args.steps
     size = min(args.size or max_size, max_size)
     extra = {}
+    if args.control_image:
+        run = make_controlnet_run(args, models, size, steps)
+        imgs = run(tokenize([args.prompt]), tokenize([args.negative_prompt]), args.seed)
+        to_pil(imgs)[0].save(args.output)
+        print(f"wrote {args.output}")
+        return
     if args.model == "sd15":
         pipe = StableDiffusionPEAPipeline(models, args.sampler)
     else:

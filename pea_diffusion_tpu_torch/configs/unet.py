@@ -102,6 +102,17 @@ SDXL_UNET_TINY = UNetConfig(
 
 
 @dataclasses.dataclass(frozen=True)
+class ControlNetConfig:
+    """ControlNet: the UNet's down and mid blocks with zero-initialised
+    output convs and a conditioning-image embedder; each embedder stage
+    after the first halves the image (three stages: image -> latent)."""
+
+    unet: UNetConfig = SDXL_UNET
+    conditioning_channels: int = 3
+    conditioning_embedding_channels: Tuple[int, ...] = (16, 32, 96, 256)
+
+
+@dataclasses.dataclass(frozen=True)
 class VAEConfig:
     in_channels: int = 3
     out_channels: int = 3

@@ -22,6 +22,7 @@ from torch import nn
 
 from ..ops import onepass_attention
 from ..ops.attention import dot_product_attention, use_flash, xla_attention_bshd
+from ..ops.groupnorm import fused_gn_applicable, fused_group_norm, group_norm
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -50,46 +51,12 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(x)))
 
 
-def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               num_groups: int, eps: float) -> torch.Tensor:
-    """fp32 GroupNorm over channel-first [N, C, *spatial] input with a
-    per-channel affine, in the input's type.
-
-    Two forms of the same one-pass statistics (E[x^2] - E[x]^2), picked by
-    batch size as the JAX package picks them: batch <= 2 reduces the
-    grouped reshape, batch >= 3 takes per-channel sums and folds the norm
-    into one per-channel affine."""
-    orig_dtype = x.dtype
-    n, c = x.shape[:2]
-    g = num_groups
-    xf = x.float()
-    if n <= 2:
-        xg = xf.reshape(n, g, c // g, -1)
-        mean = xg.mean(dim=(2, 3), keepdim=True)
-        mean2 = (xg * xg).mean(dim=(2, 3), keepdim=True)
-        var = torch.clamp(mean2 - mean * mean, min=0.0)
-        y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
-        bshape = (1, c) + (1,) * (x.ndim - 2)
-        y = y * weight.float().reshape(bshape) + bias.float().reshape(bshape)
-        return y.to(orig_dtype)
-    spatial = tuple(range(2, x.ndim))
-    s1 = xf.sum(dim=spatial)           # [N, C]
-    s2 = (xf * xf).sum(dim=spatial)    # [N, C]
-    count = math.prod(x.shape[2:]) * (c // g)
-    mean = s1.reshape(n, g, c // g).sum(-1) / count   # [N, G]
-    var = torch.clamp(s2.reshape(n, g, c // g).sum(-1) / count - mean * mean, min=0.0)
-    rstd = torch.rsqrt(var + eps)
-    mean_c = mean.repeat_interleave(c // g, dim=1)    # [N, C]
-    rstd_c = rstd.repeat_interleave(c // g, dim=1)
-    a = rstd_c * weight.float()[None]
-    b = bias.float()[None] - mean_c * a
-    bshape = (n, c) + (1,) * (x.ndim - 2)
-    return (xf * a.reshape(bshape) + b.reshape(bshape)).to(orig_dtype)
-
-
 class GroupNorm(nn.Module):
     """GroupNorm with an optional preceding per-(sample, channel) bias
-    (`extra_bias`, the resnet time embedding) and trailing SiLU."""
+    (`extra_bias`, the resnet time embedding) and trailing SiLU. Where
+    ``fused_gn_applicable`` holds (the opt-in PEA_FUSED_GROUPNORM=1 on a
+    CUDA tensor) the whole chain is one fused kernel, B6 or B6-b; otherwise
+    the plain fp32 ``group_norm``."""
 
     def __init__(self, num_channels: int, num_groups: int = 32,
                  eps: float = 1e-5, act: str = "none"):
@@ -99,6 +66,9 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x, extra_bias: Optional[torch.Tensor] = None):
+        if fused_gn_applicable(x, self.num_groups):
+            return fused_group_norm(x, self.weight, self.bias, self.num_groups,
+                                    self.eps, self.act, extra_bias)
         if extra_bias is not None:
             x = x + extra_bias[:, :, None, None].to(x.dtype)
         y = group_norm(x, self.weight, self.bias, self.num_groups, self.eps)

@@ -33,12 +33,13 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+def check_no_grad(name: str, *tensors: torch.Tensor,
+                  instead: str = "flash_attention / bshd_attention") -> None:
     """A bare kernel wrapper's output has no history: refuse to cut it."""
     if tensors[0].is_cuda and needs_grad(*tensors):
         raise RuntimeError(
             f"{name} launches a kernel whose output carries no gradient; "
-            "call the differentiable flash_attention / bshd_attention instead "
+            f"call the differentiable {instead} instead "
             "(or run under torch.no_grad())")
 
 

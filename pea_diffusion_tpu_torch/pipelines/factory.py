@@ -1,7 +1,8 @@
-"""Builds a PEA deployment (text tower + adapter + UNet + VAE), or the KD
-training stack (the same plus the CLIP teacher towers: CLIP ViT-L and bigG
-for SDXL, ViT-L alone for SD1.5), with random weights made on the device
-(port of ``pea_diffusion_tpu/pipelines/factory.py``). The configs decide
+"""Builds a PEA deployment (text tower + adapter + UNet + VAE), a ControlNet
+for its UNet, or the KD training stack (the deployment plus the CLIP teacher
+towers: CLIP ViT-L and bigG for SDXL, ViT-L alone for SD1.5), with random
+weights made on the device (port of ``pea_diffusion_tpu/pipelines/factory.py``
+and of the JAX CLI's ControlNet set-up). The configs decide
 the model: the VAE's scaling factor (0.18215 for SD1.5, 0.13025 for SDXL)
 comes from its config; both models share one noise schedule
 (``SD15_SCHEDULE`` is ``SDXL_SCHEDULE``, as in the reference checkpoints).
@@ -22,10 +23,11 @@ from torch import nn
 
 from ..configs.adapter import AdapterConfig
 from ..configs.text_encoder import BertTextConfig, CLIPTextConfig
-from ..configs.unet import UNetConfig, VAEConfig
+from ..configs.unet import ControlNetConfig, UNetConfig, VAEConfig
 from ..models.adapter import PEAAdapter
 from ..models.bert_text import BertTextEncoder
 from ..models.clip_text import CLIPTextEncoder
+from ..models.controlnet import ControlNet
 from ..models.layers import GroupNorm, LayerNormFP32
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
@@ -97,6 +99,30 @@ def build_models(*, family: str, text_cfg: BertTextConfig,
         vae_scaling=vae_cfg.scaling_factor,
         device=device,
     )
+
+
+def build_controlnet(unet_cfg: UNetConfig,
+                     conditioning_embedding_channels: Tuple[int, ...] = (16, 32, 96, 256),
+                     dtype: torch.dtype = torch.bfloat16, device="cuda", seed: int = 0,
+                     zero_init: bool = True) -> ControlNet:
+    """A ControlNet for a UNet of config `unet_cfg` (its down and mid blocks,
+    the same text width and added conditioning), with random weights from
+    `seed` on `device` in `dtype`, for inference. Its zero convs start at
+    zero, as diffusers' and the JAX package's do, unless `zero_init` is
+    False: then they keep their N(0, 0.02) draws, so that random residuals
+    reach the UNet."""
+    cfg = ControlNetConfig(unet=unet_cfg,
+                           conditioning_embedding_channels=conditioning_embedding_channels)
+    device = resolve_device(device)
+    with torch.device("meta"):
+        cn = ControlNet(cfg)
+    cn = _materialize(cn, dtype, device, torch.Generator(device=device).manual_seed(seed))
+    if zero_init:
+        with torch.no_grad():
+            for conv in cn.zero_convs():
+                conv.weight.zero_()
+                conv.bias.zero_()
+    return cn
 
 
 def build_kd_models(*, teacher_cfgs: Tuple[CLIPTextConfig, ...],

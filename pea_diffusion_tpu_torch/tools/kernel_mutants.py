@@ -1,6 +1,6 @@
 """Mutation check of the kernel-vs-plain comparison in ``chip_smoke.py``.
 
-    python3 -m pea_diffusion_tpu_torch.tools.kernel_mutants
+    python3 -m pea_diffusion_tpu_torch.tools.kernel_mutants [N ...]
 
 For each deliberate fault below it copies the package and ``chip_smoke.py``
 into ``build/mutants/<n>/`` at the root of the checkout, plants the fault in
@@ -9,7 +9,8 @@ comparison only, no timing) in a process of its own, so that each mutant
 builds and loads its own library. It prints each case's relative error and
 whether the comparison failed the run, as it must for a fault it is meant to
 catch. Needs a CUDA card and nvcc; exits non-zero if a mutant that must be
-caught is not.
+caught is not. Numbers N run those mutants alone (0-based, in the order of
+MUTANTS).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 MASK = "if (ragged && n0 + j * 8 + t * 2 + (e & 1) >= p.skv) x = kNegInf;"
 FWD, BWD, COMMON = "attention_fwd.cu", "attention_bwd.cu", "attention_common.cuh"
+GN = "groupnorm.cu"
 B4_P = "const float pr = exp2f(x - ls[col]);"
 # D = 40: the zeroing of shared-memory columns 40-47, and the guard that
 # makes load_a_fragments give 0 for them instead of reading past the row
@@ -62,6 +64,16 @@ MUTANTS = [
     ("D=40: load_a_fragments reads columns 40-47 (the next row) as Q / dO", [A_PAST_D],
      False),
     ("D=40: both of the above", [PAD_UNZEROED, A_PAST_D], True),
+    # GroupNorm. Each kernel row is checked contiguous (the slab of a group)
+    # and channels-last (the per-channel sums folded per group), so the
+    # group's channel range is cut short by one in both statistics kernels.
+    ("B6/B6-b: the group's statistics skip its last channel (cg - 1)",
+     [(GN, "const int total = p.cg * per_row;  // the group's channels, one slab",
+       "const int total = (p.cg - 1) * per_row;"),
+      (GN, "k < (g + 1) * p.cg; ++k", "k < (g + 1) * p.cg - 1; ++k")], True),
+    ("B6-b: t left out of the sums of squares (the variance)",
+     [(GN, "      s2 += v * v;\n", "      s2 += (v - tv) * (v - tv);\n"),
+      (GN, "s2[m][e] += v * v;", "s2[m][e] += (v - tv[m][e]) * (v - tv[m][e]);")], True),
 ]
 
 _RUN = """
@@ -80,9 +92,12 @@ else:
 """
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    chosen = {int(a) for a in (sys.argv[1:] if argv is None else argv)}
     missed = []
     for n, (what, edits, must) in enumerate(MUTANTS):
+        if chosen and n not in chosen:
+            continue
         root = REPO / "build" / "mutants" / str(n)
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(REPO / "pea_diffusion_tpu_torch", root / "pea_diffusion_tpu_torch",

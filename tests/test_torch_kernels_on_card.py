@@ -5,7 +5,9 @@ output, twice the most that rounding the output to bf16 (2^-8 of its size)
 can move it. Backward: below 2e-2 of the largest gradient, per output (P
 and dS are rounded to bf16 before their products, and dS is a difference of
 rounded terms). The attention modules' input gradients through the kernels
-must match the plain route's within 2e-2 too.
+must match the plain route's within 2e-2 too. The GroupNorm kernels (B6,
+B6-b) are held to 8e-3 of their fp32 plain version in bf16, fp16 and fp32,
+contiguous and channels-last, and must give the same bits on a second run.
 
 This file imports neither JAX nor the JAX package, so it runs where the
 card is, without the repository's conftest:
@@ -220,3 +222,96 @@ def test_kernels_reject_other_head_dims_on_card():
             flash_attention.flash_backward_dkdv(x, x, x, x, lse, lse, 0.1)
         with pytest.raises(ValueError, match=f"head_dim {d}"):
             flash_attention.flash_backward_dq(x, x, x, x, lse, lse, 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,groups,dtype,act,with_t", [
+    ((2, 320, 128, 128), 32, torch.bfloat16, "silu", True),   # SDXL level 0 norm2
+    ((2, 2560, 32, 32), 32, torch.bfloat16, "silu", False),   # up block level 2 norm1
+    ((2, 1280, 32, 32), 32, torch.float16, "none", False),    # Transformer2D.norm
+    ((1, 128, 256, 256), 32, torch.float32, "silu", False),   # fp32 VAE
+    ((2, 960, 30, 30), 32, torch.bfloat16, "silu", True),     # ragged H*W, 30 per group
+    ((1, 93, 17, 19), 3, torch.float16, "none", True),        # 31 per group, odd rows
+])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_groupnorm_kernels_match_plain_on_card(shape, groups, dtype, act, with_t,
+                                               channels_last):
+    from pea_diffusion_tpu_torch.ops import groupnorm
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, c = shape[:2]
+    x = (0.5 + 2 * torch.randn(*shape, device=dev, generator=g)).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    scale = (1 + 0.1 * torch.randn(c, device=dev, generator=g)).to(dtype)
+    bias = (0.1 * torch.randn(c, device=dev, generator=g)).float()  # fp32 beside x's type
+    t = torch.randn(n, c, device=dev, generator=g).to(dtype) if with_t else None
+    fn = groupnorm.group_norm_bias_fwd if with_t else groupnorm.group_norm_fwd
+    n6 = fn.launches
+    out = (fn(x, t, scale, bias, groups, 1e-5, act) if with_t
+           else fn(x, scale, bias, groups, 1e-5, act))
+    again = (fn(x, t, scale, bias, groups, 1e-5, act) if with_t
+             else fn(x, scale, bias, groups, 1e-5, act))
+    torch.cuda.synchronize()
+    assert fn.launches == n6 + 2
+    ref = groupnorm.fused_gn_ref(x.float(), scale.float(), bias, groups, 1e-5, act,
+                                 None if t is None else t.float())
+    assert out.dtype == dtype and out.shape == x.shape
+    assert out.is_contiguous(memory_format=torch.channels_last) == channels_last
+    assert torch.equal(out, again)  # fixed summation order: the same bits every run
+    assert _rel_err(out, ref) < RTOL
+
+
+@pytest.mark.gpu
+def test_groupnorm_kernel_copies_other_strides_on_card():
+    from pea_diffusion_tpu_torch.ops import groupnorm
+
+    dev = _card()
+    x = torch.randn(2, 64, 8, 12, device=dev, dtype=torch.bfloat16)[..., :8]
+    w, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    copies = groupnorm.group_norm_fwd.copies
+    out = groupnorm.group_norm_fwd(x, w, b, 32)
+    assert groupnorm.group_norm_fwd.copies == copies + 1
+    assert _rel_err(out, groupnorm.fused_gn_ref(x.float(), w, b, 32)) < RTOL
+
+
+@pytest.mark.gpu
+def test_groupnorm_module_takes_the_kernels_behind_the_opt_in_on_card(monkeypatch):
+    """GroupNorm(act=silu) with a time embedding: B6-b with the opt-in on
+    (values, and x/t/scale/bias gradients through the Function's plain VJP),
+    nothing with it off."""
+    from pea_diffusion_tpu_torch.models.layers import GroupNorm
+    from pea_diffusion_tpu_torch.ops import groupnorm
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(6)
+    norm = GroupNorm(640, 32, 1e-5, act="silu").to(dev, torch.bfloat16)
+    x = torch.randn(2, 640, 64, 64, device=dev, generator=g).bfloat16().requires_grad_(True)
+    t = torch.randn(2, 640, device=dev, generator=g).bfloat16().requires_grad_(True)
+    gout = torch.randn(2, 640, 64, 64, device=dev, generator=g).bfloat16()
+    grads = {}
+    for on in ("0", "1"):
+        monkeypatch.setenv("PEA_FUSED_GROUPNORM", on)
+        n = groupnorm.group_norm_bias_fwd.launches
+        out = norm(x, t)
+        assert groupnorm.group_norm_bias_fwd.launches == n + int(on == "1")
+        grads[on] = [out.float()] + list(torch.autograd.grad(
+            out, (x, t, norm.weight, norm.bias), gout))
+    for a, b in zip(grads["1"], grads["0"]):
+        assert _rel_err(a, b.float()) < BWD_RTOL
+
+
+@pytest.mark.gpu
+def test_groupnorm_wrappers_refuse_inputs_that_need_grad_on_card():
+    from pea_diffusion_tpu_torch.ops import groupnorm
+
+    dev = _card()
+    x = torch.zeros(1, 32, 4, 4, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.ones(32, device=dev)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        groupnorm.group_norm_fwd(x, w, w, 8)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        groupnorm.group_norm_bias_fwd(x, w[None], w, w, 8)
+    with pytest.raises(TypeError):
+        groupnorm.group_norm_fwd(x.detach().double(), w, w, 8)
