@@ -9,9 +9,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. build the CUDA kernels from pea_diffusion_tpu_torch/csrc with nvcc
    (sm_90a), one nvcc per source, all at once, linked into one library;
 3. each kernel against its plain PyTorch version on the card, at the
-   paths' shapes: SDXL's head dim 64, SD1.5's 40 and 80 (bf16 inputs; the
-   plain version in fp32 from the same bf16 inputs, in chunks of (batch,
-   head) rows where its fp32 score matrices would not fit at once).
+   paths' shapes: SDXL's head dim 64, SD1.5's 40, 80 and 160 (bf16 inputs;
+   the plain version in fp32 from the same bf16 inputs, in chunks of
+   (batch, head) rows where its fp32 score matrices would not fit at once).
    Forward (B1, B3 with and without lse): max |kernel - plain| below 8e-3
    of max |plain|, twice the most that rounding the output to bf16 can move
    it. Backward (B4: dK, dV; B5: dQ): below 2e-2 of max |plain| per
@@ -24,13 +24,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    yardstick (the port never calls it: F.scaled_dot_product_attention for
    the forward, the backward of one such call for B4 + B5 together,
    F.group_norm for the GroupNorm alone), each launch after an L2 flush,
-   beside the least time the card needs for the same bytes and operations;
+   beside the least time the card needs for the same bytes and operations.
+   Then the sweep path (S1): the port's sweep tool
+   (pea_diffusion_tpu_torch/tools/sweep_onepass.py) runs B1's eight tile
+   variants at its b16 and b2 shapes from launch counts of 0; each variant
+   must stay below 8e-3 of max |plain| and the shipped shape's variant must
+   give shipped B1's bits;
 4. references: the tiny fp32 SDXL and SD1.5 stacks on the card against the
    same weights on the CPU (the paths the CPU tests hold against the JAX
    package), and, with each full-width stack, its UNet's attention modules
    at the serving shapes (SDXL 1024²: 640 and 1280 channels in heads of 64;
-   SD1.5 512²: 320 and 640 channels in 8 heads of 40 and 80) through the
-   kernels against plain attention, outputs and input gradients;
+   SD1.5 512²: 320 and 640 channels in 8 heads of 40 and 80; SD1.5 1024²:
+   1280 channels in 8 heads of 160) through the kernels against plain
+   attention, outputs and input gradients;
 5. the serving paths, with the launch counts set to 0 just before each and
    read just after: the full-width SDXL PEA stack (Chinese-CLIP
    RoBERTa-large, the sdxl_chinese_clip adapter, the SDXL UNet and VAE in
@@ -40,12 +46,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    tower, sd15_chinese_clip, the SD1.5 UNet and VAE in bf16) through
    StableDiffusionPEAPipeline, two requests at 512², DDIM 20 steps
    (BASELINE config 1), CFG 7.5 (20 B3 per UNet forward, at D = 40 and 80;
-   level 2 and the mid block, D = 160 at S <= 256, run plain). Each kernel
+   level 2 and the mid block, D = 160 at S <= 256, run plain), and two at
+   1024², DDIM 10 (30 B3 per UNet forward: level 0 at S = 16384, D = 40;
+   level 1 at 4096, D = 80; level 2 at 1024, D = 160; the mid block plain
+   at S = 256). Each kernel
    must have launched as often as the attention dispatch of the UNet's
    modules says, and the images must be finite [1, size, size, 3] in
    [0, 1]; then the stage times and a torch.profiler trace of one request
-   (tables in build/chip_smoke_profile.txt and
-   build/chip_smoke_sd15_profile.txt). The SDXL stack then runs with the
+   (tables in build/chip_smoke_profile.txt,
+   build/chip_smoke_sd15_profile.txt and
+   build/chip_smoke_sd15_1024_profile.txt). The SDXL stack then runs with the
    fused GroupNorm opt-in (PEA_FUSED_GROUPNORM=1) off and on: one UNet
    forward of the CFG pair against an fp32 forward, warm requests in turns
    for latency, and a profile each way (build/chip_smoke_gn_{off,on}_profile.txt);
@@ -63,17 +73,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ViT-L alone for SD1.5) from cli/train.py's build_demo_full: first one KD
    step's adapter gradient at batch 1, 512², through the kernels against
    plain attention (identical draws, relative L2 error below 5e-2; for
-   SDXL also with the GroupNorm opt-in on against off); then
-   KDTrainer.fit for 3 steps (SDXL at micro-batch 10, 640²; SD1.5 at 40,
-   512², the reference's operating point) with the launch counts set to 0:
+   SDXL also with the GroupNorm opt-in on against off; for SD1.5 also at
+   1024² with only the D = 160 calls switched); then KDTrainer.fit for 3
+   steps (SDXL at micro-batch 10, 640²; SD1.5 at 40, 512², the reference's
+   operating point, and at 8, 1024²) with the launch counts set to 0:
    finite losses, an adapter that moved, every frozen tensor bit-identical
    (checksums), and the launches the dispatch gives (per step: B3 with lse
    twice per student kernel call, forward and recompute; B4 and B5 once
    each; B1 and B3 without lse once per teacher call, whose cross-attention
    reads the teachers' 77 tokens); step time, samples/s, peak memory and a
    torch.profiler trace of one step (tables in
-   build/chip_smoke_train_profile.txt and
-   build/chip_smoke_sd15_train_profile.txt).
+   build/chip_smoke_train_profile.txt,
+   build/chip_smoke_sd15_train_profile.txt and
+   build/chip_smoke_sd15_1024_train_profile.txt).
 
 The last lines are the card, a {"kernels": [...]} line and
 {"ok": true, "device": {...}}. Each row of the kernels line is one kernel at
@@ -83,9 +95,11 @@ PER_CALL of the caller's role) or, for B6/B6-b, of the path's GroupNorm
 calls at that shape (groupnorm_calls), and the rows of a kernel must add up to the
 launches its wrapper counted on the path; check rows (long sequence,
 ragged, D=128, the GroupNorm's fp32 and ragged cases) that no path runs
-show 0. TF32 is off for matmuls and convolutions. Every path but the
+show 0; an S1 row's launches are those of its variant at its shape on the
+sweep path. TF32 is off for matmuls and convolutions. Every path but the
 ControlNet's runs with the GroupNorm opt-in off and must launch no B6/B6-b.
 """
+import gc
 import json
 import math
 import subprocess
@@ -108,16 +122,41 @@ SD15_HEADS = 8
 PLAIN_SCORES = 2**29        # fp32 score elements per chunk of a plain version
 SRC = "pea_diffusion_tpu_torch/csrc/"
 
-# Each model's paths: the serving request's image side and DDIM steps, the
-# training micro-batch and image side. SDXL's 4 steps are cut from 30 to fit
-# the time limit; SD1.5's are BASELINE config 1 (512², DDIM-20) and the
-# reference's train_sd_zh.py micro-batch (40 at 512²).
-MODELS = {
-    "sdxl": dict(size=1024, steps=4, train_batch=10, train_size=640),
-    "sd15": dict(size=512, steps=20, train_batch=40, train_size=512),
+# The serving paths: model, image side, DDIM steps, the down levels whose
+# attention modules are held against plain attention, the profile table.
+# SDXL's 4 steps are cut from 30 to fit the time limit; SD1.5's 512² DDIM-20
+# is BASELINE config 1; SD1.5 at 1024² (the one path that runs the flash
+# kernels at D = 160) is cut from 20 steps to 10.
+SERVING = {
+    "sdxl serving": dict(model="sdxl", size=1024, steps=4, levels=(1, 2),
+                         table="chip_smoke_profile.txt"),
+    "sd15 serving": dict(model="sd15", size=512, steps=20, levels=(0, 1),
+                         table="chip_smoke_sd15_profile.txt"),
+    "sd15 1024 serving": dict(model="sd15", size=1024, steps=10, levels=(2,),
+                              table="chip_smoke_sd15_1024_profile.txt"),
 }
-SD15_TRAIN_BH = MODELS["sd15"]["train_batch"] * SD15_HEADS
+# The training paths: model, micro-batch, image side, profile table, and
+# the head dim whose attention calls alone one KD step's adapter gradient
+# switches between the kernels and plain attention at the path's size (the
+# model's other reference step switches all of them at 512²). SD1.5's
+# 40 at 512² is the reference's train_sd_zh.py micro-batch; at 1024² it
+# trains 8 a step (8.4 M pixels against 40 x 512²'s 10.5 M; BH 64 in 8
+# heads).
+TRAINING = {
+    "sdxl training": dict(model="sdxl", batch=10, size=640,
+                          table="chip_smoke_train_profile.txt"),
+    "sd15 training": dict(model="sd15", batch=40, size=512,
+                          table="chip_smoke_sd15_train_profile.txt"),
+    "sd15 1024 training": dict(model="sd15", batch=8, size=1024, check_head_dim=160,
+                               table="chip_smoke_sd15_1024_train_profile.txt"),
+}
+SD15_TRAIN_BH = TRAINING["sd15 training"]["batch"] * SD15_HEADS
+SD15_1024_TRAIN_BH = TRAINING["sd15 1024 training"]["batch"] * SD15_HEADS
+SD15_1024_SERVING_BH = 2 * SD15_HEADS  # the CFG pair
 CONTROLNET_PATH = "sdxl controlnet serving"
+PROMPTS = ["一只戴着帽子的可爱猫咪", "雪山下的湖泊，清晨的阳光"]
+SWEEP_PATH = "onepass sweep"
+SWEEP_SHAPES, SWEEP_ITERS = "b16,b2", 20
 
 
 def log(msg):
@@ -145,6 +184,36 @@ def time_ms(torch, fn, iters, flush):
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def ptxas_lines(log_text):
+    """One line per compiled kernel from nvcc's -Xptxas -v output: its name,
+    element type and integer template arguments (head dim and tile shape
+    for the attention kernels), registers, and spill stores and loads."""
+    import re
+
+    lines, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = rest = entry.group(1)
+            if rest.startswith("_ZN"):  # pea::[ns::]kernel<T, ints...>(params)
+                rest, parts = rest[3:], []
+                while (ident := re.match(r"(\d+)", rest)):
+                    n, rest = int(ident.group(1)), rest[ident.end():]
+                    parts.append(rest[:n])
+                    rest = rest[n:]
+                kind = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}.get(
+                    re.match(r"(?:I(13__nv_bfloat16|6__half|f))?", rest).group(1), "")
+                args = re.findall(r"Li(\d+)E", rest)
+                name = f"{'::'.join(parts[1:])}<{','.join(filter(None, [kind] + args))}>"
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name is not None:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"{name}: {regs} registers; {spill}")
+            name, spill = None, ""
+    return lines
 
 
 def errors(out, ref):
@@ -182,6 +251,8 @@ KERNELS = {
                replaces="pea_diffusion_tpu/ops/groupnorm.py:126"),
     "B6-b": dict(name="B6-b group_norm with bias", route="cuda", source=SRC + "groupnorm.cu",
                  replaces="pea_diffusion_tpu/ops/groupnorm.py:131"),
+    "S1": dict(name="S1 onepass_attention tile variant", route="cuda",
+               source=SRC + "attention_fwd.cu", replaces="tools/sweep_onepass.py:50"),
 }
 GN_KERNELS = ("B6", "B6-b")
 
@@ -252,21 +323,32 @@ def forward_cases():
         ("B3", 16, 1024, 52, 1, 80, False, {sd15_s: ("flash", 1024, 52)},
          "SD1.5 serving: cross-attention, level 1"),
     ]
-    bh = SD15_TRAIN_BH
-    for level, d, s in ((0, 40, 4096), (1, 80, 1024)):
+    sd15_1k_s, sd15_1k_t, bh_1k = "sd15 1024 serving", "sd15 1024 training", SD15_1024_SERVING_BH
+    for level, d, s in ((0, 40, 16384), (1, 80, 4096), (2, 160, 1024)):
         cases += [
-            ("B3", bh, s, s, 1, d, False, {sd15_t: ("flash", s, s)},
-             f"SD1.5 training teacher (and the student's first, gradient-free call): "
-             f"self-attention, level {level}"),
-            ("B3", bh, s, s, 1, d, True, {sd15_t: ("flash", s, s)},
-             f"SD1.5 training student: self-attention, level {level}"),
-            ("B3", bh, s, TEXT_TOKENS, 1, d, True, {sd15_t: ("flash", s, TEXT_TOKENS)},
-             f"SD1.5 training student: cross-attention, level {level}"),
-            ("B3", bh, s, TEACHER_TOKENS, 1, d, False, {sd15_t: ("flash", s, TEACHER_TOKENS)},
-             f"SD1.5 training teacher: cross-attention, level {level}"),
+            ("B3", bh_1k, s, s, 1, d, False, {sd15_1k_s: ("flash", s, s)},
+             f"SD1.5 1024² serving: self-attention, level {level}"),
+            ("B3", bh_1k, s, TEXT_TOKENS, 1, d, False, {sd15_1k_s: ("flash", s, TEXT_TOKENS)},
+             f"SD1.5 1024² serving: cross-attention, level {level}"),
         ]
+    for path, bh, what, levels in (
+            (sd15_t, SD15_TRAIN_BH, "SD1.5 training", ((0, 40, 4096), (1, 80, 1024))),
+            (sd15_1k_t, SD15_1024_TRAIN_BH, "SD1.5 1024² training",
+             ((0, 40, 16384), (1, 80, 4096), (2, 160, 1024)))):
+        for level, d, s in levels:
+            first = " (and the student's first, gradient-free call)" if level == 0 else ""
+            cases += [
+                ("B3", bh, s, s, 1, d, False, {path: ("flash", s, s)},
+                 f"{what} teacher{first}: self-attention, level {level}"),
+                ("B3", bh, s, s, 1, d, True, {path: ("flash", s, s)},
+                 f"{what} student: self-attention, level {level}"),
+                ("B3", bh, s, TEXT_TOKENS, 1, d, True, {path: ("flash", s, TEXT_TOKENS)},
+                 f"{what} student: cross-attention, level {level}"),
+                ("B3", bh, s, TEACHER_TOKENS, 1, d, False, {path: ("flash", s, TEACHER_TOKENS)},
+                 f"{what} teacher: cross-attention, level {level}"),
+            ]
     cases += [("B3", 16, 1000, 1000, 1, d, False, {}, f"ragged Sq and Skv, head_dim {d}")
-              for d in (40, 80)]
+              for d in (40, 80, 160)]
     return cases
 
 
@@ -338,9 +420,12 @@ def backward_cases():
          "SD1.5 training: self-attention, level 1"),
         (bh, 1024, TEXT_TOKENS, 80, {sd15_t: ("flash", 1024, TEXT_TOKENS)},
          "SD1.5 training: cross-attention, level 1"),
-        (16, 1000, 1000, 40, {}, "ragged Sq and Skv, head_dim 40"),
-        (16, 1000, 1000, 80, {}, "ragged Sq and Skv, head_dim 80"),
-    ]
+    ] + [
+        (SD15_1024_TRAIN_BH, s, kv, d, {"sd15 1024 training": ("flash", s, kv)},
+         f"SD1.5 1024² training: {'self' if kv == s else 'cross'}-attention, level {level}")
+        for level, d, s in ((0, 40, 16384), (1, 80, 4096), (2, 160, 1024))
+        for kv in (s, TEXT_TOKENS)
+    ] + [(16, 1000, 1000, d, {}, f"ragged Sq and Skv, head_dim {d}") for d in (40, 80, 160)]
 
 
 def run_backward_cases(torch, F, randn, flush):
@@ -470,7 +555,7 @@ def groupnorm_cases():
                    ("VAE decoder", AutoencoderKL(SDXL_VAE).decoder, 1))
     owners = defaultdict(set)
     for label, model, batch in modules:
-        for key in groupnorm_calls(model, MODELS["sdxl"]["size"] // 8, batch):
+        for key in groupnorm_calls(model, SERVING["sdxl serving"]["size"] // 8, batch):
             owners[key].add(label)
     cases = []
     for key in sorted(owners, key=lambda k: (k[0], -k[3], k[2], k[4])):
@@ -567,25 +652,78 @@ def kernel_phases(torch, F):
     return entries
 
 
-def attention_routes(unet, latent: int, skv: int, device_type="cuda", grad_free=None):
-    """{(route, sq, skv): calls} of one UNet forward at a latent side
-    `latent`, from the dispatch each attention module takes at its level's
-    sequence length. With `grad_free` False or True, only the calls whose
-    inputs do or do not depend on the text conditioning, which is what
-    decides whether autograd records them when the adapter trains: without
-    SDXL's added conditioning (pooled text in the time embedding), the calls
-    before the first cross-attention see only the latents and the timestep
-    (SD1.5: the first self-attention of level 0)."""
-    from collections import Counter
+def sweep_phase(torch, F):
+    """The sweep path (S1): the sweep tool's function at SWEEP_SHAPES from
+    launch counts of 0. Each variant below KERNEL_RTOL of max |plain|, the
+    shipped shape's variant bit-equal to shipped B1 (the tool's one B1
+    launch per shape makes that comparison); then, per shape, the plain
+    version's and one SDPA call's times on the same inputs. One row per
+    variant and shape."""
+    from pea_diffusion_tpu_torch.tools import sweep_onepass as sw
 
+    reset_launch_counts()
+    rows = sw.sweep(SWEEP_SHAPES, SWEEP_ITERS)
+    counted, b1 = dict(sw.onepass_forward_variant.launches), launch_counts()["B1"]
+    n_shapes = len(sw.shapes(SWEEP_SHAPES))
+    by_variant = {name: sum(r["launches"] for r in rows if r["variant"] == name)
+                  for name in sw.VARIANTS}
+    log(f"[sweep] variant launches {counted}; B1 launches {b1} (the base of each of "
+        f"{n_shapes} shapes)")
+    if by_variant != counted or b1 != n_shapes or min(counted.values()) == 0:
+        raise AssertionError(f"sweep: rows account for {by_variant}, the wrapper counted "
+                             f"{counted}; B1 {b1}")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    entries = []
+    for label, b, h, s, d in sw.shapes(SWEEP_SHAPES):
+        q, k, v = sw.make_inputs(b, h, s, d)
+        views = [t.view(b, s, h, d).transpose(1, 2) for t in (q, k, v)]
+        plain_ms = time_ms(torch, lambda: sw.plain_forward(q, k, v, h, d), 3, flush)
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(*views), 20, flush)
+        bound_ms, bound_by = bound(4 * b * h * s * s * d, 2 * 4 * q.numel())
+        for r in (r for r in rows if r["shape"] == label):
+            what = f"sweep {label}: variant {r['variant']}"
+            if not r["rel_err_vs_plain"] < KERNEL_RTOL:
+                raise AssertionError(f"S1 {what}: {r['rel_err_vs_plain']} of max |plain| >= "
+                                     f"{KERNEL_RTOL}")
+            if r["variant"] == sw.BASE and not r["equals_base"]:
+                raise AssertionError(f"S1 {what}: the shipped shape differs from shipped B1 "
+                                     f"by {r['max_abs_err_vs_base']}")
+            shape = f"batch={b} sq={s} skv={s} heads={h} head_dim={d} bf16"
+            e = dict(KERNELS["S1"], name=f"{KERNELS['S1']['name']} {r['variant']}",
+                     shape=shape, what=what, max_abs_err=r["max_abs_err_vs_base"],
+                     max_rel_err=r["rel_err_vs_plain"], rel_tolerance=KERNEL_RTOL,
+                     ms=r["us"] / 1e3, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=library_ms, tflops=r["tflops"], equals_b1=r["equals_base"],
+                     kernel="S1", lse=False, stands_for={},
+                     launches_by_path={SWEEP_PATH: r["launches"]})
+            log(f"[kernel] {e['name']} {what} ({shape}): rel err vs plain "
+                f"{r['rel_err_vs_plain']:.3g}, max abs vs B1 {r['max_abs_err_vs_base']:.3g} "
+                f"ms {e['ms']:.4f} ({r['tflops']:.1f} TFLOP/s) plain {plain_ms:.4f} library "
+                f"{library_ms:.4f} bound {bound_ms:.4f} ({bound_by})")
+            entries.append(e)
+        del q, k, v, views
+    del flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def attention_calls(unet, latent: int, skv: int, device_type="cuda", grad_free=None):
+    """(route, sq, skv, head_dim) of each attention call of one UNet forward
+    at a latent side `latent`, in the order the forward runs them, from the
+    dispatch each attention module takes at its level's sequence length.
+    With `grad_free` False or True, only the calls whose inputs do or do not
+    depend on the text conditioning, which is what decides whether autograd
+    records them when the adapter trains: without SDXL's added conditioning
+    (pooled text in the time embedding), the calls before the first
+    cross-attention see only the latents and the timestep (SD1.5: the first
+    self-attention of level 0)."""
     from pea_diffusion_tpu_torch.models.layers import attention_route
 
     n = len(unet.down_blocks)
     levels = ([(blk, i) for i, blk in enumerate(unet.down_blocks)] + [(unet.mid_block, n - 1)]
               + [(blk, n - 1 - i) for i, blk in enumerate(getattr(unet, "up_blocks", []))])
     conditioned = getattr(unet.config, "unet", unet.config).addition_embed_type == "text_time"
-    counts = Counter()
-    for block, level in levels:  # in the order the forward runs them
+    for block, level in levels:
         sq = (latent >> level) ** 2
         for tr in getattr(block, "attentions", []):
             for tb in tr.transformer_blocks:
@@ -595,8 +733,22 @@ def attention_routes(unet, latent: int, skv: int, device_type="cuda", grad_free=
                         continue
                     route = attention_route(sq, kv, attn.num_heads, attn.head_dim,
                                             attn.backend, device_type)
-                    counts[route, sq, kv] += 1
-    return counts
+                    yield route, sq, kv, attn.head_dim
+
+
+def attention_routes(unet, latent: int, skv: int, device_type="cuda", grad_free=None):
+    """{(route, sq, skv): calls} of one UNet forward (see `attention_calls`)."""
+    from collections import Counter
+
+    return Counter(call[:3] for call in attention_calls(unet, latent, skv, device_type,
+                                                        grad_free))
+
+
+def routes_by_head_dim(unet, latent: int, skv: int):
+    """{(route, head_dim): calls} of one UNet forward, for the log."""
+    from collections import Counter
+
+    return Counter((route, d) for route, _, _, d in attention_calls(unet, latent, skv))
 
 
 def launches_at(calls, key):
@@ -650,14 +802,6 @@ def stamp_launches(kernels, path, calls, measured, gn_calls=None):
                              f"the wrapper counted {measured['B3 with lse']}")
 
 
-def route_totals(routes):
-    """{route: calls} of `routes`, for the log."""
-    totals = {}
-    for (route, _, _), n in routes.items():
-        totals[route] = totals.get(route, 0) + n
-    return totals
-
-
 def launch_counts():
     from pea_diffusion_tpu_torch.ops import flash_attention as fa
     from pea_diffusion_tpu_torch.ops import groupnorm as gn
@@ -674,11 +818,14 @@ def reset_launch_counts():
     from pea_diffusion_tpu_torch.ops import groupnorm as gn
     from pea_diffusion_tpu_torch.ops import onepass_attention as op
 
+    from pea_diffusion_tpu_torch.tools import sweep_onepass as sw
+
     for fn in (op.onepass_forward, fa.flash_forward, fa.flash_backward_dkdv,
                fa.flash_backward_dq, gn.group_norm_fwd, gn.group_norm_bias_fwd):
         fn.launches = 0
     fa.flash_forward.lse_launches = 0
     gn.group_norm_fwd.copies = 0
+    sw.onepass_forward_variant.launches = dict.fromkeys(sw.VARIANTS, 0)
 
 
 def check_launches(path, got, want):
@@ -796,12 +943,11 @@ def event_ms(torch, fn, n=3):
     return ev[0].elapsed_time(ev[1]) / n
 
 
-def stage_times(torch, models, tokenize, prompt, kernels, forwards, model, path):
+def stage_times(torch, models, tokenize, prompt, kernels, forwards, model, size, path):
     """CUDA-event times of one request's stages, each the mean of 3 warm runs."""
     from pea_diffusion_tpu_torch.pipelines.text2image import (
         decode_latents, encode_prompt_sd, encode_prompt_sdxl, make_add_time_ids)
 
-    size = MODELS[model]["size"]
     dev = models.device
     ids = torch.as_tensor(tokenize([prompt]), device=dev)
     uncond = torch.as_tensor(tokenize([""]), device=dev)
@@ -881,22 +1027,25 @@ def set_fused_gn(on):
         os.environ.pop("PEA_FUSED_GROUPNORM", None)
 
 
-def reference_kd_step(torch, models, model, compare="attention"):
-    """One KD step's adapter gradient at batch 1, 512², with the same draws:
-    through the attention kernels against plain attention (`compare`
-    "attention"), or with the fused GroupNorm opt-in on against off
-    ("groupnorm": B6/B6-b forward, the plain VJP backward, on every norm of
-    the student UNet and the fp32 VAE encoder). Relative L2 error."""
+def reference_kd_step(torch, models, model, compare="attention", size=512, head_dim=None):
+    """One KD step's adapter gradient at batch 1, `size`², with the same
+    draws: through the attention kernels against plain attention (`compare`
+    "attention"; with `head_dim`, only the attention modules of that head
+    dim switch, the others run the kernels both times), or with the fused
+    GroupNorm opt-in on against off ("groupnorm": B6/B6-b forward, the plain
+    VJP backward, on every norm of the student UNet and the fp32 VAE
+    encoder). Relative L2 error."""
     from pea_diffusion_tpu_torch.cli.train import demo_full_batches
     from pea_diffusion_tpu_torch.configs import TrainConfig
     from pea_diffusion_tpu_torch.models.layers import MultiHeadAttention
     from pea_diffusion_tpu_torch.train.kd import kd_loss
 
-    batch = next(demo_full_batches("cuda", 1, 512, seed=5, model=model))
+    batch = next(demo_full_batches("cuda", 1, size, seed=5, model=model))
     batch["zh_or_not"] = torch.full((1,), 0.5, device="cuda")  # both loss routes
     gen = torch.Generator(device="cuda").manual_seed(11)
     draws, grads, losses = {}, {}, {}
-    attns = [m for m in models.unet.modules() if isinstance(m, MultiHeadAttention)]
+    attns = [m for m in models.unet.modules() if isinstance(m, MultiHeadAttention)
+             and head_dim in (None, m.head_dim)]
     settings = ("auto", "xla") if compare == "attention" else ("on", "off")
     gn_launches = 0
     for setting in settings:
@@ -922,7 +1071,9 @@ def reference_kd_step(torch, models, model, compare="attention"):
     rel = ((grads[a] - grads[b]).norm() / grads[b].norm()).item()
     what = ("kernels vs plain attention" if compare == "attention"
             else f"fused GroupNorm on ({gn_launches} B6/B6-b launches) vs off")
-    log(f"[reference] {model} KD step, batch 1, 512², {what}: loss {losses[a]:.6g} vs "
+    if head_dim is not None:
+        what += f" in the {len(attns)} attention modules of head dim {head_dim}"
+    log(f"[reference] {model} KD step, batch 1, {size}², {what}: loss {losses[a]:.6g} vs "
         f"{losses[b]:.6g}; adapter gradient relative L2 error {rel:.3g}")
     if not (rel < KD_GRAD_RTOL and grads[a].norm().item() > 0):
         raise AssertionError(f"{model} KD adapter gradient, {what}: {rel}")
@@ -930,19 +1081,24 @@ def reference_kd_step(torch, models, model, compare="attention"):
         raise AssertionError(f"{model} KD step with the opt-in on launched no GroupNorm kernel")
 
 
-def training_path(torch, models, make_batches, repo, kernels, model):
-    """KDTrainer.fit for TRAIN_STEPS steps at the model's micro-batch and
-    image side, from launch counts of 0; stamps the launches on the kernel
-    rows."""
+def training_path(torch, models, repo, kernels, path):
+    """KDTrainer.fit for TRAIN_STEPS steps at the path's micro-batch and
+    image side (synthetic batches from cli/train.py's demo_full_batches,
+    seeded as its build_demo_full seeds them), from launch counts of 0;
+    stamps the launches on the kernel rows."""
     import shutil
 
+    from pea_diffusion_tpu_torch.cli.train import demo_full_batches
     from pea_diffusion_tpu_torch.configs import TrainConfig
     from pea_diffusion_tpu_torch.train.trainer import KDTrainer
 
-    batch_size, size = MODELS[model]["train_batch"], MODELS[model]["train_size"]
-    sdxl = model == "sdxl"
-    tag, path = ("train", "sdxl training") if sdxl else ("sd15 train", "sd15 training")
-    out = repo / "build" / ("chip_smoke_train" if sdxl else "chip_smoke_sd15_train")
+    spec = TRAINING[path]
+    batch_size, size, tag = spec["batch"], spec["size"], path
+
+    def make_batches(start_step=0):
+        return demo_full_batches(models.device, batch_size, size, 1 + start_step, spec["model"])
+
+    out = repo / "build" / spec["table"].replace("_profile.txt", "")
     shutil.rmtree(out, ignore_errors=True)
     cfg = TrainConfig(warmup_steps=0, warmup_ratio=0.0, output_dir=str(out),
                       every_n_steps=TRAIN_STEPS, log_every_n_steps=1,
@@ -957,9 +1113,10 @@ def training_path(torch, models, make_batches, repo, kernels, model):
     calls = [("student", student, TRAIN_STEPS), ("student, no gradient", grad_free, TRAIN_STEPS),
              ("teacher", teacher, TRAIN_STEPS)]
     want = path_launches(calls)
-    log(f"[{tag}] attention calls per UNet forward at {size}²: {route_totals(teacher)}; "
-        f"student by (route, sq, skv): {dict(student)}, of which no input depends on the "
-        f"adapter: {dict(grad_free)}; teacher: {dict(teacher)}")
+    log(f"[{tag}] attention calls per UNet forward at {size}² by (route, head dim): "
+        f"{dict(routes_by_head_dim(models.unet, latent, TEACHER_TOKENS))}; student by (route, sq, "
+        f"skv): {dict(student)}, of which no input depends on the adapter: "
+        f"{dict(grad_free)}; teacher: {dict(teacher)}")
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -989,23 +1146,15 @@ def training_path(torch, models, make_batches, repo, kernels, model):
 
     batch = next(make_batches(TRAIN_STEPS))
     gen = torch.Generator(device="cuda").manual_seed(99)
-    table = "chip_smoke_train_profile.txt" if sdxl else "chip_smoke_sd15_train_profile.txt"
     profile_run(torch, lambda: trainer.step_fn(trainer.state, batch, gen), step_s,
-                repo / "build" / table, f"{tag} profile")
+                repo / "build" / spec["table"], f"{tag} profile")
 
 
 def serving_phase(torch, model, kernels, repo):
-    """The full-width serving stack of `model`: its attention modules
-    against plain attention, then REQUESTS requests with the launch counts
-    set to 0 just before and read just after, the stage times and a
-    profile."""
+    """The full-width serving stack of `model` and each of its serving
+    paths (`serve_path`); for SDXL then the fused GroupNorm A/B."""
     from pea_diffusion_tpu_torch.cli.generate import build_demo_full
-    from pea_diffusion_tpu_torch.pipelines.text2image import (StableDiffusionPEAPipeline,
-                                                              StableDiffusionXLPEAPipeline)
 
-    size, steps = MODELS[model]["size"], MODELS[model]["steps"]
-    sdxl = model == "sdxl"
-    tag, path = ("main", "sdxl serving") if sdxl else ("sd15 main", "sd15 serving")
     t1 = time.time()
     models, tokenize, _ = build_demo_full("cuda", model=model)
     torch.cuda.synchronize()
@@ -1014,31 +1163,46 @@ def serving_phase(torch, model, kernels, repo):
                    for p in m.parameters())
     log(f"[init] full-width {model} serving stack on the card in {time.time() - t1:.1f}s, "
         f"{n_params / 1e9:.3f}B parameters")
-    reference_attention_modules(torch, models.unet, size // 8, (1, 2) if sdxl else (0, 1))
+    for path, spec in SERVING.items():
+        if spec["model"] == model:
+            pipe = serve_path(torch, models, tokenize, path, kernels, repo)
+            log(f"[{path}] done at {time.time() - t1:.1f}s after the stack's build")
+    if model == "sdxl":
+        fused_gn_ab(torch, models, pipe, tokenize, PROMPTS[0], repo)
 
-    pipe = (StableDiffusionXLPEAPipeline if sdxl else StableDiffusionPEAPipeline)(
+
+def serve_path(torch, models, tokenize, path, kernels, repo):
+    """One serving path: the UNet's attention modules at the path's levels
+    against plain attention, then REQUESTS requests with the launch counts
+    set to 0 just before and read just after, the stage times and a
+    profile. Returns the pipeline."""
+    from pea_diffusion_tpu_torch.pipelines.text2image import (StableDiffusionPEAPipeline,
+                                                              StableDiffusionXLPEAPipeline)
+
+    spec = SERVING[path]
+    size, steps, model, tag = spec["size"], spec["steps"], spec["model"], path
+    reference_attention_modules(torch, models.unet, size // 8, spec["levels"])
+    pipe = (StableDiffusionXLPEAPipeline if model == "sdxl" else StableDiffusionPEAPipeline)(
         models, sampler_name="ddim")
-    prompts = ["一只戴着帽子的可爱猫咪", "雪山下的湖泊，清晨的阳光"]
     routes = attention_routes(models.unet, size // 8, TEXT_TOKENS)
     calls = [("serving", routes, steps * REQUESTS)]
     want = path_launches(calls)
     reset_launch_counts()
-    req_s = main_path(torch, pipe, tokenize, prompts, size, steps, tag)
+    req_s = main_path(torch, pipe, tokenize, PROMPTS, size, steps, tag)
     served = launch_counts()
-    log(f"[{tag}] attention calls per UNet forward at {size}²: {route_totals(routes)}; "
-        f"by (route, sq, skv): {dict(routes)}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[{tag}] attention calls per UNet forward at {size}² by (route, head dim): "
+        f"{dict(routes_by_head_dim(models.unet, size // 8, TEXT_TOKENS))}; by (route, sq, skv): "
+        f"{dict(routes)}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check_launches(tag, served, want)
     stamp_launches(kernels, path, calls, served)
 
-    stage_times(torch, models, tokenize, prompts[0], kernels, steps * REQUESTS, model, path)
-    table = "chip_smoke_profile.txt" if sdxl else "chip_smoke_sd15_profile.txt"
-    profile_run(torch, lambda: pipe(tokenize([prompts[0]]), tokenize([""]), height=size,
+    stage_times(torch, models, tokenize, PROMPTS[0], kernels, steps * REQUESTS, model, size,
+                path)
+    profile_run(torch, lambda: pipe(tokenize([PROMPTS[0]]), tokenize([""]), height=size,
                                     width=size, num_steps=steps, guidance_scale=GUIDANCE,
                                     seed=7),
-                min(req_s), repo / "build" / table, f"{tag} profile")
-    if sdxl:
-        fused_gn_ab(torch, models, pipe, tokenize, prompts[0], repo)
+                min(req_s), repo / "build" / spec["table"], f"{tag} profile")
+    return pipe
 
 
 def fused_gn_ab(torch, models, pipe, tokenize, prompt, repo):
@@ -1058,7 +1222,7 @@ def fused_gn_ab(torch, models, pipe, tokenize, prompt, repo):
     from pea_diffusion_tpu_torch.pipelines.text2image import (encode_prompt_sdxl,
                                                               make_add_time_ids)
 
-    size, steps = MODELS["sdxl"]["size"], MODELS["sdxl"]["steps"]
+    size, steps = SERVING["sdxl serving"]["size"], SERVING["sdxl serving"]["steps"]
     dev = models.device
     gen = torch.Generator(device=dev).manual_seed(21)
     x = torch.randn((2, size // 8, size // 8, 4), generator=gen, device=dev)
@@ -1153,7 +1317,7 @@ def controlnet_phase(torch, model, kernels, repo):
     from pea_diffusion_tpu_torch.pipelines.text2image import (encode_prompt_sdxl,
                                                               make_add_time_ids)
 
-    size, steps = MODELS[model]["size"], MODELS[model]["steps"]
+    size, steps = SERVING["sdxl serving"]["size"], SERVING["sdxl serving"]["steps"]
     latent, tag = size // 8, "controlnet"
     t1 = time.time()
     models, tokenize, _ = build_demo_full("cuda")
@@ -1163,8 +1327,6 @@ def controlnet_phase(torch, model, kernels, repo):
     log(f"[init] full-width SDXL stack and ControlNet ({sum(p.numel() for p in cn.parameters()) / 1e9:.3f}B "
         f"parameters) on the card, control image {tuple(control.shape)} with "
         f"{control.mean().item():.4f} of it edges, in {time.time() - t1:.1f}s")
-    prompts = ["一只戴着帽子的可爱猫咪", "雪山下的湖泊，清晨的阳光"]
-
     def request(prompt, seed, **kw):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         return generate_sdxl_controlnet(
@@ -1187,7 +1349,7 @@ def controlnet_phase(torch, model, kernels, repo):
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         images, req_s = [], []
-        for i, prompt in enumerate(prompts[:REQUESTS]):
+        for i, prompt in enumerate(PROMPTS[:REQUESTS]):
             torch.cuda.synchronize()
             t0 = time.time()
             images.append(request(prompt, i).float())
@@ -1195,7 +1357,10 @@ def controlnet_phase(torch, model, kernels, repo):
             req_s.append(time.time() - t0)
             check_image(images[-1], size, f"{tag} request {i}", req_s[-1])
         served = launch_counts()
-        log(f"[{tag}] attention calls per UNet + ControlNet forward: {route_totals(routes)}; "
+        by_dim = (routes_by_head_dim(models.unet, latent, TEXT_TOKENS)
+                  + routes_by_head_dim(cn, latent, TEXT_TOKENS))
+        log(f"[{tag}] attention calls per UNet + ControlNet forward by (route, head dim): "
+            f"{dict(by_dim)}; "
             f"layout copies before a GroupNorm kernel: {gn.group_norm_fwd.copies}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check_launches(tag, served, want)
@@ -1205,7 +1370,7 @@ def controlnet_phase(torch, model, kernels, repo):
         hooks = [m.register_forward_pre_hook(lambda mod, args: layouts.update(
             [gn.layout(args[0])])) for m in norms]
         try:
-            off = request(prompts[0], 0, controlnet_conditioning_scale=0.0).float()
+            off = request(PROMPTS[0], 0, controlnet_conditioning_scale=0.0).float()
         finally:
             for h in hooks:
                 h.remove()
@@ -1220,11 +1385,11 @@ def controlnet_phase(torch, model, kernels, repo):
 
         torch.cuda.synchronize()
         t0 = time.time()
-        check_image(request(prompts[1], 5, guess_mode=True).float(), size, f"{tag} guess mode",
+        check_image(request(PROMPTS[1], 5, guess_mode=True).float(), size, f"{tag} guess mode",
                     time.time() - t0)
         guess_s = time.time() - t0
         dev = models.device
-        ids = torch.as_tensor(tokenize([prompts[1]]), device=dev)
+        ids = torch.as_tensor(tokenize([PROMPTS[1]]), device=dev)
         uncond = torch.as_tensor(tokenize([""]), device=dev)
         x = torch.randn((1, latent, latent, 4), device=dev)
         t = torch.full((2,), 500, device=dev)
@@ -1252,7 +1417,7 @@ def controlnet_phase(torch, model, kernels, repo):
         log(f"[{tag} stages, guess mode] prompt encoding {enc:.3f} ms; ControlNet (batch 1) "
             f"{cn_ms:.3f} ms + UNet (CFG pair) = {step_ms:.3f} ms a step; VAE decode "
             f"{dec:.3f} ms; request {guess_s:.4f} s")
-        profile_run(torch, lambda: request(prompts[1], 5, guess_mode=True), guess_s,
+        profile_run(torch, lambda: request(PROMPTS[1], 5, guess_mode=True), guess_s,
                     repo / "build" / "chip_smoke_controlnet_profile.txt", f"{tag} profile")
     finally:
         set_fused_gn(False)
@@ -1260,13 +1425,13 @@ def controlnet_phase(torch, model, kernels, repo):
 
 def training_phase(torch, model, kernels, repo):
     """The full-width KD stack of `model`: one step's adapter gradient
-    against plain attention, then the training path."""
+    against plain attention, then each of its training paths."""
     from pea_diffusion_tpu_torch.cli.train import build_demo_full
 
-    spec = MODELS[model]
+    paths = [path for path, spec in TRAINING.items() if spec["model"] == model]
+    first = TRAINING[paths[0]]
     t1 = time.time()
-    models, make_batches = build_demo_full("cuda", spec["train_batch"], spec["train_size"],
-                                           model=model)
+    models, _ = build_demo_full("cuda", first["batch"], first["size"], model=model)
     torch.cuda.synchronize()
     n_frozen = sum(p.numel() for m in models.frozen_modules().values() for p in m.parameters())
     log(f"[init] full-width {model} KD stack on the card in {time.time() - t1:.1f}s, "
@@ -1275,12 +1440,18 @@ def training_phase(torch, model, kernels, repo):
     reference_kd_step(torch, models, model)
     if model == "sdxl":
         reference_kd_step(torch, models, model, compare="groupnorm")
-    training_path(torch, models, make_batches, repo, kernels, model)
+    for path in paths:
+        spec = TRAINING[path]
+        if "check_head_dim" in spec:
+            reference_kd_step(torch, models, model, size=spec["size"],
+                              head_dim=spec["check_head_dim"])
+        training_path(torch, models, repo, kernels, path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{path}] done at {time.time() - t1:.1f}s after the stack's build")
 
 
 def main() -> int:
-    import gc
-
     import torch
     import torch.nn.functional as F
 
@@ -1305,14 +1476,15 @@ def main() -> int:
     log(f"[card] {card}; {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; tf32 off for matmul and cudnn")
 
-    for line in kernel_build.build().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    for line in ptxas_lines(kernel_build.build()):
+        log(f"[build] {line}")
     log(f"[build] done in {time.time() - t0:.1f}s")
 
     kernels = kernel_phases(torch, F)
     log(f"[kernel] phase done at {time.time() - t0:.1f}s")
-    for model in MODELS:
+    kernels += sweep_phase(torch, F)
+    log(f"[sweep] phase done at {time.time() - t0:.1f}s")
+    for model in ("sdxl", "sd15"):
         reference_tiny_stack(torch, build_demo, model)
 
     for phase, model in ((serving_phase, "sdxl"), (serving_phase, "sd15"),

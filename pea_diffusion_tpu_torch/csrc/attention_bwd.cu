@@ -33,10 +33,30 @@
 //   K and V stream through two stages, as in the forward.
 // The TPU kernels walk 1024-row KV blocks because VMEM is large; here a
 // block holds 64 rows of each operand. Fusing B4 and B5 (dQ by atomics) is
-// later work. Head dims 40, 64, 80 and 128: the k-step and n-tile tails
-// and the zero padding of D = 40 are described in attention_common.cuh.
-// B4's fp32 dK and dV accumulators take D / 2 registers per thread each
-// (40 at D = 80), beside the S^T and dP^T tiles and the K/V fragments.
+// later work. Head dims 40, 64, 80, 128 and 160: the k-step and n-tile
+// tails and the zero padding of D = 40 are described in
+// attention_common.cuh. B4's fp32 dK and dV accumulators take D / 2
+// registers per thread each (40 at D = 80), beside the S^T and dP^T tiles
+// and the K/V fragments.
+//
+// D = 160 (SD1.5's level 2 at 1024^2 and up) does not fit that register
+// budget, so it has kernels of its own, each computing what the others do
+// in the same order:
+// - B4 (attention_bwd_dkdv_wide_kernel): the dK and dV accumulators alone
+//   would be 160 registers a thread. The grid gets a third dimension of 2:
+//   blocks with z = 0 accumulate dV = P^T dO, blocks with z = 1 dK = dS^T Q
+//   (dV and dK in two passes over Q, the passes run side by side). Both
+//   recompute S^T = K Q^T; only the dK pass needs dP^T = V dO^T. That is 10
+//   products of the S^T tile's size where the fused kernel does 8 (the
+//   bound below counts 8), against 12 for splitting D into two halves that
+//   each recompute both S^T and dP^T, and each pass keeps 80 accumulator
+//   registers. The K and V fragments are read from shared memory one pair
+//   of k-steps at a time (16 registers, not 80).
+// - B5 (attention_bwd_dq_wide_kernel): Q and dO fragments of the whole
+//   width (80 registers) do not fit beside the dQ accumulator (80) and the
+//   S and dP tiles (64). The block copies its 64 Q and dO rows into shared
+//   memory once and reads each pair of k-steps' fragments with ldmatrix
+//   inside the KV walk.
 //
 // Masking. KV rows at or past skv are zero-filled and their scores set to
 // -1e30, so P = 0 there; they are not stored. Q rows at or past sq read
@@ -69,6 +89,17 @@ constexpr int dq_smem_bytes() {  // [stage][K | V][row][k_ld<D>]
 template <int D>
 constexpr int dkdv_smem_bytes() {  // K | V, [stage][Q | dO], [stage][lse | delta]
   return (2 + kStages * 2) * kBlockN * k_ld<D>() * 2 + kStages * 2 * kBlockM * 4;
+}
+
+// Head dims above 128 take the wide kernels.
+template <int D>
+constexpr bool wide_head() {
+  return D > 128;
+}
+
+template <int D>
+constexpr int dq_wide_smem_bytes() {  // [stage][K | V], then Q | dO of the block
+  return dq_smem_bytes<D>() + 2 * kBlockM * k_ld<D>() * 2;
 }
 
 // Copies rows [q0, q0 + kBlockM) of lse (times log2(e)) and delta into
@@ -359,30 +390,324 @@ __global__ void __launch_bounds__(kThreads, 4) attention_bwd_dq_kernel_4blocks(c
   bwd_dq<T, D>(p);
 }
 
-// The B5 kernel of one instantiation (only the variant used is compiled).
+// One pass of B4 at a wide head dim (see the top of this file): with
+// kDkPass, dK = dS^T Q * scale, else dV = P^T dO, for this block's 64 KV
+// rows over all Sq rows.
+template <typename T, int D, bool kDkPass>
+__device__ __forceinline__ void bwd_dkdv_pass(const BwdParams& p) {
+  static_assert(k_dpad<D>() == D && D % 32 == 0, "k-steps and n-tiles in pairs");
+  constexpr int kKSteps = D / 16;       // k-steps over the head dim
+  constexpr int kDTiles = D / 8;        // n-tiles of dK or dV
+  constexpr int kNTiles = kBlockM / 8;  // n-tiles of the S^T tile (Q rows)
+  constexpr int kLd = k_ld<D>();
+  constexpr int kTile = kBlockN * kLd;
+
+  extern __shared__ __align__(16) uint16_t smem[];
+  uint16_t* kts = smem;           // this block's K rows
+  uint16_t* vts = smem + kTile;   // and V rows (read by the dK pass)
+  uint16_t* stages = smem + 2 * kTile;  // [stage][Q | dO]
+  float* rows_s = reinterpret_cast<float*>(smem + (2 + kStages * 2) * kTile);  // [stage][lse | delta]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int lm_row = lane % 8;
+  const int lm_mat = lane / 8;
+  const long long bh = blockIdx.y;
+  const int n0 = blockIdx.x * kBlockN;
+  const int kv_row0 = n0 + warp * 16;
+
+  const uint16_t* qp = static_cast<const uint16_t*>(p.q) + bh * p.sq * D;
+  const uint16_t* dop = static_cast<const uint16_t*>(p.dout) + bh * p.sq * D;
+  const uint16_t* kp = static_cast<const uint16_t*>(p.k) + bh * p.skv * D;
+  const uint16_t* vp = static_cast<const uint16_t*>(p.v) + bh * p.skv * D;
+  const float* lsep = p.lse + bh * p.sq;
+  const float* deltap = p.delta + bh * p.sq;
+
+  load_tile_async<D>(kts, kp, D, n0, p.skv);
+  if constexpr (kDkPass) load_tile_async<D>(vts, vp, D, n0, p.skv);
+  load_tile_async<D>(stages, qp, D, 0, p.sq);
+  load_tile_async<D>(stages + kTile, dop, D, 0, p.sq);
+  load_rows(rows_s, lsep, deltap, 0, p.sq);
+  cp_async_commit();
+
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const float scale_log2 = p.scale * kLog2e;
+  const bool kv_masked[2] = {kv_row0 + g >= p.skv, kv_row0 + g + 8 >= p.skv};
+  const uint16_t* kw = kts + warp * 16 * kLd;  // this warp's 16 K rows
+  const uint16_t* vw = vts + warp * 16 * kLd;
+
+  const int n_tiles = (p.sq + kBlockM - 1) / kBlockM;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) {  // prefetch the next Q tile into the other stage
+      const int stage = (tile + 1) % kStages;
+      const int q_next = (tile + 1) * kBlockM;
+      load_tile_async<D>(stages + stage * 2 * kTile, qp, D, q_next, p.sq);
+      load_tile_async<D>(stages + stage * 2 * kTile + kTile, dop, D, q_next, p.sq);
+      load_rows(rows_s + stage * 2 * kBlockM, lsep, deltap, q_next, p.sq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint16_t* qs = stages + (tile % kStages) * 2 * kTile;
+    const uint16_t* dos = qs + kTile;
+    const float* ls = rows_s + (tile % kStages) * 2 * kBlockM;
+    const float* dls = ls + kBlockM;
+
+    // S^T = K Q^T (and, in the dK pass, dP^T = V dO^T) for this warp's 16
+    // KV rows x 64 Q rows, a pair of k-steps of K (and V) fragments at a time
+    float st[kNTiles][4], dpt[kNTiles][4];
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; kk += 2) {
+      uint32_t ka[2][4];
+      ldmatrix_a<D>(ka[0], kw, kk, lm_row, lm_mat);
+      ldmatrix_a<D>(ka[1], kw, kk + 1, lm_row, lm_mat);
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j)
+        mma_kpair<T>(st[j], ka, qs + (j * 8 + lm_row) * kLd + kk * 16, lm_mat);
+      if constexpr (kDkPass) {
+        uint32_t va[2][4];
+        ldmatrix_a<D>(va[0], vw, kk, lm_row, lm_mat);
+        ldmatrix_a<D>(va[1], vw, kk + 1, lm_row, lm_mat);
+#pragma unroll
+        for (int j = 0; j < kNTiles; ++j)
+          mma_kpair<T>(dpt[j], va, dos + (j * 8 + lm_row) * kLd + kk * 16, lm_mat);
+      }
+    }
+
+    // P^T = exp(S^T * scale - lse), or in the dK pass dS^T = P^T * (dP^T -
+    // delta), in the A layout (k = Q row) of the product with dO or Q
+    uint32_t pa[kNTiles / 2][4];
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + t * 2 + (e & 1);
+        float x = st[j][e] * scale_log2;
+        if (kv_masked[e >> 1]) x = kNegInf;
+        const float pt = exp2f(x - ls[col]);
+        st[j][e] = kDkPass ? pt * (dpt[j][e] - dls[col]) : pt;
+      }
+      pa[j / 2][(j & 1) * 2 + 0] = MmaOp<T>::pack(st[j][0], st[j][1]);
+      pa[j / 2][(j & 1) * 2 + 1] = MmaOp<T>::pack(st[j][2], st[j][3]);
+    }
+
+    // dV += P^T dO, or dK += dS^T Q: dO and Q rows are the k index (Q row),
+    // their columns the n index (head-dim column), read transposed
+    const uint16_t* rhs = kDkPass ? qs : dos;
+#pragma unroll
+    for (int kk = 0; kk < kNTiles / 2; ++kk) {
+      const int off = (kk * 16 + (lm_mat & 1) * 8 + lm_row) * kLd;
+#pragma unroll
+      for (int j = 0; j < kDTiles; j += 2) mma_ntiles<T, D>(acc, pa[kk], rhs + off, j, lm_mat);
+    }
+    __syncthreads();  // the next prefetch overwrites this stage
+  }
+
+  uint16_t* out = static_cast<uint16_t*>(kDkPass ? p.dk : p.dv) + bh * p.skv * D;
+  const float mul = kDkPass ? p.scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kv_row0 + g + r * 8;
+    if (row >= p.skv) continue;
+#pragma unroll
+    for (int j = 0; j < kDTiles; ++j) {
+      *reinterpret_cast<uint32_t*>(out + (long long)row * D + j * 8 + t * 2) =
+          MmaOp<T>::pack(acc[j][r * 2] * mul, acc[j][r * 2 + 1] * mul);
+    }
+  }
+}
+
+// B4 at a wide head dim: grid (KV tiles, bh, 2), z = 0 the dV pass, z = 1
+// the dK pass.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) attention_bwd_dkdv_wide_kernel(const BwdParams p) {
+  if (blockIdx.z == 0) {
+    bwd_dkdv_pass<T, D, false>(p);
+  } else {
+    bwd_dkdv_pass<T, D, true>(p);
+  }
+}
+
+// B5 at a wide head dim: bwd_dq with this block's Q and dO rows in shared
+// memory, their fragments read a pair of k-steps at a time.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) attention_bwd_dq_wide_kernel(const BwdParams p) {
+  static_assert(k_dpad<D>() == D && D % 32 == 0, "k-steps and n-tiles in pairs");
+  constexpr int kKSteps = D / 16;
+  constexpr int kDTiles = D / 8;
+  constexpr int kNTiles = kBlockN / 8;  // n-tiles of the S tile (KV rows)
+  constexpr int kLd = k_ld<D>();
+  constexpr int kTile = kBlockN * kLd;
+
+  extern __shared__ __align__(16) uint16_t smem[];  // [stage][K | V][row][kLd], Q, dO
+  uint16_t* qs = smem + kStages * 2 * kTile;
+  uint16_t* dos = qs + kBlockM * kLd;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int lm_row = lane % 8;
+  const int lm_mat = lane / 8;
+  const long long bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBlockM;
+  const int row0 = q0 + warp * 16;
+
+  const uint16_t* qp = static_cast<const uint16_t*>(p.q) + bh * p.sq * D;
+  const uint16_t* dop = static_cast<const uint16_t*>(p.dout) + bh * p.sq * D;
+  const uint16_t* kp = static_cast<const uint16_t*>(p.k) + bh * p.skv * D;
+  const uint16_t* vp = static_cast<const uint16_t*>(p.v) + bh * p.skv * D;
+
+  const int n_tiles = (p.skv + kBlockN - 1) / kBlockN;
+  // the block's Q and dO rows (zero past sq) join the first K/V tile's group
+  load_tile_async<D, kBlockM>(qs, qp, D, q0, p.sq);
+  load_tile_async<D, kBlockM>(dos, dop, D, q0, p.sq);
+  load_tile_async<D>(smem, kp, D, 0, p.skv);
+  load_tile_async<D>(smem + kTile, vp, D, 0, p.skv);
+  cp_async_commit();
+
+  float lse2[2], delta[2];  // rows g and g + 8 of this warp's 16
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + r * 8;
+    const bool valid = row < p.sq;
+    lse2[r] = valid ? p.lse[bh * p.sq + row] * kLog2e : 0.f;
+    delta[r] = valid ? p.delta[bh * p.sq + row] : 0.f;
+  }
+
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const float scale_log2 = p.scale * kLog2e;
+  const uint16_t* qw = qs + warp * 16 * kLd;  // this warp's 16 Q rows
+  const uint16_t* dow = dos + warp * 16 * kLd;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int n0 = tile * kBlockN;
+    if (tile + 1 < n_tiles) {
+      uint16_t* next = smem + ((tile + 1) % kStages) * 2 * kTile;
+      load_tile_async<D>(next, kp, D, n0 + kBlockN, p.skv);
+      load_tile_async<D>(next + kTile, vp, D, n0 + kBlockN, p.skv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint16_t* ks = smem + (tile % kStages) * 2 * kTile;
+    const uint16_t* vs = ks + kTile;
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 Q rows x 64 KV rows
+    float s[kNTiles][4], dp[kNTiles][4];
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; kk += 2) {
+      uint32_t qa[2][4], da[2][4];
+      ldmatrix_a<D>(qa[0], qw, kk, lm_row, lm_mat);
+      ldmatrix_a<D>(qa[1], qw, kk + 1, lm_row, lm_mat);
+      ldmatrix_a<D>(da[0], dow, kk, lm_row, lm_mat);
+      ldmatrix_a<D>(da[1], dow, kk + 1, lm_row, lm_mat);
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+        mma_kpair<T>(s[j], qa, ks + (j * 8 + lm_row) * kLd + kk * 16, lm_mat);
+        mma_kpair<T>(dp[j], da, vs + (j * 8 + lm_row) * kLd + kk * 16, lm_mat);
+      }
+    }
+
+    // dS = P * (dP - delta) with P = exp(S * scale - lse), in the A layout
+    // (k = KV row) of dS K
+    uint32_t dsa[kNTiles / 2][4];
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (n0 + j * 8 + t * 2 + (e & 1) >= p.skv) x = kNegInf;
+        s[j][e] = exp2f(x - lse2[e >> 1]) * (dp[j][e] - delta[e >> 1]);
+      }
+      dsa[j / 2][(j & 1) * 2 + 0] = MmaOp<T>::pack(s[j][0], s[j][1]);
+      dsa[j / 2][(j & 1) * 2 + 1] = MmaOp<T>::pack(s[j][2], s[j][3]);
+    }
+
+    // dQ += dS K
+#pragma unroll
+    for (int kk = 0; kk < kNTiles / 2; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kDTiles; j += 2)
+        mma_ntiles<T, D>(acc, dsa[kk], ks + (kk * 16 + (lm_mat & 1) * 8 + lm_row) * kLd, j,
+                         lm_mat);
+    }
+    __syncthreads();  // the next prefetch overwrites this stage
+  }
+
+  uint16_t* dqp = static_cast<uint16_t*>(p.dq) + bh * p.sq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + r * 8;
+    if (row >= p.sq) continue;
+#pragma unroll
+    for (int j = 0; j < kDTiles; ++j) {
+      *reinterpret_cast<uint32_t*>(dqp + (long long)row * D + j * 8 + t * 2) =
+          MmaOp<T>::pack(acc[j][r * 2] * p.scale, acc[j][r * 2 + 1] * p.scale);
+    }
+  }
+}
+
+// The B4 and B5 kernels of one instantiation (only the kernels used are
+// compiled).
+template <typename T, int D>
+inline auto dkdv_kernel() {
+  if constexpr (wide_head<D>()) {
+    return attention_bwd_dkdv_wide_kernel<T, D>;
+  } else {
+    return attention_bwd_dkdv_kernel<T, D>;
+  }
+}
+
 template <typename T, int D>
 inline auto dq_kernel() {
   if constexpr (D == 64) {
     return attention_bwd_dq_kernel_4blocks<T, D>;
+  } else if constexpr (wide_head<D>()) {
+    return attention_bwd_dq_wide_kernel<T, D>;
   } else {
     return attention_bwd_dq_kernel<T, D>;
   }
 }
 
+// B4's launch: at a wide head dim the two passes side by side (grid z = 2).
+// Above the default 48 KB of shared memory (every head dim but 40; D = 160
+// takes 130,048 bytes, its B5 129,024) B4 and B5 opt in once per device.
 template <typename T, int D>
 inline cudaError_t launch_dkdv(const BwdParams& p, int bh, int device, cudaStream_t stream) {
   constexpr int bytes = dkdv_smem_bytes<D>();
   static std::atomic<bool> opted_in[kMaxDevices];
-  const cudaError_t err = opt_in_smem(attention_bwd_dkdv_kernel<T, D>, bytes, device, opted_in);
+  const auto kernel = dkdv_kernel<T, D>();
+  const cudaError_t err = opt_in_smem(kernel, bytes, device, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.skv + kBlockN - 1) / kBlockN, bh);
-  attention_bwd_dkdv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(p);
+  const dim3 grid((p.skv + kBlockN - 1) / kBlockN, bh, wide_head<D>() ? 2 : 1);
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 inline cudaError_t launch_dq(const BwdParams& p, int bh, int device, cudaStream_t stream) {
-  constexpr int bytes = dq_smem_bytes<D>();
+  constexpr int bytes = wide_head<D>() ? dq_wide_smem_bytes<D>() : dq_smem_bytes<D>();
   static std::atomic<bool> opted_in[kMaxDevices];
   const auto kernel = dq_kernel<T, D>();
   const cudaError_t err = opt_in_smem(kernel, bytes, device, opted_in);
@@ -405,6 +730,7 @@ inline cudaError_t launch_bwd_dim(const BwdParams& p, bool dkdv, int bh, int hea
   if (head_dim == 64) return launch_bwd<T, 64>(p, dkdv, bh, device, stream);
   if (head_dim == 80) return launch_bwd<T, 80>(p, dkdv, bh, device, stream);
   if (head_dim == 128) return launch_bwd<T, 128>(p, dkdv, bh, device, stream);
+  if (head_dim == 160) return launch_bwd<T, 160>(p, dkdv, bh, device, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -444,7 +770,10 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v, const v
 // 4096 at D = 40, 1024 at D = 80) it is bound by tensor-core operations; at
 // the cross-attention shapes (Skv = 52) by device memory, and there one
 // block per (bh, KV tile) walks all of Sq alone: with one KV tile per head,
-// BH blocks serialise Sq / 64 Q tiles each.
+// BH blocks serialise Sq / 64 Q tiles each. At D = 160 (SD1.5 training at
+// 1024^2, BH 64, Sq = 1024) the self-attention is 8 * 64 * 1024^2 * 160 =
+// 85.9 GFLOP, at least 86.8 us at 989 TFLOP/s; the split kernel does 10/8
+// of those products, and holds one block of 130,048 bytes per SM.
 extern "C" int pea_flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
                                             const void* dout, const float* lse,
                                             const float* delta, void* dk, void* dv, int bh,
@@ -463,6 +792,9 @@ extern "C" int pea_flash_attention_bwd_dkdv(const void* q, const void* k, const 
 // 2*BH*(3*Sq + 2*Skv)*D bytes plus 8*BH*Sq of lse and delta: bound by
 // operations at the self-attention shapes, by device memory at Skv = 52,
 // where each block reads its Q and dO rows once and K/V (one tile) hit in L2.
+// At D = 160 (BH 64, Sq = Skv = 1024) that is 64.4 GFLOP, at least 65.1 us
+// at 989 TFLOP/s; the wide kernel reads each Q and dO fragment from shared
+// memory once per KV tile instead of holding it in registers.
 extern "C" int pea_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                           const void* dout, const float* lse,
                                           const float* delta, void* dq, int bh, int sq,

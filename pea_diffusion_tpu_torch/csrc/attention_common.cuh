@@ -1,22 +1,25 @@
 // Building blocks shared by the attention kernels of this directory
-// (attention_fwd.cu: B1, B3; attention_bwd.cu: B4, B5): tile sizes, the
-// bf16/fp16 mma.sync.m16n8k16 wrapper, ldmatrix, cp.async, the tile loader
-// and the per-device launch helpers. Header-only: every function is inline.
+// (attention_fwd.cu: B1, B3 and B1's tile variants; attention_bwd.cu: B4,
+// B5): tile sizes, the bf16/fp16 mma.sync.m16n8k16 wrapper, ldmatrix,
+// cp.async, the tile loader and the per-device launch helpers. Header-only:
+// every function is inline.
 //
-// Head dims. The kernels take D = 40, 64, 80 and 128 (SD1.5's 40 and 80,
-// SDXL's 64). A product over D runs in k-steps of 16 columns: D = 80 has
-// five, an odd number, so the loops that load two k-steps per ldmatrix.x4
-// finish with one x2 load (mma_ksteps). D = 40 is not a multiple of 16: its
-// contraction is padded to kDPad = 48 with zeros, on both operands. Q and
-// dO fragments read from device memory give 0 for columns 40-47
-// (load_a_fragments; reading them would take the next row's values, or run
-// past the tensor's end on its last row), and columns 40-47 of every
-// shared-memory tile, which cp.async never writes, are zeroed once when a
-// block starts (zero_pad_columns), so that no uninitialised bits (possibly
-// a NaN) enter a product. The products over KV rows give D / 8 output
-// n-tiles, five at D = 40: the loops that pair n-tiles per transposed
-// ldmatrix.x4 finish with one x2 load (mma_ntiles). The tensors keep their
-// true D: nothing is padded in device memory, and the scale is 1/sqrt(D).
+// Head dims. The kernels take D = 40, 64, 80, 128 and 160 (SD1.5's 40, 80
+// and 160, SDXL's 64). A product over D runs in k-steps of 16 columns: D =
+// 80 has five, an odd number, so the loops that load two k-steps per
+// ldmatrix.x4 finish with one x2 load (mma_ksteps). D = 40 is not a
+// multiple of 16: its contraction is padded to kDPad = 48 with zeros, on
+// both operands. Q and dO fragments read from device memory give 0 for
+// columns 40-47 (load_a_fragments; reading them would take the next row's
+// values, or run past the tensor's end on its last row), and columns 40-47
+// of every shared-memory tile, which cp.async never writes, are zeroed once
+// when a block starts (zero_pad_columns), so that no uninitialised bits
+// (possibly a NaN) enter a product. The products over KV rows give D / 8
+// output n-tiles, five at D = 40: the loops that pair n-tiles per
+// transposed ldmatrix.x4 finish with one x2 load (mma_ntiles). D = 160 has
+// ten k-steps and twenty n-tiles, so neither tail applies; what it changes
+// is the register budget (attention_bwd.cu). The tensors keep their true D:
+// nothing is padded in device memory, and the scale is 1/sqrt(D).
 #pragma once
 
 #include <atomic>
@@ -29,6 +32,9 @@
 
 namespace pea {
 
+// The tile shape of the shipped kernels. The forward kernel takes its query
+// block, KV tile and stage count as template parameters (the tile variants
+// in attention_fwd.cu use other values); the backward kernels use these.
 constexpr int kBlockM = 64;   // query rows per block (16 per warp)
 constexpr int kBlockN = 64;   // K/V rows per shared-memory tile
 constexpr int kWarps = 4;
@@ -41,7 +47,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // The head dim padded to whole k-steps of 16, and the shared-memory row
 // stride: 8 elements past it keep ldmatrix's eight row reads on distinct
-// banks (row strides of 112, 144, 176 and 272 bytes).
+// banks (row strides of 112, 144, 176, 272 and 336 bytes).
 template <int D>
 __host__ __device__ constexpr int k_dpad() { return (D + 15) / 16 * 16; }
 template <int D>
@@ -137,6 +143,29 @@ __device__ __forceinline__ void mma_ksteps(float* c, const uint32_t (*a)[4],
   }
 }
 
+// c += A . B^T over the two k-steps whose A fragments are a[0] and a[1]
+// (held for this pair only, where the whole row of fragments would not fit
+// in registers): `brow` points at row (lane % 8) of B's 8 rows, at the
+// pair's first column. The per-element order of the additions is that of
+// mma_ksteps.
+template <typename T>
+__device__ __forceinline__ void mma_kpair(float* c, const uint32_t (*a)[4],
+                                          const uint16_t* brow, int lm_mat) {
+  uint32_t b[4];
+  ldmatrix_x4(b, brow + lm_mat * 8);
+  MmaOp<T>::run(c, a[0], b);
+  MmaOp<T>::run(c, a[1], b + 2);
+}
+
+// The A fragment (m16k16) of k-step kk of the 16 rows of a shared-memory
+// tile of stride k_ld<D> that `rows` points at, read with one ldmatrix.x4:
+// the layout load_a_fragments gives from device memory.
+template <int D>
+__device__ __forceinline__ void ldmatrix_a(uint32_t* a, const uint16_t* rows, int kk,
+                                           int lm_row, int lm_mat) {
+  ldmatrix_x4(a, rows + ((lm_mat & 1) * 8 + lm_row) * k_ld<D>() + kk * 16 + (lm_mat >> 1) * 8);
+}
+
 // acc[j] and acc[j + 1] (output n-tiles of 8 head-dim columns) += A . B,
 // or acc[j] alone when it is the odd last n-tile (D = 40), for one k-step
 // of 16 rows of a shared-memory tile: A is the m16k16 fragment `a`, B those
@@ -160,12 +189,13 @@ __device__ __forceinline__ void mma_ntiles(float (*acc)[4], const uint32_t* a,
 
 // Zeroes columns [D, kDPad) of `rows` shared-memory rows of stride k_ld<D>:
 // the padded part of the contraction, which cp.async never writes. A block
-// calls it once before its first copy; nothing to do where D % 16 == 0.
-template <int D>
+// of kNThreads threads calls it once before its first copy; nothing to do
+// where D % 16 == 0.
+template <int D, int kNThreads = kThreads>
 __device__ __forceinline__ void zero_pad_columns(uint16_t* smem, int rows) {
   if constexpr (k_dpad<D>() > D) {
     static_assert((k_dpad<D>() - D) % 8 == 0, "pad is whole 16-byte chunks");
-    for (int c = threadIdx.x; c < rows * (k_dpad<D>() - D) / 8; c += kThreads) {
+    for (int c = threadIdx.x; c < rows * (k_dpad<D>() - D) / 8; c += kNThreads) {
       const int per_row = (k_dpad<D>() - D) / 8;
       *reinterpret_cast<uint4*>(smem + (c / per_row) * k_ld<D>() + D + (c % per_row) * 8) =
           make_uint4(0u, 0u, 0u, 0u);
@@ -211,15 +241,16 @@ __device__ __forceinline__ void load_a_fragments(uint32_t (*a)[4], const uint16_
   }
 }
 
-// Start copying rows [row0, row0 + kBlockN) of one (batch, head) slice, D
-// columns each, into a shared-memory tile of stride k_ld<D>; rows at or past
-// `rows` are zero-filled so that masked columns contribute exactly 0.
-template <int D>
+// Start copying rows [row0, row0 + kRows) of one (batch, head) slice, D
+// columns each, into a shared-memory tile of stride k_ld<D>, by a block of
+// kNThreads threads; rows at or past `rows` are zero-filled so that masked
+// columns contribute exactly 0.
+template <int D, int kRows = kBlockN, int kNThreads = kThreads>
 __device__ __forceinline__ void load_tile_async(uint16_t* dst, const uint16_t* src,
                                                 long long row_stride, int row0,
                                                 int rows) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kBlockN * kChunks; c += kThreads) {
+  for (int c = threadIdx.x; c < kRows * kChunks; c += kNThreads) {
     const int r = c / kChunks;
     const int col = (c % kChunks) * 8;
     const bool valid = row0 + r < rows;

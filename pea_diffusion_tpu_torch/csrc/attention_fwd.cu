@@ -1,4 +1,4 @@
-// Non-causal softmax attention forward for Hopper (sm_90a), behind two C
+// Non-causal softmax attention forward for Hopper (sm_90a), behind these C
 // entry points built into one library:
 //
 // - pea_onepass_attention_fwd (B1) reads Q/K/V and writes O in place in
@@ -8,14 +8,19 @@
 // - pea_flash_attention_fwd (B3) reads head-major [BH, S, D] and can also
 //   store lse. It replaces pea_diffusion_tpu/ops/flash_attention.py::
 //   _fwd_kernel.
+// - pea_onepass_attention_fwd_variant (S1) runs B1 in one of a fixed set
+//   of tile shapes, for the sweep tool (tools/sweep_onepass.py of the
+//   port). It replaces the TPU tuning variants of tools/sweep_onepass.py
+//   (_kernel_variant and _kernel_bb); pea_onepass_variant_count and
+//   pea_onepass_variant_name list the set.
 //
 // The two TPU kernels compute the same function on different layouts, so
 // one kernel body serves both: each entry point passes the batch, head and
 // row strides of its layout.
 //
-// Schedule. One block of 4 warps owns 64 query rows of one (batch, head);
-// each warp owns 16 of them. The block walks K/V in tiles of 64 rows staged
-// through shared memory, keeping a running row max m and row sum l in
+// Schedule. One block of kBM / 16 warps owns kBM query rows of one (batch,
+// head); each warp owns 16 of them. The block walks K/V in tiles of kBN
+// rows staged through kST shared-memory stages, keeping a running row max m and row sum l in
 // registers and rescaling the fp32 output accumulator when m grows (online
 // softmax). The TPU kernels held a whole score row in VMEM instead; on
 // Hopper a 64-row fp32 score block at S=4096 is 1 MB against 227 KB of
@@ -35,8 +40,15 @@
 // V). The P tile goes from the score accumulators straight into the A
 // operand of P.V without leaving registers (the C layout of two adjacent
 // m16n8 tiles is the A layout of one m16k16 tile). K/V tiles are copied
-// with cp.async into two shared-memory stages, so the copy of tile i+1
-// overlaps the math on tile i. wgmma and TMA are later work.
+// with cp.async into the stages, so the copies of tiles i+1 .. i+kST-1
+// overlap the math on tile i. The shipped entry points run kBM = kBN = 64
+// and kST = 2 (kBlockM, kBlockN, kStages); the variants are listed at
+// pea_onepass_attention_fwd_variant. wgmma and TMA are later work.
+//
+// D = 160 (SD1.5's level 2 and mid block at 1024^2 and up) runs the same
+// body: its fp32 output accumulator is 80 registers a thread beside the Q
+// fragments (40) and the score tile (32), and its two 64-row K/V stages are
+// 86,016 bytes of shared memory, above the default 48 KB (opt-in).
 #include "attention_common.cuh"
 
 namespace pea {
@@ -57,20 +69,24 @@ struct AttnParams {
   float scale;
 };
 
-template <int D>
+template <int D, int kBN, int kST>
 constexpr int smem_bytes() {
-  return kStages * 2 * kBlockN * k_ld<D>() * 2;
+  return kST * 2 * kBN * k_ld<D>() * 2;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// kBM query rows per block (kBM / 16 warps, 2 * kBM threads), kBN K/V rows
+// per tile, kST stages.
+template <typename T, int D, int kBM, int kBN, int kST>
+__global__ void __launch_bounds__(2 * kBM)
 attention_fwd_kernel(const AttnParams p) {
   static_assert(D % 8 == 0, "head_dim must be a multiple of 8");
+  static_assert(kBM % 16 == 0 && kBN % 16 == 0 && kST >= 2, "tile shape");
+  constexpr int kNThreads = 2 * kBM;
   constexpr int kKSteps = k_dpad<D>() / 16;  // k-steps of Q.K^T
   constexpr int kDTiles = D / 8;             // n-tiles of the output
-  constexpr int kNTiles = kBlockN / 8;       // n-tiles of the score tile
+  constexpr int kNTiles = kBN / 8;           // n-tiles of the score tile
   constexpr int kLd = k_ld<D>();             // shared-memory row stride
-  constexpr int kTile = kBlockN * kLd;       // elements of one K or V tile
+  constexpr int kTile = kBN * kLd;           // elements of one K or V tile
 
   extern __shared__ __align__(16) uint16_t smem[];  // [stage][K | V][row][kLd]
 
@@ -80,17 +96,26 @@ attention_fwd_kernel(const AttnParams p) {
   const int t = lane % 4;  // thread within the group
   const int bidx = blockIdx.z;
   const int head = blockIdx.y;
-  const int row0 = blockIdx.x * kBlockM + warp * 16;
+  const int row0 = blockIdx.x * kBM + warp * 16;
 
   const uint16_t* qp = static_cast<const uint16_t*>(p.q) + bidx * p.q_batch_stride + head * p.q_head_stride;
   const uint16_t* kp = static_cast<const uint16_t*>(p.k) + bidx * p.k_batch_stride + head * p.k_head_stride;
   const uint16_t* vp = static_cast<const uint16_t*>(p.v) + bidx * p.v_batch_stride + head * p.v_head_stride;
 
-  const int n_tiles = (p.skv + kBlockN - 1) / kBlockN;
-  zero_pad_columns<D>(smem, kStages * 2 * kBlockN);
-  load_tile_async<D>(smem, kp, p.k_row_stride, 0, p.skv);
-  load_tile_async<D>(smem + kTile, vp, p.v_row_stride, 0, p.skv);
-  cp_async_commit();
+  const int n_tiles = (p.skv + kBN - 1) / kBN;
+  zero_pad_columns<D, kNThreads>(smem, kST * 2 * kBN);
+  // tiles 0 .. kST - 2 into their stages, one commit group each (empty
+  // past the last tile, so that the group count stays tile + kST - 1)
+#pragma unroll
+  for (int st = 0; st < kST - 1; ++st) {
+    if (st < n_tiles) {
+      load_tile_async<D, kBN, kNThreads>(smem + st * 2 * kTile, kp, p.k_row_stride, st * kBN,
+                                         p.skv);
+      load_tile_async<D, kBN, kNThreads>(smem + st * 2 * kTile + kTile, vp, p.v_row_stride,
+                                         st * kBN, p.skv);
+    }
+    cp_async_commit();
+  }
 
   // Q fragments stay in registers for the whole KV walk.
   uint32_t qa[kKSteps][4];
@@ -109,21 +134,21 @@ attention_fwd_kernel(const AttnParams p) {
   const int lm_mat = lane / 8;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int n0 = tile * kBlockN;
-    if (tile + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      uint16_t* next = smem + ((tile + 1) % kStages) * 2 * kTile;
-      load_tile_async<D>(next, kp, p.k_row_stride, n0 + kBlockN, p.skv);
-      load_tile_async<D>(next + kTile, vp, p.v_row_stride, n0 + kBlockN, p.skv);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    const int n0 = tile * kBN;
+    // prefetch tile + kST - 1 into the stage the previous iteration read
+    const int ahead = tile + kST - 1;
+    if (ahead < n_tiles) {
+      uint16_t* next = smem + (ahead % kST) * 2 * kTile;
+      load_tile_async<D, kBN, kNThreads>(next, kp, p.k_row_stride, ahead * kBN, p.skv);
+      load_tile_async<D, kBN, kNThreads>(next + kTile, vp, p.v_row_stride, ahead * kBN, p.skv);
     }
+    cp_async_commit();
+    cp_async_wait<kST - 1>();  // this tile's group has landed
     __syncthreads();
-    const uint16_t* ks = smem + (tile % kStages) * 2 * kTile;
+    const uint16_t* ks = smem + (tile % kST) * 2 * kTile;
     const uint16_t* vs = ks + kTile;
 
-    // S = Q.K^T for this warp's 16 rows x 64 KV columns, fp32
+    // S = Q.K^T for this warp's 16 rows x kBN KV columns, fp32
     float s[kNTiles][4];
 #pragma unroll
     for (int j = 0; j < kNTiles; ++j) {
@@ -134,7 +159,7 @@ attention_fwd_kernel(const AttnParams p) {
     }
 
     // scale into the log2 domain, mask the KV tail, tile row max
-    const bool ragged = n0 + kBlockN > p.skv;
+    const bool ragged = n0 + kBN > p.skv;
     float m_tile[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int j = 0; j < kNTiles; ++j) {
@@ -214,39 +239,94 @@ attention_fwd_kernel(const AttnParams p) {
   }
 }
 
-// Launches one instantiation on the current device (`device`). D = 128
-// needs more than the default 48 KB of dynamic shared memory and opts in
-// once per device; D = 40, 64 and 80 need 28, 36 and 44 KB.
-template <typename T, int D>
-inline cudaError_t launch(const AttnParams& p, dim3 grid, int device, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
+// Launches one instantiation on the current device (`device`), `batch`
+// blocks deep. Above the default 48 KB of dynamic shared memory (D = 128
+// and 160 in the shipped shape, the variants with 128-row tiles or three
+// stages) it opts in once per device; D = 40, 64 and 80 need 28, 36 and
+// 44 KB.
+template <typename T, int D, int kBM = kBlockM, int kBN = kBlockN, int kST = kStages>
+inline cudaError_t launch(const AttnParams& p, int batch, int device, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<D, kBN, kST>();
   static std::atomic<bool> opted_in[kMaxDevices];
-  const cudaError_t err = opt_in_smem(attention_fwd_kernel<T, D>, bytes, device, opted_in);
+  const auto kernel = attention_fwd_kernel<T, D, kBM, kBN, kST>;
+  const cudaError_t err = opt_in_smem(kernel, bytes, device, opted_in);
   if (err != cudaSuccess) return err;
-  attention_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(p);
+  const dim3 grid((p.sq + kBM - 1) / kBM, p.heads, batch);
+  kernel<<<grid, 2 * kBM, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+inline cudaError_t launch_dim(const AttnParams& p, int batch, int head_dim, int device,
+                              cudaStream_t stream) {
+  if (head_dim == 40) return launch<T, 40>(p, batch, device, stream);
+  if (head_dim == 64) return launch<T, 64>(p, batch, device, stream);
+  if (head_dim == 80) return launch<T, 80>(p, batch, device, stream);
+  if (head_dim == 128) return launch<T, 128>(p, batch, device, stream);
+  if (head_dim == 160) return launch<T, 160>(p, batch, device, stream);
+  return cudaErrorInvalidValue;
 }
 
 // dtype: 0 = bfloat16, 1 = float16. Launches on `device` and returns the
 // launch's CUDA error code.
 inline int launch_attention_fwd(const AttnParams& p, int batch, int head_dim,
                                 int dtype, int device, cudaStream_t stream) {
-  const dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.heads, batch);
   return on_device(device, [&]() -> cudaError_t {
-    if (dtype == 0) {
-      if (head_dim == 40) return launch<__nv_bfloat16, 40>(p, grid, device, stream);
-      if (head_dim == 64) return launch<__nv_bfloat16, 64>(p, grid, device, stream);
-      if (head_dim == 80) return launch<__nv_bfloat16, 80>(p, grid, device, stream);
-      if (head_dim == 128) return launch<__nv_bfloat16, 128>(p, grid, device, stream);
-    } else if (dtype == 1) {
-      if (head_dim == 40) return launch<__half, 40>(p, grid, device, stream);
-      if (head_dim == 64) return launch<__half, 64>(p, grid, device, stream);
-      if (head_dim == 80) return launch<__half, 80>(p, grid, device, stream);
-      if (head_dim == 128) return launch<__half, 128>(p, grid, device, stream);
-    }
+    if (dtype == 0) return launch_dim<__nv_bfloat16>(p, batch, head_dim, device, stream);
+    if (dtype == 1) return launch_dim<__half>(p, batch, head_dim, device, stream);
     return cudaErrorInvalidValue;
   });
 }
+
+// The strides of B1's [B, S, H*D] layout.
+inline AttnParams onepass_params(const void* q, const void* k, const void* v, void* o,
+                                 int heads, int sq, int skv, int head_dim, float scale) {
+  const long long feat = static_cast<long long>(heads) * head_dim;
+  AttnParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.lse = nullptr;
+  p.q_batch_stride = sq * feat;
+  p.o_batch_stride = sq * feat;
+  p.k_batch_stride = skv * feat;
+  p.v_batch_stride = skv * feat;
+  p.q_head_stride = p.k_head_stride = p.v_head_stride = p.o_head_stride = head_dim;
+  p.q_row_stride = p.k_row_stride = p.v_row_stride = p.o_row_stride = feat;
+  p.heads = heads;
+  p.sq = sq;
+  p.skv = skv;
+  p.scale = scale;
+  return p;
+}
+
+// S1: B1's tile variants at D = 64 in bf16, the CUDA counterpart of the TPU
+// tool's axes: the query block (64 or 128 rows: 4 or 8 warps, the JAX
+// tool's bq), the KV tile (64 or 128 rows: more work per step) and the
+// copy depth (2 or 3 stages); every combination fits in shared memory (at
+// most 3 * 2 * 128 rows * 144 bytes = 110,592). Variant 0 is the shipped
+// instantiation itself, so it gives B1's bits. The TPU tool's other axes
+// have no variant here: exp2 with log2(e) folded into the scale is already
+// in the shipped kernel, and its two-head interleave (MXU and VPU work of
+// two heads overlapped) and batch blocking (several batch rows per grid
+// step) schedule a TPU core's units and its sequential grid; on Hopper the
+// warps of a block and the blocks on an SM overlap by themselves.
+struct Variant {
+  const char* name;
+  cudaError_t (*run)(const AttnParams&, int, int, cudaStream_t);
+};
+constexpr Variant kVariants[] = {
+    {"q64_kv64_s2", launch<__nv_bfloat16, 64, 64, 64, 2>},
+    {"q64_kv64_s3", launch<__nv_bfloat16, 64, 64, 64, 3>},
+    {"q64_kv128_s2", launch<__nv_bfloat16, 64, 64, 128, 2>},
+    {"q64_kv128_s3", launch<__nv_bfloat16, 64, 64, 128, 3>},
+    {"q128_kv64_s2", launch<__nv_bfloat16, 64, 128, 64, 2>},
+    {"q128_kv64_s3", launch<__nv_bfloat16, 64, 128, 64, 3>},
+    {"q128_kv128_s2", launch<__nv_bfloat16, 64, 128, 128, 2>},
+    {"q128_kv128_s3", launch<__nv_bfloat16, 64, 128, 128, 3>},
+};
+constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
 
 }  // namespace pea
 
@@ -264,23 +344,7 @@ extern "C" int pea_onepass_attention_fwd(const void* q, const void* k, const voi
                                          void* o, int batch, int heads, int sq, int skv,
                                          int head_dim, float scale, int dtype, int device,
                                          void* stream) {
-  const long long feat = static_cast<long long>(heads) * head_dim;
-  pea::AttnParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.lse = nullptr;
-  p.q_batch_stride = sq * feat;
-  p.o_batch_stride = sq * feat;
-  p.k_batch_stride = skv * feat;
-  p.v_batch_stride = skv * feat;
-  p.q_head_stride = p.k_head_stride = p.v_head_stride = p.o_head_stride = head_dim;
-  p.q_row_stride = p.k_row_stride = p.v_row_stride = p.o_row_stride = feat;
-  p.heads = heads;
-  p.sq = sq;
-  p.skv = skv;
-  p.scale = scale;
+  const pea::AttnParams p = pea::onepass_params(q, k, v, o, heads, sq, skv, head_dim, scale);
   return pea::launch_attention_fwd(p, batch, head_dim, dtype, device,
                                    static_cast<cudaStream_t>(stream));
 }
@@ -300,7 +364,12 @@ extern "C" int pea_onepass_attention_fwd(const void* q, const void* k, const voi
 // D = 80 at S = 1024): the cross-attention as above, the self-attention
 // (S/2 operations per byte, 2048 and 512) bound by tensor-core operations.
 // D = 40 pads its Q.K^T contraction to 48 in registers and shared memory
-// only, a fifth more products than the bound counts.
+// only, a fifth more products than the bound counts. At 1024^2 the SD1.5
+// path adds level 0 at S = 16384 (D = 40), level 1 at 4096 (D = 80) and
+// level 2 at 1024 with D = 160: there the self-attention of the CFG pair,
+// b16 Sq = Skv = 1024, is 4 * 16 * 1024^2 * 160 = 10.7 GFLOP on 21 MB, at
+// least 10.9 us at 989 TFLOP/s (bound by operations), its cross-attention
+// (Skv = 52) about 10.5 MB, at least 3.2 us of device memory.
 extern "C" int pea_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        void* o, float* lse, int bh, int sq, int skv,
                                        int head_dim, float scale, int dtype, int device,
@@ -323,4 +392,27 @@ extern "C" int pea_flash_attention_fwd(const void* q, const void* k, const void*
   p.scale = scale;
   return pea::launch_attention_fwd(p, bh, head_dim, dtype, device,
                                    static_cast<cudaStream_t>(stream));
+}
+
+// S1: the variant `variant` (0 .. pea_onepass_variant_count() - 1) of B1 on
+// [B, S, H*D]; head_dim 64 and bf16 (dtype 0) only, else
+// cudaErrorInvalidValue. Bound as B1.
+extern "C" int pea_onepass_attention_fwd_variant(const void* q, const void* k, const void* v,
+                                                 void* o, int batch, int heads, int sq,
+                                                 int skv, int head_dim, float scale, int dtype,
+                                                 int variant, int device, void* stream) {
+  if (head_dim != 64 || dtype != 0 || variant < 0 || variant >= pea::kNumVariants) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const pea::AttnParams p = pea::onepass_params(q, k, v, o, heads, sq, skv, head_dim, scale);
+  return pea::on_device(device, [&]() -> cudaError_t {
+    return pea::kVariants[variant].run(p, batch, device, static_cast<cudaStream_t>(stream));
+  });
+}
+
+extern "C" int pea_onepass_variant_count() { return pea::kNumVariants; }
+
+// The name of variant `variant`, or nullptr past the end.
+extern "C" const char* pea_onepass_variant_name(int variant) {
+  return variant >= 0 && variant < pea::kNumVariants ? pea::kVariants[variant].name : nullptr;
 }

@@ -68,8 +68,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
-# Head dims the kernels are built for: SD1.5's 40 and 80, SDXL's 64, and 128.
-HEAD_DIMS = (40, 64, 80, 128)
+# Head dims the kernels are built for: SD1.5's 40, 80 and 160 (level 2 and
+# the mid block, on the flash route at 1024² and up), SDXL's 64, and 128.
+HEAD_DIMS = (40, 64, 80, 128, 160)
 
 
 def _check_shapes(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

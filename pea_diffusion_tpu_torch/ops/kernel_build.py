@@ -88,18 +88,22 @@ def build() -> str:
     return "".join(log)
 
 
-def launch(symbol: str, argtypes: Sequence, *args) -> None:
-    """Calls the launcher `symbol` of the library, built and loaded on first
-    use, and raises if the launch failed (the launcher returns
-    cudaGetLastError())."""
+def function(symbol: str, argtypes: Sequence, restype=ctypes.c_int) -> Callable:
+    """The C function `symbol` of the library, built and loaded on first use."""
     fn = _functions.get(symbol)
     if fn is None:
         build()
         fn = getattr(ctypes.CDLL(str(library_path())), symbol)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _functions[symbol] = fn
-    rc = fn(*args)
+    return fn
+
+
+def launch(symbol: str, argtypes: Sequence, *args) -> None:
+    """Calls the launcher `symbol` of the library and raises if the launch
+    failed (the launcher returns cudaGetLastError())."""
+    rc = function(symbol, argtypes)(*args)
     if rc != 0:
         raise RuntimeError(f"{symbol}: kernel launch failed with CUDA error {rc}")
 

@@ -4,8 +4,9 @@
 
 For each deliberate fault below it copies the package and ``chip_smoke.py``
 into ``build/mutants/<n>/`` at the root of the checkout, plants the fault in
-the copy's ``csrc/`` sources, and runs the copy's kernel phase (the
-comparison only, no timing) in a process of its own, so that each mutant
+the copy's ``csrc/`` sources, and runs the copy's kernel phase and sweep
+phase (the comparisons; only the sweep's variants are timed) in a process
+of its own, so that each mutant
 builds and loads its own library. It prints each case's relative error and
 whether the comparison failed the run, as it must for a fault it is meant to
 catch. Needs a CUDA card and nvcc; exits non-zero if a mutant that must be
@@ -30,8 +31,11 @@ PAD_ZERO = ("      *reinterpret_cast<uint4*>(smem + (c / per_row) * k_ld<D>() + 
             "(c % per_row) * 8) =\n          make_uint4(0u, 0u, 0u, 0u);\n")
 PAD_UNZEROED = (COMMON, PAD_ZERO, "      (void)per_row;\n")
 A_PAST_D = (COMMON, "const bool hi = kk * 16 + 8 < D;", "const bool hi = true;")
+# D = 160: B4's dV pass accumulates its 20 output n-tiles in pairs
+DV_NTILES = "for (int j = 0; j < kDTiles; j += 2) mma_ntiles<T, D>(acc, pa[kk], rhs + off, j, lm_mat);"
 
-# (what, [(source, text in it, its replacement)], must the check catch it?)
+# (what, [(source, text in it, its replacement[, how often the text occurs,
+# default once])], must the check catch it?)
 MUTANTS = [
     ("K/V tile 17 dropped (S > 1088 only)", [(FWD, MASK,
      "if ((ragged && n0 + j * 8 + t * 2 + (e & 1) >= p.skv) || tile == 17) x = kNegInf;")],
@@ -47,8 +51,8 @@ MUTANTS = [
     # P * 0 to dQ, and B4 never stores the padded rows: the output cannot
     # change, and the mask is a second guard
     ("backward KV mask dropped in B4 and B5 (zero-filled columns counted)",
-     [(BWD, "        if (kv_masked[e >> 1]) x = kNegInf;\n", ""),
-      (BWD, "        if (n0 + j * 8 + t * 2 + (e & 1) >= p.skv) x = kNegInf;\n", "")],
+     [(BWD, "        if (kv_masked[e >> 1]) x = kNegInf;\n", "", 2),
+      (BWD, "        if (n0 + j * 8 + t * 2 + (e & 1) >= p.skv) x = kNegInf;\n", "", 2)],
      False),
     # D = 40. Left unzeroed, the pad columns of the shared-memory tiles keep
     # what an earlier kernel left there. B3 and B5 multiply them (K, V) with
@@ -74,6 +78,17 @@ MUTANTS = [
     ("B6-b: t left out of the sums of squares (the variance)",
      [(GN, "      s2 += v * v;\n", "      s2 += (v - tv) * (v - tv);\n"),
       (GN, "s2[m][e] += v * v;", "s2[m][e] += (v - tv[m][e]) * (v - tv[m][e]);")], True),
+    # D = 160 splits B4 into a dV pass and a dK pass (grid z): a dV pass
+    # that stops at half of D leaves dV's columns 80-159 at 0
+    ("B4 at D=160: the dV pass drops the second half of dV's columns",
+     [(BWD, DV_NTILES, DV_NTILES.replace("j < kDTiles;", "j < (kDkPass ? kDTiles : kDTiles / 2);"))],
+     True),
+    # S1: the three-stage variants fill stage (tile + 2) % 3 but read stage
+    # tile % 2, so the third stage is never read (two-stage kernels, the
+    # shipped B1 and B3 among them, are unchanged)
+    ("S1: three-stage variants read stage tile % 2 (the third stage never read)",
+     [(FWD, "const uint16_t* ks = smem + (tile % kST) * 2 * kTile;",
+       "const uint16_t* ks = smem + (tile % 2) * 2 * kTile;")], True),
 ]
 
 _RUN = """
@@ -85,6 +100,7 @@ import chip_smoke
 chip_smoke.time_ms = lambda *args, **kwargs: 0.0
 try:
     chip_smoke.kernel_phases(torch, F)
+    chip_smoke.sweep_phase(torch, F)
 except AssertionError as e:
     print("CAUGHT:", e)
 else:
@@ -103,11 +119,12 @@ def main(argv=None) -> int:
         shutil.copytree(REPO / "pea_diffusion_tpu_torch", root / "pea_diffusion_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(REPO / "chip_smoke.py", root)
-        for name, old, new in edits:
+        for name, old, new, *count in edits:
             src = root / "pea_diffusion_tpu_torch" / "csrc" / name
             text = src.read_text()
-            if text.count(old) != 1:
-                raise RuntimeError(f"mutant {what!r}: its target is not in {name} once")
+            times = count[0] if count else 1
+            if text.count(old) != times:
+                raise RuntimeError(f"mutant {what!r}: its target is not in {name} {times}x")
             src.write_text(text.replace(old, new))
         proc = subprocess.run([sys.executable, "-c", _RUN], cwd=root,
                               capture_output=True, text=True)

@@ -2,7 +2,8 @@
 backward) and the differentiable functions over them (flash_attention,
 bshd_attention) held against the JAX package's Pallas kernels and custom
 VJPs, run in interpret mode on the CPU, at SDXL's head dim 64 and SD1.5's
-40 and 80 (which the JAX kernels pad to 128 lanes, and the port's do not).
+40, 80 and 160 (which the JAX kernels pad to 128 or 256 lanes, and the
+port's do not).
 
 On the CPU the port's wrappers run their plain versions; the tolerance is
 the JAX package's own kernel tests' (fp32, atol 2e-5 forward, 2e-4 to 3e-4
@@ -77,6 +78,8 @@ def test_flash_ref_matches_jax_kernel(with_lse):
     (40, 130, 200),   # ragged Sq and Skv over blocks of 128
     (80, 300, 52),    # SD1.5 level-1 heads; student-length KV
     (80, 257, 300),
+    (160, 300, 52),   # SD1.5 level-2 and mid-block heads (flash route at 1024²)
+    (160, 257, 300),
 ])
 def test_flash_ref_matches_jax_kernel_sd15_head_dims(d, sq, skv, with_lse):
     bh = 2
@@ -94,13 +97,14 @@ def test_flash_ref_matches_jax_kernel_sd15_head_dims(d, sq, skv, with_lse):
 
 
 def test_kernel_shape_check_names_the_head_dim():
-    """What the CUDA kernels take: head dims 40, 64, 80 and 128. Any other
-    (SD1.5's 160 at level 2 and the mid block among them) raises before a
-    launch, naming the width."""
+    """What the CUDA kernels take: head dims 40, 64, 80, 128 and 160
+    (SD1.5's level 2 and mid block). Any other raises before a launch,
+    naming the width."""
+    assert 160 in flash_attention.HEAD_DIMS
     for d in flash_attention.HEAD_DIMS:
         x = torch.zeros(2, 8, d)
         flash_attention._check_shapes("flash kernel", x, x, x)
-    for d in (160, 32, 96, 48):
+    for d in (32, 48, 96, 256):
         x = torch.zeros(2, 8, d)
         with pytest.raises(ValueError, match=f"head_dim {d} "):
             flash_attention._check_shapes("flash kernel", x, x, x)
@@ -156,8 +160,11 @@ def _jax_route(sq, skv, heads, head_dim, backend):
     (4096, 77, 8, 40, "auto", "flash"),        # SD1.5 teacher cross-attention
     (1024, 1024, 8, 80, "auto", "flash"),      # SD1.5 self-attention, level 1
     (1024, 52, 8, 80, "auto", "flash"),        # SD1.5 cross-attention, level 1
-    (256, 256, 8, 160, "auto", "plain"),       # SD1.5 level 2 at 512²
+    (256, 256, 8, 160, "auto", "plain"),       # SD1.5 level 2 at 512², mid block at 1024²
     (64, 52, 8, 160, "auto", "plain"),         # SD1.5 mid block at 512²
+    (1024, 1024, 8, 160, "auto", "flash"),     # SD1.5 self-attention, level 2 at 1024²
+    (1024, 52, 8, 160, "auto", "flash"),       # SD1.5 cross-attention, level 2 at 1024²
+    (16384, 16384, 8, 40, "auto", "flash"),    # SD1.5 self-attention, level 0 at 1024²
 ])
 def test_dispatch_matches_jax_on_card(monkeypatch, sq, skv, heads, head_dim,
                                       backend, want):
@@ -195,7 +202,7 @@ def test_flash_backward_ref_matches_jax_kernels(sq, skv):
 
 
 @pytest.mark.parametrize("d,sq,skv", [(40, 384, 300), (40, 300, 77), (80, 300, 52),
-                                      (80, 200, 260)])
+                                      (80, 200, 260), (160, 300, 52), (160, 257, 300)])
 def test_flash_backward_ref_matches_jax_kernels_sd15_head_dims(d, sq, skv):
     from pea_diffusion_tpu.ops.flash_attention import _flash_backward_impl
 
@@ -238,7 +245,8 @@ def test_flash_attention_grads_match_jax(shape_q, shape_kv, scale, loss):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=3e-4)
 
 
-@pytest.mark.parametrize("d,sq,skv", [(40, 260, 77), (80, 300, 300)])
+@pytest.mark.parametrize("d,sq,skv", [(40, 260, 77), (80, 300, 300), (160, 300, 52),
+                                      (160, 257, 300)])
 def test_flash_attention_grads_match_jax_sd15_head_dims(d, sq, skv):
     """The differentiable flash_attention (B3 with lse, B4, B5) against the
     JAX custom VJP at SD1.5's head dims, default scale 1/sqrt(D)."""
@@ -319,3 +327,61 @@ def test_attention_module_grads_go_through_the_functions(context_len, route, nod
     for a, b in zip(got, want):
         assert a.abs().max() > 0
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+def test_smoke_route_walk_of_sd15_at_1024():
+    """chip_smoke.py's walk of the SD1.5 UNet's attention modules (meta
+    device, no weights) at a 1024² image (latent 128): per forward 30 flash
+    calls, 10 of them at level 2 with head dim 160 (5 self, 5 cross), and
+    the mid block's 2 calls plain at S = 256; at 512² D = 160 runs plain
+    only."""
+    from collections import Counter
+
+    import chip_smoke
+    from pea_diffusion_tpu_torch.configs import SD15_UNET
+    from pea_diffusion_tpu_torch.models import UNet2DCondition
+
+    with torch.device("meta"):
+        unet = UNet2DCondition(SD15_UNET)
+    calls = list(chip_smoke.attention_calls(unet, 128, 52))
+    by_dim = Counter((route, d) for route, _, _, d in calls)
+    assert by_dim == {("flash", 40): 10, ("flash", 80): 10, ("flash", 160): 10,
+                      ("plain", 160): 2}
+    assert Counter(c[:3] for c in calls if c[3] == 160) == {
+        ("flash", 1024, 1024): 5, ("flash", 1024, 52): 5, ("plain", 256, 256): 1,
+        ("plain", 256, 52): 1}
+    assert chip_smoke.routes_by_head_dim(unet, 64, 52) == {
+        ("flash", 40): 10, ("flash", 80): 10, ("plain", 160): 12}
+    assert sum(chip_smoke.attention_routes(unet, 128, 52).values()) == len(calls) == 32
+
+
+def test_smoke_names_each_kernel_in_its_build_lines():
+    """chip_smoke.py's [build] lines: one per compiled kernel, its name
+    (namespaces below pea kept), element type and integer template
+    arguments, with ptxas's registers and spills."""
+    import chip_smoke
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN3pea20attention_fwd_kernelI13__nv_bfloat16Li160ELi64ELi64ELi2EEEvNS_10AttnParamsE'"
+        " for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 238 registers, used 1 barriers, 384 bytes cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_ZN3pea30attention_bwd_dkdv_wide_kernelI6__halfLi160EEEvNS_9BwdParamsE' for 'sm_90a'",
+        "    80 bytes stack frame, 80 bytes spill stores, 80 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 384 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN3pea2gn10stats_nhwcIfLi4EEEvNS0_8GnParamsE'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 54 registers, 384 bytes cmem[0]",
+    ])
+    assert chip_smoke.ptxas_lines(log) == [
+        "attention_fwd_kernel<bf16,160,64,64,2>: 238 registers; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "attention_bwd_dkdv_wide_kernel<fp16,160>: 255 registers; "
+        "80 bytes stack frame, 80 bytes spill stores, 80 bytes spill loads",
+        "gn::stats_nhwc<fp32,4>: 54 registers; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    ]

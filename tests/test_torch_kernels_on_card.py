@@ -1,7 +1,8 @@
 """The port's attention kernels (B1 one-pass, B3 flash forward, B4/B5 flash
 backward) against their plain versions on a CUDA card, in the working types
-bf16/fp16, at SDXL's head dim 64, SD1.5's 40 and 80, and 128. Forward: the max error must stay below 8e-3 of the largest
-output, twice the most that rounding the output to bf16 (2^-8 of its size)
+bf16/fp16, at SDXL's head dim 64, SD1.5's 40, 80 and 160, and 128, and B1's
+tile variants (S1) against the plain version and shipped B1. Forward: the
+max error must stay below 8e-3 of the largest output, twice the most that rounding the output to bf16 (2^-8 of its size)
 can move it. Backward: below 2e-2 of the largest gradient, per output (P
 and dS are rounded to bf16 before their products, and dS is a difference of
 rounded terms). The attention modules' input gradients through the kernels
@@ -68,6 +69,10 @@ def test_onepass_kernel_matches_plain_on_card(b, sq, skv, h, d, dtype):
     (4, 1000, 1000, 40, torch.bfloat16),   # ragged Sq and Skv
     (4, 1000, 77, 80, torch.float16),
     (3, 77, 300, 40, torch.float16),       # fewer queries than one block
+    (16, 1024, 1024, 160, torch.bfloat16),  # SD1.5 self-attention, level 2 at 1024²
+    (16, 1024, 52, 160, torch.float16),     # SD1.5 cross-attention, level 2 at 1024²
+    (4, 1000, 1000, 160, torch.bfloat16),   # ragged Sq and Skv
+    (3, 77, 300, 160, torch.float16),
 ])
 def test_flash_kernel_matches_plain_on_card(bh, sq, skv, d, dtype):
     dev = _card()
@@ -108,6 +113,10 @@ def test_kernels_reject_fp32_on_card():
     (8, 1000, 1000, 40, torch.float16),    # ragged Sq and Skv
     (4, 1000, 77, 80, torch.bfloat16),
     (2, 300, 520, 80, torch.float16),
+    (8, 1024, 1024, 160, torch.bfloat16),  # SD1.5 self-attention, level 2 at 1024²
+    (8, 1024, 52, 160, torch.float16),     # SD1.5 cross-attention, level 2 at 1024²
+    (4, 1000, 1000, 160, torch.bfloat16),  # ragged Sq and Skv
+    (2, 300, 520, 160, torch.float16),
 ])
 def test_flash_backward_kernels_match_plain_on_card(bh, sq, skv, d, dtype):
     dev = _card()
@@ -133,8 +142,10 @@ def test_flash_backward_kernels_match_plain_on_card(bh, sq, skv, d, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("sq,skv_ctx,channels,heads", [
     (1024, None, 640, 10), (1024, 52, 640, 10), (1600, None, 640, 10),
-    # SD1.5: 8 heads of 40 at level 0, 8 of 80 at level 1, all on B3
+    # SD1.5: 8 heads of 40 at level 0, 8 of 80 at level 1, 8 of 160 at level
+    # 2 (1024²), all on B3
     (4096, None, 320, 8), (4096, 52, 320, 8), (1024, None, 640, 8), (1024, 77, 640, 8),
+    (1024, None, 1280, 8), (1024, 52, 1280, 8),
 ])
 def test_attention_module_input_grads_through_kernels_on_card(sq, skv_ctx, channels, heads):
     """dx and dcontext through the kernel routes (onepass: B3 with lse, B4,
@@ -209,11 +220,11 @@ def test_bare_kernel_wrappers_refuse_inputs_that_need_grad_on_card():
 
 @pytest.mark.gpu
 def test_kernels_reject_other_head_dims_on_card():
-    """D = 160 (SD1.5's level 2 and mid block; it reaches the flash route
-    only at 1024² and up) and any other width the kernels are not built for
-    raise on a CUDA tensor, naming the width; nothing falls back."""
+    """Any width the kernels are not built for (they take 40, 64, 80, 128
+    and 160) raises on a CUDA tensor, naming the width; nothing falls
+    back."""
     dev = _card()
-    for d in (160, 32, 96):
+    for d in (32, 96, 256):
         x = torch.zeros(2, 128, d, device=dev, dtype=torch.bfloat16)
         lse = torch.zeros(2, 128, device=dev)
         with pytest.raises(ValueError, match=f"head_dim {d}"):
@@ -222,6 +233,47 @@ def test_kernels_reject_other_head_dims_on_card():
             flash_attention.flash_backward_dkdv(x, x, x, x, lse, lse, 0.1)
         with pytest.raises(ValueError, match=f"head_dim {d}"):
             flash_attention.flash_backward_dq(x, x, x, x, lse, lse, 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,h", [
+    (2, 1024, 1024, 20),  # the sweep's b2 level-2 shape
+    (1, 300, 600, 2),     # ragged Sq and Skv against 128-row tiles
+    (3, 77, 1000, 4),     # fewer queries than one block
+])
+def test_onepass_variants_match_plain_and_b1_on_card(b, sq, skv, h):
+    """S1: every tile variant of B1 against the plain version; the shipped
+    shape's variant gives B1's bits."""
+    from pea_diffusion_tpu_torch.tools import sweep_onepass as sw
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(b, sq, h * 64, device=dev, generator=g).bfloat16()
+    k, v = (torch.randn(b, skv, h * 64, device=dev, generator=g).bfloat16() for _ in range(2))
+    shipped = onepass_attention.onepass_forward(q, k, v, h, 64)
+    ref = onepass_attention.onepass_forward_ref(q.float(), k.float(), v.float(), h, 64)
+    assert sw.library_variants() == sw.VARIANTS
+    for name in sw.VARIANTS:
+        n = sw.onepass_forward_variant.launches[name]
+        out = sw.onepass_forward_variant(q, k, v, h, 64, name)
+        torch.cuda.synchronize()
+        assert sw.onepass_forward_variant.launches[name] == n + 1
+        assert out.dtype == torch.bfloat16 and out.shape == q.shape
+        assert _rel_err(out, ref) < RTOL, name
+        if name == sw.BASE:
+            assert torch.equal(out, shipped)
+
+
+@pytest.mark.gpu
+def test_onepass_variants_reject_what_they_do_not_take_on_card():
+    from pea_diffusion_tpu_torch.tools import sweep_onepass as sw
+
+    dev = _card()
+    x = torch.zeros(1, 128, 128, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        sw.onepass_forward_variant(x, x, x, 2, 64, sw.BASE)
+    with pytest.raises(ValueError, match="head_dim=128"):
+        sw.onepass_forward_variant(x.bfloat16(), x.bfloat16(), x.bfloat16(), 1, 128, sw.BASE)
 
 
 @pytest.mark.gpu
