@@ -25,11 +25,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the forward, the backward of one such call for B4 + B5 together,
    F.group_norm for the GroupNorm alone), each launch after an L2 flush,
    beside the least time the card needs for the same bytes and operations.
-   Then the sweep path (S1): the port's sweep tool
-   (pea_diffusion_tpu_torch/tools/sweep_onepass.py) runs B1's eight tile
-   variants at its b16 and b2 shapes from launch counts of 0; each variant
-   must stay below 8e-3 of max |plain| and the shipped shape's variant must
-   give shipped B1's bits;
+   B1's D = 64 rows run the wgmma + TMA body (attention_fwd_sm90.cu), its
+   D = 128 row the mma.sync body. Then the sweep path (S1): the port's
+   sweep tool (pea_diffusion_tpu_torch/tools/sweep_onepass.py) runs B1's
+   twelve tile variants (eight of the mma.sync body, four of the wgmma
+   body) at its b16 and b2 shapes from launch counts of 0; each variant
+   must stay below 8e-3 of max |plain| and the shipped variant must give
+   shipped B1's bits;
 4. references: the tiny fp32 SDXL and SD1.5 stacks on the card against the
    same weights on the CPU (the paths the CPU tests hold against the JAX
    package), and, with each full-width stack, its UNet's attention modules
@@ -189,11 +191,17 @@ def time_ms(torch, fn, iters, flush):
 def ptxas_lines(log_text):
     """One line per compiled kernel from nvcc's -Xptxas -v output: its name,
     element type and integer template arguments (head dim and tile shape
-    for the attention kernels), registers, and spill stores and loads."""
+    for the attention kernels; the wgmma body's warpgroups, stages and TMA),
+    registers, and spill stores and loads; and any line of ptxas's about
+    wgmma (a warning that it serialised a kernel's wgmma instructions) as
+    it stands."""
     import re
 
     lines, name, spill = [], None, ""
     for line in log_text.splitlines():
+        if "wgmma." in line or "serializ" in line:  # not the kernel's mangled name
+            lines.append(line.strip())
+            continue
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             name = rest = entry.group(1)
@@ -239,7 +247,7 @@ def chunked(torch, fn, scores_per_row, budget, *tensors):
 
 
 KERNELS = {
-    "B1": dict(name="B1 onepass_attention", route="cuda", source=SRC + "attention_fwd.cu",
+    "B1": dict(name="B1 onepass_attention", route="cuda", source=SRC + "attention_fwd_sm90.cu",
                replaces="pea_diffusion_tpu/ops/onepass_attention.py:50"),
     "B3": dict(name="B3 flash_attention", route="cuda", source=SRC + "attention_fwd.cu",
                replaces="pea_diffusion_tpu/ops/flash_attention.py:31"),
@@ -483,6 +491,8 @@ def _entry(kern, b, sq, skv, h, d, what, err, rel, rtol, ms, plain_ms, flops, nb
              what=what, max_abs_err=err, max_rel_err=rel, rel_tolerance=rtol, ms=ms,
              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
              kernel=kern, lse=lse, stands_for=stands_for, launches_by_path={})
+    if kern == "B1" and d != 64:  # B1 at D = 128 runs the mma.sync body
+        e["source"] = SRC + "attention_fwd.cu"
     log(f"[kernel] {e['name']} {what} ({e['shape']}): err {err:.3g} (rel {rel:.3g}) "
         f"ms {ms:.4f} plain {plain_ms:.4f} library {library_ms:.4f} "
         f"bound {bound_ms:.4f} ({bound_by})")
@@ -655,8 +665,8 @@ def kernel_phases(torch, F):
 def sweep_phase(torch, F):
     """The sweep path (S1): the sweep tool's function at SWEEP_SHAPES from
     launch counts of 0. Each variant below KERNEL_RTOL of max |plain|, the
-    shipped shape's variant bit-equal to shipped B1 (the tool's one B1
-    launch per shape makes that comparison); then, per shape, the plain
+    variant B1 ships at the shape bit-equal to shipped B1 (the tool's one
+    B1 launch per shape makes that comparison); then, per shape, the plain
     version's and one SDPA call's times on the same inputs. One row per
     variant and shape."""
     from pea_diffusion_tpu_torch.tools import sweep_onepass as sw
@@ -685,11 +695,13 @@ def sweep_phase(torch, F):
             if not r["rel_err_vs_plain"] < KERNEL_RTOL:
                 raise AssertionError(f"S1 {what}: {r['rel_err_vs_plain']} of max |plain| >= "
                                      f"{KERNEL_RTOL}")
-            if r["variant"] == sw.BASE and not r["equals_base"]:
-                raise AssertionError(f"S1 {what}: the shipped shape differs from shipped B1 "
+            if r["shipped"] and not r["equals_base"]:
+                raise AssertionError(f"S1 {what}: the shipped variant differs from shipped B1 "
                                      f"by {r['max_abs_err_vs_base']}")
             shape = f"batch={b} sq={s} skv={s} heads={h} head_dim={d} bf16"
             e = dict(KERNELS["S1"], name=f"{KERNELS['S1']['name']} {r['variant']}",
+                     source=SRC + ("attention_fwd_sm90.cu" if r["variant"].startswith("wg")
+                                   else "attention_fwd.cu"),
                      shape=shape, what=what, max_abs_err=r["max_abs_err_vs_base"],
                      max_rel_err=r["rel_err_vs_plain"], rel_tolerance=KERNEL_RTOL,
                      ms=r["us"] / 1e3, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -993,7 +1005,8 @@ def profile_run(torch, fn, unprofiled_s, table_path, tag):
     if busy == 0:
         raise AssertionError(f"[{tag}] the profiler saw no device time")
     idle = max(0.0, 1 - busy / (unprofiled_s * 1e3))
-    fwd = sum(v for k, v in per_kernel.items() if "attention_fwd_kernel" in k)
+    fwd = sum(v for k, v in per_kernel.items()
+              if "attention_fwd_kernel" in k or "onepass_wgmma_kernel" in k)
     bwd = sum(v for k, v in per_kernel.items() if "attention_bwd_" in k)
     log(f"[{tag}] device busy {busy:.1f} ms of {wall_ms:.1f} ms wall under the "
         f"profiler; of the unprofiled run ({unprofiled_s * 1e3:.1f} ms) the device "

@@ -144,7 +144,7 @@ def main(argv=None):
                     help="SDXL only")
     ap.add_argument("--sampler", default="dpm++", choices=["dpm++", "ddim"])
     ap.add_argument("--size", type=int, default=None,
-                    help="image side (default: the model's, 1024 or 512)")
+                    help="image side (default: the model's, 1024 or 512; --demo caps it at 256)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("-o", "--output", default="out.png")
     cn = ap.add_argument_group("ControlNet mode (SDXL)")
@@ -169,13 +169,12 @@ def main(argv=None):
     from ..pipelines.text2image import (StableDiffusionPEAPipeline,
                                         StableDiffusionXLPEAPipeline, to_pil)
 
-    if args.demo:
+    if args.demo:  # the tiny stack is cut to its own size, as the JAX CLI's
         models, tokenize, max_size = build_demo(args.device, args.model)
-        steps = min(args.steps, 8)
+        size, steps = min(args.size or max_size, max_size), min(args.steps, 8)
     else:
-        models, tokenize, max_size = build_demo_full(args.device, model=args.model)
-        steps = args.steps
-    size = min(args.size or max_size, max_size)
+        models, tokenize, size = build_demo_full(args.device, model=args.model)
+        size, steps = args.size or size, args.steps
     extra = {}
     if args.control_image:
         run = make_controlnet_run(args, models, size, steps)

@@ -4,13 +4,15 @@
 // - pea_onepass_attention_fwd (B1) reads Q/K/V and writes O in place in
 //   the projections' [B, S, H*D] layout. It replaces the TPU kernels
 //   pea_diffusion_tpu/ops/onepass_attention.py::_kernel and _kernel_bb
-//   (the same function; its batch block and exp2 are TPU tuning).
+//   (the same function; its batch block and exp2 are TPU tuning). At head
+//   dim 64 (every B1 call of the paths) it runs the wgmma + TMA body of
+//   attention_fwd_sm90.cu; at 128, the mma.sync body below.
 // - pea_flash_attention_fwd (B3) reads head-major [BH, S, D] and can also
 //   store lse. It replaces pea_diffusion_tpu/ops/flash_attention.py::
 //   _fwd_kernel.
 // - pea_onepass_attention_fwd_variant (S1) runs B1 in one of a fixed set
-//   of tile shapes, for the sweep tool (tools/sweep_onepass.py of the
-//   port). It replaces the TPU tuning variants of tools/sweep_onepass.py
+//   of tile shapes of either body, for the sweep tool
+//   (tools/sweep_onepass.py of the port). It replaces the TPU tuning variants of tools/sweep_onepass.py
 //   (_kernel_variant and _kernel_bb); pea_onepass_variant_count and
 //   pea_onepass_variant_name list the set.
 //
@@ -43,13 +45,15 @@
 // with cp.async into the stages, so the copies of tiles i+1 .. i+kST-1
 // overlap the math on tile i. The shipped entry points run kBM = kBN = 64
 // and kST = 2 (kBlockM, kBlockN, kStages); the variants are listed at
-// pea_onepass_attention_fwd_variant. wgmma and TMA are later work.
+// pea_onepass_attention_fwd_variant. B1 at D = 64 runs on wgmma and TMA
+// instead (attention_fwd_sm90.cu); B3 and D = 128 move there later.
 //
 // D = 160 (SD1.5's level 2 and mid block at 1024^2 and up) runs the same
 // body: its fp32 output accumulator is 80 registers a thread beside the Q
 // fragments (40) and the score tile (32), and its two 64-row K/V stages are
 // 86,016 bytes of shared memory, above the default 48 KB (opt-in).
 #include "attention_common.cuh"
+#include "attention_fwd_sm90.cuh"
 
 namespace pea {
 
@@ -302,11 +306,15 @@ inline AttnParams onepass_params(const void* q, const void* k, const void* v, vo
 }
 
 // S1: B1's tile variants at D = 64 in bf16, the CUDA counterpart of the TPU
-// tool's axes: the query block (64 or 128 rows: 4 or 8 warps, the JAX
-// tool's bq), the KV tile (64 or 128 rows: more work per step) and the
-// copy depth (2 or 3 stages); every combination fits in shared memory (at
-// most 3 * 2 * 128 rows * 144 bytes = 110,592). Variant 0 is the shipped
-// instantiation itself, so it gives B1's bits. The TPU tool's other axes
+// tool's axes. The mma.sync body above (q<rows>_kv<rows>_s<stages>): the
+// query block (64 or 128 rows: 4 or 8 warps, the JAX tool's bq), the KV
+// tile (64 or 128 rows: more work per step) and the copy depth (2 or 3
+// stages); every combination fits in shared memory (at most 3 * 2 * 128
+// rows * 144 bytes = 110,592); q64_kv64_s2 is its shipped tile shape (B3's
+// and D = 128's). The wgmma body of attention_fwd_sm90.cu
+// (wg<warpgroups>_kv128_s<stages>, _cpasync for the staged form without
+// TMA): 1 or 2 warpgroups of 64 query rows, 2 or 3 stages of 128 K/V rows;
+// all give the bits of the instantiations B1 ships there. The TPU tool's other axes
 // have no variant here: exp2 with log2(e) folded into the scale is already
 // in the shipped kernel, and its two-head interleave (MXU and VPU work of
 // two heads overlapped) and batch blocking (several batch rows per grid
@@ -316,6 +324,11 @@ struct Variant {
   const char* name;
   cudaError_t (*run)(const AttnParams&, int, int, cudaStream_t);
 };
+template <int kWG, int kST, int kMode>
+cudaError_t wgmma_variant(const AttnParams& p, int batch, int device, cudaStream_t stream) {
+  return static_cast<cudaError_t>(onepass_wgmma(p.q, p.k, p.v, p.o, batch, p.heads, p.sq, p.skv,
+                                                p.scale, 0, kWG, kST, kMode, device, stream));
+}
 constexpr Variant kVariants[] = {
     {"q64_kv64_s2", launch<__nv_bfloat16, 64, 64, 64, 2>},
     {"q64_kv64_s3", launch<__nv_bfloat16, 64, 64, 64, 3>},
@@ -325,6 +338,10 @@ constexpr Variant kVariants[] = {
     {"q128_kv64_s3", launch<__nv_bfloat16, 64, 128, 64, 3>},
     {"q128_kv128_s2", launch<__nv_bfloat16, 64, 128, 128, 2>},
     {"q128_kv128_s3", launch<__nv_bfloat16, 64, 128, 128, 3>},
+    {"wg1_kv128_s2", wgmma_variant<1, 2, 1>},
+    {"wg2_kv128_s2", wgmma_variant<2, 2, 1>},
+    {"wg2_kv128_s3", wgmma_variant<2, 3, 1>},
+    {"wg1_kv128_s2_cpasync", wgmma_variant<1, 2, 0>},
 };
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
 
@@ -337,13 +354,18 @@ constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
 // Bound on the H100: at the SDXL self-attention shapes (S = 1024 and 4096,
 // D = 64) the work is 4*B*H*S*S*D operations on 8*B*S*H*D bytes, S/2
 // operations per byte (512 and 2048), above the card's ~295: it is bound
-// by tensor-core operations. The design keeps every score tile in
-// registers (nothing of the S x S matrix reaches device memory) and feeds
-// the tensor cores with mma.sync.
+// by tensor-core operations. Both bodies keep every score tile in
+// registers (nothing of the S x S matrix reaches device memory); D = 64
+// feeds the tensor cores with wgmma (attention_fwd_sm90.cu), D = 128 with
+// mma.sync. Nothing falls back from one body to the other.
 extern "C" int pea_onepass_attention_fwd(const void* q, const void* k, const void* v,
                                          void* o, int batch, int heads, int sq, int skv,
                                          int head_dim, float scale, int dtype, int device,
                                          void* stream) {
+  if (head_dim == 64) {
+    return pea::onepass_wgmma_shipped(q, k, v, o, batch, heads, sq, skv, scale, dtype, device,
+                                      static_cast<cudaStream_t>(stream));
+  }
   const pea::AttnParams p = pea::onepass_params(q, k, v, o, heads, sq, skv, head_dim, scale);
   return pea::launch_attention_fwd(p, batch, head_dim, dtype, device,
                                    static_cast<cudaStream_t>(stream));
@@ -396,7 +418,8 @@ extern "C" int pea_flash_attention_fwd(const void* q, const void* k, const void*
 
 // S1: the variant `variant` (0 .. pea_onepass_variant_count() - 1) of B1 on
 // [B, S, H*D]; head_dim 64 and bf16 (dtype 0) only, else
-// cudaErrorInvalidValue. Bound as B1.
+// cudaErrorInvalidValue (a wgmma variant can also return
+// kTensorMapError + CUresult). Bound as B1.
 extern "C" int pea_onepass_attention_fwd_variant(const void* q, const void* k, const void* v,
                                                  void* o, int batch, int heads, int sq,
                                                  int skv, int head_dim, float scale, int dtype,

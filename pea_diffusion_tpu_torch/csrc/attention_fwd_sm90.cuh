@@ -1,0 +1,30 @@
+// B1 at head dim 64 on Hopper's wgmma and TMA (attention_fwd_sm90.cu): the
+// launchers that attention_fwd.cu's B1 entry point and S1 variant table
+// call. Both return a CUDA error code (0 on success), or
+// kTensorMapError + the CUDA driver API's CUresult when a tensor map cannot be
+// encoded.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pea {
+
+constexpr int kTensorMapError = 1000;
+
+// B1 on [B, S, H*64] in one instantiation of the wgmma body: `warpgroups`
+// (1 or 2) consumer warpgroups of 64 query rows each, a ring of `stages`
+// K/V tiles of 128 rows, filled (`mode`) by cp.async (0, the first, staged
+// form) or by TMA (1). dtype: 0 = bfloat16, 1 = float16. The
+// combinations built are listed at the definition; any other returns
+// cudaErrorInvalidValue.
+int onepass_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int heads,
+                  int sq, int skv, float scale, int dtype, int warpgroups, int stages, int mode,
+                  int device, cudaStream_t stream);
+
+// B1 as it ships: the instantiation the S1 sweep chose for `sq`
+// (attention_fwd_sm90.cu).
+int onepass_wgmma_shipped(const void* q, const void* k, const void* v, void* o, int batch,
+                          int heads, int sq, int skv, float scale, int dtype, int device,
+                          cudaStream_t stream);
+
+}  // namespace pea

@@ -5,6 +5,7 @@ package reads "on a CUDA tensor" here."""
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -17,13 +18,17 @@ FLASH_MIN_SEQ = 1024
 
 def use_flash(sq: int, backend: str = "auto", device_type: str = "cuda") -> bool:
     """backend: "flash" always, "xla" never (the plain path; the name is the
-    JAX package's), "auto" for CUDA tensors with sq >= FLASH_MIN_SEQ."""
+    JAX package's), "auto" for CUDA tensors with sq >= FLASH_MIN_SEQ unless
+    ``PEA_DISABLE_FLASH`` is set (to anything non-empty, read at each call,
+    as the JAX package reads it)."""
     if backend == "flash":
         return True
     if backend == "xla":
         return False
     if backend != "auto":
         raise ValueError(f"attention backend {backend!r}: auto | flash | xla")
+    if os.environ.get("PEA_DISABLE_FLASH"):
+        return False
     return device_type == "cuda" and sq >= FLASH_MIN_SEQ
 
 

@@ -38,28 +38,30 @@ MAX_GROUP_CHANNELS = 6144      # contiguous: 2 fp32 per channel of a group in 48
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
-def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               num_groups: int, eps: float) -> torch.Tensor:
-    """fp32 GroupNorm over channel-first [N, C, *spatial] input with a
-    per-channel affine, in the input's type.
+def group_norm_grouped(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                       num_groups: int, eps: float) -> torch.Tensor:
+    """``group_norm``'s grouped-reshape form: the statistics of each group's
+    [C/G, *spatial] slab, then the norm and the affine (the JAX package's
+    ``group_norm_grouped``)."""
+    n, c = x.shape[:2]
+    xg = x.float().reshape(n, num_groups, c // num_groups, -1)
+    mean = xg.mean(dim=(2, 3), keepdim=True)
+    mean2 = (xg * xg).mean(dim=(2, 3), keepdim=True)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    bshape = (1, c) + (1,) * (x.ndim - 2)
+    y = y * weight.float().reshape(bshape) + bias.float().reshape(bshape)
+    return y.to(x.dtype)
 
-    Two forms of the same one-pass statistics (E[x^2] - E[x]^2), picked by
-    batch size as the JAX package picks them: batch <= 2 reduces the
-    grouped reshape, batch >= 3 takes per-channel sums and folds the norm
-    into one per-channel affine."""
-    orig_dtype = x.dtype
+
+def group_norm_sums(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    num_groups: int, eps: float) -> torch.Tensor:
+    """``group_norm``'s per-channel-sums form: [N, C] sums of x and x^2,
+    group statistics from them, and the norm folded into one per-channel
+    affine."""
     n, c = x.shape[:2]
     g = num_groups
     xf = x.float()
-    if n <= 2:
-        xg = xf.reshape(n, g, c // g, -1)
-        mean = xg.mean(dim=(2, 3), keepdim=True)
-        mean2 = (xg * xg).mean(dim=(2, 3), keepdim=True)
-        var = torch.clamp(mean2 - mean * mean, min=0.0)
-        y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
-        bshape = (1, c) + (1,) * (x.ndim - 2)
-        y = y * weight.float().reshape(bshape) + bias.float().reshape(bshape)
-        return y.to(orig_dtype)
     spatial = tuple(range(2, x.ndim))
     s1 = xf.sum(dim=spatial)           # [N, C]
     s2 = (xf * xf).sum(dim=spatial)    # [N, C]
@@ -72,7 +74,23 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     a = rstd_c * weight.float()[None]
     b = bias.float()[None] - mean_c * a
     bshape = (n, c) + (1,) * (x.ndim - 2)
-    return (xf * a.reshape(bshape) + b.reshape(bshape)).to(orig_dtype)
+    return (xf * a.reshape(bshape) + b.reshape(bshape)).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float) -> torch.Tensor:
+    """fp32 GroupNorm over channel-first [N, C, *spatial] input with a
+    per-channel affine, in the input's type.
+
+    Two forms of the same one-pass statistics (E[x^2] - E[x]^2), picked as
+    the JAX package picks them: ``PEA_GN_GROUPED=1`` pins
+    ``group_norm_grouped`` and ``=0`` ``group_norm_sums`` (read at each call;
+    the way to pin batch-invariant bits), and otherwise batch <= 2 takes the
+    grouped form, batch >= 3 the sums."""
+    knob = os.environ.get("PEA_GN_GROUPED")
+    if knob == "1" or (knob != "0" and x.shape[0] <= 2):
+        return group_norm_grouped(x, weight, bias, num_groups, eps)
+    return group_norm_sums(x, weight, bias, num_groups, eps)
 
 
 def fused_gn_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -25,6 +25,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# A launcher's return code at or above this is a failed tensor-map encode
+# plus the CUDA driver API's CUresult (kTensorMapError in
+# csrc/attention_fwd_sm90.cuh).
+TENSOR_MAP_ERROR = 1000
+
 _functions: Dict[str, Callable[..., int]] = {}
 
 
@@ -102,8 +107,12 @@ def function(symbol: str, argtypes: Sequence, restype=ctypes.c_int) -> Callable:
 
 def launch(symbol: str, argtypes: Sequence, *args) -> None:
     """Calls the launcher `symbol` of the library and raises if the launch
-    failed (the launcher returns cudaGetLastError())."""
+    failed (the launcher returns cudaGetLastError(), or a tensor-map encode
+    error)."""
     rc = function(symbol, argtypes)(*args)
+    if rc >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{symbol}: encoding a TMA tensor map failed with CUresult "
+                           f"{rc - TENSOR_MAP_ERROR}")
     if rc != 0:
         raise RuntimeError(f"{symbol}: kernel launch failed with CUDA error {rc}")
 

@@ -2,13 +2,15 @@
 ``bshd_attention``, the differentiable function over it.
 
 Port of ``pea_diffusion_tpu/ops/onepass_attention.py``. On a CUDA tensor
-``onepass_forward`` launches the hand-written Hopper kernel in
-``csrc/attention_fwd.cu`` (entry point ``pea_onepass_attention_fwd``,
-replacing the TPU kernels ``_kernel`` and ``_kernel_bb``), which reads
-Q/K/V and writes O in place in [B, S, H*D]; on a CPU tensor it runs
+``onepass_forward`` launches a hand-written Hopper kernel through the entry
+point ``pea_onepass_attention_fwd`` of ``csrc/attention_fwd.cu`` (replacing
+the TPU kernels ``_kernel`` and ``_kernel_bb``), which reads Q/K/V and
+writes O in place in [B, S, H*D]: at head dim 64, every call of the paths,
+the wgmma + TMA body of ``csrc/attention_fwd_sm90.cu``; at 128 the mma.sync
+body of ``attention_fwd.cu``. On a CPU tensor it runs
 ``onepass_forward_ref``, the plain version of the same function. The kernel
 is bound by tensor-core operations at the SDXL self-attention shapes; its
-design is described in that source. Its output carries no autograd history,
+design is described in those sources. Its output carries no autograd history,
 so on CUDA tensors that need a gradient it raises: ``bshd_attention`` takes
 that case through the head-major flash forward with lse (B3) and the flash
 backward (B4, B5), as the JAX package's custom VJP does.
@@ -81,8 +83,9 @@ def onepass_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors (bfloat16 or float16, head_dim 64 or 128) launch the Hopper
     kernel and count the launch in ``onepass_forward.launches``; anything the
-    kernel does not take raises, and so do inputs that need a gradient. CPU
-    tensors run ``onepass_forward_ref``."""
+    kernel does not take raises, and so do inputs that need a gradient, and
+    nothing falls back to another body. CPU tensors run
+    ``onepass_forward_ref``."""
     if scale is None:
         scale = 1.0 / math.sqrt(head_dim)
     if not q.is_cuda:
@@ -97,6 +100,9 @@ def onepass_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, skv, feat) or v.shape != k.shape or skv < 1 or sq < 1:
         raise ValueError(f"one-pass kernel: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if feat * q.element_size() % 16:  # a TMA row stride (D = 64) is whole 16 bytes
+        raise ValueError(f"one-pass kernel: a row of {feat} elements is not a multiple "
+                         "of 16 bytes")
     out = torch.empty_like(q)
     kernel_build.launch("pea_onepass_attention_fwd", _ARGTYPES,
                         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -23,6 +23,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 MASK = "if (ragged && n0 + j * 8 + t * 2 + (e & 1) >= p.skv) x = kNegInf;"
 FWD, BWD, COMMON = "attention_fwd.cu", "attention_bwd.cu", "attention_common.cuh"
+SM90 = "attention_fwd_sm90.cu"
 GN = "groupnorm.cu"
 B4_P = "const float pr = exp2f(x - ls[col]);"
 # D = 40: the zeroing of shared-memory columns 40-47, and the guard that
@@ -33,6 +34,21 @@ PAD_UNZEROED = (COMMON, PAD_ZERO, "      (void)per_row;\n")
 A_PAST_D = (COMMON, "const bool hi = kk * 16 + 8 < D;", "const bool hi = true;")
 # D = 160: B4's dV pass accumulates its 20 output n-tiles in pairs
 DV_NTILES = "for (int j = 0; j < kDTiles; j += 2) mma_ntiles<T, D>(acc, pa[kk], rhs + off, j, lm_mat);"
+
+# B1 at D = 64 (the wgmma body): its tensor maps flattened to 2-D over
+# [B*S, H*D] (a 3-D map with a unit batch dimension and the batch folded
+# into the row coordinate), so that a box past a batch's last row reads the
+# next batch's rows instead of zeros
+FLAT_MAP = [
+    (SM90, "static_cast<cuuint64_t>(rows),\n", "static_cast<cuuint64_t>(rows) * batch,\n"),
+    (SM90, "static_cast<cuuint64_t>(batch)};", "1};"),
+    (SM90, "head * kD, q0, bidx);", "head * kD, bidx * p.sq + q0, 0);"),
+    (SM90, "head * kD, s * kBN, bidx);", "head * kD, bidx * p.skv + s * kBN, 0);", 2),
+    (SM90, "head * kD, tile * kBN, bidx);", "head * kD, bidx * skv + tile * kBN, 0);", 2),
+    (SM90, "int head, int tile, int bidx) {", "int head, int tile, int bidx, int skv) {"),
+    (SM90, "head, tile + kST, bidx);", "head, tile + kST, bidx, p.skv);"),
+]
+SM90_MASK = (SM90, "      if (ragged && n0 + j * 8 + t * 2 + (e & 1) >= skv) x = kNegInf;\n", "")
 
 # (what, [(source, text in it, its replacement[, how often the text occurs,
 # default once])], must the check catch it?)
@@ -89,6 +105,19 @@ MUTANTS = [
     ("S1: three-stage variants read stage tile % 2 (the third stage never read)",
      [(FWD, "const uint16_t* ks = smem + (tile % kST) * 2 * kTile;",
        "const uint16_t* ks = smem + (tile % 2) * 2 * kTile;")], True),
+    ("B1 (wgmma): the last k-step of P.V dropped",
+     [(SM90, "for (int kk = 0; kk < kBN / 16; ++kk) Wgmma<T>::pv(",
+       "for (int kk = 0; kk < kBN / 16 - 1; ++kk) Wgmma<T>::pv(")], True),
+    # The next batch's rows that a flattened map reads past a ragged tail
+    # are real values, but as K/V columns >= skv they get -1e30 (P = 0, and
+    # 0 times a finite V row adds 0) and as Q rows >= sq they are never
+    # stored: the 3-D map's zero fill is a second guard behind the mask, so
+    # the flattening alone cannot change the output
+    ("B1 (wgmma): 2-D tensor maps over [B*S, H*D]", FLAT_MAP, False),
+    # without the mask, the zero-filled K rows of a ragged tail score 0
+    # (not -1e30) and enter the row sums: zero fill is not a mask
+    ("B1 (wgmma): KV mask dropped (zero-filled columns counted)", [SM90_MASK], True),
+    ("B1 (wgmma): 2-D tensor maps and the KV mask dropped", FLAT_MAP + [SM90_MASK], True),
 ]
 
 _RUN = """

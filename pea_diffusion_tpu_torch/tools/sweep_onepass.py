@@ -5,22 +5,29 @@
 
 Port of the JAX package's ``tools/sweep_onepass.py``, whose Pallas variants
 of B1 (``_kernel_variant``, ``_kernel_bb``) swept a TPU core's query block,
-two-head interleave, exp2 and batch blocking. Here the variants are B1's
-own CUDA kernel (``csrc/attention_fwd.cu``, entry point
-``pea_onepass_attention_fwd_variant``) instantiated at other tile shapes:
-query block 64 or 128 rows (4 or 8 warps), KV tile 64 or 128 rows, 2 or 3
-``cp.async`` stages. ``VARIANTS[0]`` is the shipped instantiation. exp2 with
-log2(e) folded into the scale is in the shipped kernel already; the
-interleave and batch blocking schedule a TPU core's units and its
-sequential grid and have no variant here (see the source).
+two-head interleave, exp2 and batch blocking. Here the variants are B1's two
+CUDA bodies (entry point ``pea_onepass_attention_fwd_variant`` of
+``csrc/attention_fwd.cu``) at other tile shapes: the mma.sync body of
+``attention_fwd.cu`` (query block 64 or 128 rows, 4 or 8 warps; KV tile 64
+or 128 rows; 2 or 3 ``cp.async`` stages) and the wgmma body of
+``attention_fwd_sm90.cu`` (1 or 2 warpgroups of 64 query rows; 2 or 3 TMA
+stages of 128 K/V rows; the staged form filled by ``cp.async``).
+``shipped_variant(seq)`` is the instantiation B1 ships at that sequence
+length; ``q64_kv64_s2`` is the mma.sync body's shipped shape, which B1 ran
+before. exp2 with log2(e) folded into the scale
+is in both bodies already; the interleave and batch blocking schedule a TPU
+core's units and its sequential grid and have no variant here (see the
+source).
 
 Prints one JSON row per (shape, variant), as the JAX tool does: ``shape``,
 ``variant``, ``us`` (mean CUDA-event time, each launch after an L2 flush),
 ``tflops``, ``max_abs_err_vs_base`` (against shipped B1 on the same
-inputs), ``equals_base`` and ``rel_err_vs_plain`` (max |variant - plain| /
+inputs), ``equals_base``, ``shipped`` (whether B1 ships this variant at
+this shape) and ``rel_err_vs_plain`` (max |variant - plain| /
 max |plain|, the plain version ``onepass_forward_ref`` in fp32 from the
 same bf16 inputs), ``launches``. Runs on a CUDA card only and raises
-without one. It picks no winner: B1 ships its tile shape unchanged.
+without one. It picks no winner itself: B1's choice between the wgmma
+variants is a fixed rule in its source, set from this sweep's rows.
 """
 from __future__ import annotations
 
@@ -37,11 +44,20 @@ import torch
 from ..ops import kernel_build
 from ..ops.onepass_attention import onepass_forward, onepass_forward_ref
 
-# The C source's table (attention_fwd.cu, kVariants), in its order:
-# q<query block>_kv<KV tile>_s<stages>.
+# The C source's table (attention_fwd.cu, kVariants), in its order: the
+# mma.sync body's q<query block>_kv<KV tile>_s<stages>, then the wgmma
+# body's wg<warpgroups>_kv128_s<stages>[_cpasync].
 VARIANTS = ("q64_kv64_s2", "q64_kv64_s3", "q64_kv128_s2", "q64_kv128_s3",
-            "q128_kv64_s2", "q128_kv64_s3", "q128_kv128_s2", "q128_kv128_s3")
-BASE = VARIANTS[0]
+            "q128_kv64_s2", "q128_kv64_s3", "q128_kv128_s2", "q128_kv128_s3",
+            "wg1_kv128_s2", "wg2_kv128_s2", "wg2_kv128_s3", "wg1_kv128_s2_cpasync")
+ONE_WARPGROUP_MAX_SQ = 1024  # attention_fwd_sm90.cu, kOneWarpgroupMaxSq
+
+
+def shipped_variant(seq: int) -> str:
+    """The variant B1 ships for `seq` query rows: one warpgroup of 64 query
+    rows per block up to ONE_WARPGROUP_MAX_SQ, two above (the rule in
+    ``attention_fwd_sm90.cu``)."""
+    return "wg1_kv128_s2" if seq <= ONE_WARPGROUP_MAX_SQ else "wg2_kv128_s2"
 
 # The JAX tool's shapes (label, batch, heads, seq, head_dim): SDXL's
 # self-attention at levels 1 and 2, at serving batch 8 (16 CFG rows) and 1.
@@ -167,6 +183,7 @@ def sweep(shape_keys: str = "b16", iters: int = 20, seed: int = 0,
                    "head_dim": d, "us": us, "tflops": flops / us / 1e6,
                    "max_abs_err_vs_base": (out.float() - base.float()).abs().max().item(),
                    "equals_base": torch.equal(out, base),
+                   "shipped": name == shipped_variant(s),
                    "rel_err_vs_plain": (out.float() - plain).abs().max().item() / plain_max,
                    "launches": onepass_forward_variant.launches[name] - before}
             rows.append(row)

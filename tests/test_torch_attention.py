@@ -176,6 +176,39 @@ def test_dispatch_matches_jax_on_card(monkeypatch, sq, skv, heads, head_dim,
         assert attention_route(sq, skv, heads, head_dim, backend, "cpu") == "plain"
 
 
+@pytest.mark.parametrize("sq,skv,heads,head_dim", [
+    (4096, 4096, 10, 64), (1024, 52, 20, 64), (4096, 4096, 8, 40), (1024, 1024, 8, 160),
+])
+def test_disable_flash_makes_the_auto_routes_plain(monkeypatch, sq, skv, heads, head_dim):
+    """PEA_DISABLE_FLASH turns the "auto" backend's kernel routes plain, as
+    in the JAX package; "flash" still forces the kernels, in both."""
+    monkeypatch.setattr(jax_attention.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setenv("PEA_DISABLE_FLASH", "1")
+    assert _jax_route(sq, skv, heads, head_dim, "auto") == "plain"
+    assert attention_route(sq, skv, heads, head_dim, "auto", "cuda") == "plain"
+    forced = attention_route(sq, skv, heads, head_dim, "flash", "cuda")
+    assert forced == _jax_route(sq, skv, heads, head_dim, "flash") != "plain"
+
+
+def test_disable_flash_makes_the_smoke_route_walk_plain(monkeypatch):
+    """chip_smoke.py's walk of the SDXL UNet's attention modules (meta
+    device) at 1024²: onepass and flash calls without the knob, all plain
+    with it."""
+    import chip_smoke
+    from pea_diffusion_tpu_torch.configs import SDXL_UNET
+    from pea_diffusion_tpu_torch.models import UNet2DCondition
+
+    with torch.device("meta"):
+        unet = UNet2DCondition(SDXL_UNET)
+    monkeypatch.delenv("PEA_DISABLE_FLASH", raising=False)
+    routes = chip_smoke.attention_routes(unet, 128, 52)
+    assert {r for r, *_ in routes} == {"onepass", "flash"}
+    monkeypatch.setenv("PEA_DISABLE_FLASH", "1")
+    plain = chip_smoke.attention_routes(unet, 128, 52)
+    assert {r for r, *_ in plain} == {"plain"}
+    assert sum(plain.values()) == sum(routes.values()) == 140
+
+
 # --- the backward (B4, B5) and the autograd Functions -------------------------
 
 BWD_ATOL = 2e-4  # fp32, as tests/test_flash_vjp.py
@@ -358,7 +391,8 @@ def test_smoke_route_walk_of_sd15_at_1024():
 def test_smoke_names_each_kernel_in_its_build_lines():
     """chip_smoke.py's [build] lines: one per compiled kernel, its name
     (namespaces below pea kept), element type and integer template
-    arguments, with ptxas's registers and spills."""
+    arguments, with ptxas's registers and spills; a wgmma serialisation
+    warning as it stands."""
     import chip_smoke
 
     log = "\n".join([
@@ -376,6 +410,14 @@ def test_smoke_names_each_kernel_in_its_build_lines():
         " for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 54 registers, 384 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN3pea4sm9020onepass_wgmma_kernelI6__half"
+        "Li2ELi3ELi1EEEvNS0_6ParamsE14CUtensorMap_stS3_S3_' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN3pea4sm9020onepass_wgmma_kernelI6__half"
+        "Li2ELi3ELi1EEEvNS0_6ParamsE14CUtensorMap_stS3_S3_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions "
+        "are serialized due to insufficient register resources for the wgmma pipeline",
+        "ptxas info    : Used 128 registers, used 1 barriers, 816 bytes cmem[0]",
     ])
     assert chip_smoke.ptxas_lines(log) == [
         "attention_fwd_kernel<bf16,160,64,64,2>: 238 registers; "
@@ -384,4 +426,29 @@ def test_smoke_names_each_kernel_in_its_build_lines():
         "80 bytes stack frame, 80 bytes spill stores, 80 bytes spill loads",
         "gn::stats_nhwc<fp32,4>: 54 registers; "
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions "
+        "are serialized due to insufficient register resources for the wgmma pipeline",
+        "sm90::onepass_wgmma_kernel<fp16,2,3,1>: 128 registers; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
     ]
+
+
+def _mutants():
+    from pea_diffusion_tpu_torch.tools import kernel_mutants
+
+    return kernel_mutants.MUTANTS
+
+
+@pytest.mark.parametrize("n", range(16))
+def test_each_kernel_mutant_names_text_of_the_sources(n):
+    """tools/kernel_mutants.py plants each fault by replacing text of the
+    CUDA sources: every replaced text occurs in its source as often as the
+    mutant says, so that no mutant silently stops planting its fault."""
+    from pea_diffusion_tpu_torch.tools import kernel_mutants
+
+    assert len(_mutants()) == 16
+    what, edits, _ = _mutants()[n]
+    csrc = kernel_mutants.REPO / "pea_diffusion_tpu_torch" / "csrc"
+    for name, old, new, *count in edits:
+        assert old != new
+        assert (csrc / name).read_text().count(old) == (count[0] if count else 1), (what, old)

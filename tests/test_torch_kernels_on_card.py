@@ -1,7 +1,8 @@
-"""The port's attention kernels (B1 one-pass, B3 flash forward, B4/B5 flash
-backward) against their plain versions on a CUDA card, in the working types
-bf16/fp16, at SDXL's head dim 64, SD1.5's 40, 80 and 160, and 128, and B1's
-tile variants (S1) against the plain version and shipped B1. Forward: the
+"""The port's attention kernels (B1 one-pass, at head dim 64 the wgmma + TMA
+body; B3 flash forward, B4/B5 flash backward) against their plain versions
+on a CUDA card, in the working types bf16/fp16, at SDXL's head dim 64,
+SD1.5's 40, 80 and 160, and 128, and B1's tile variants (S1, both bodies)
+against the plain version and shipped B1. Forward: the
 max error must stay below 8e-3 of the largest output, twice the most that rounding the output to bf16 (2^-8 of its size)
 can move it. Backward: below 2e-2 of the largest gradient, per output (P
 and dS are rounded to bf16 before their products, and dS is a difference of
@@ -55,6 +56,34 @@ def test_onepass_kernel_matches_plain_on_card(b, sq, skv, h, d, dtype):
     assert onepass_attention.onepass_forward.launches == n + 1
     ref = onepass_attention.onepass_forward_ref(q.float(), k.float(), v.float(), h, d)
     assert out.dtype == dtype
+    assert _rel_err(out, ref) < RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,sq,skv,h", [
+    (2, 4096, 4096, 10),   # SDXL self-attention, level 1
+    (2, 1024, 1024, 20),   # SDXL self-attention, level 2
+    (10, 1600, 1600, 10),  # the SDXL training teacher: ragged Q and KV tails at batch ends
+    (2, 1024, 1000, 10),   # masked ragged KV
+    (3, 200, 100, 4),      # a single KV tile (Skv <= 128), ragged Q
+])
+def test_onepass_wgmma_kernel_matches_plain_on_card(b, sq, skv, h, dtype):
+    """B1 at head dim 64, the wgmma + TMA body (attention_fwd_sm90.cu), at
+    the paths' shapes and the ragged cases its 3-D tensor maps must read as
+    zeros, in both working types."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(b, sq, h * 64, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(b, skv, h * 64, device=dev, generator=g).to(dtype) for _ in range(2))
+    n = onepass_attention.onepass_forward.launches
+    out = onepass_attention.onepass_forward(q, k, v, h, 64)
+    torch.cuda.synchronize()
+    assert onepass_attention.onepass_forward.launches == n + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = torch.cat([onepass_attention.onepass_forward_ref(q[i:i + 1].float(), k[i:i + 1].float(),
+                                                           v[i:i + 1].float(), h, 64)
+                     for i in range(b)])
     assert _rel_err(out, ref) < RTOL
 
 
@@ -242,8 +271,8 @@ def test_kernels_reject_other_head_dims_on_card():
     (3, 77, 1000, 4),     # fewer queries than one block
 ])
 def test_onepass_variants_match_plain_and_b1_on_card(b, sq, skv, h):
-    """S1: every tile variant of B1 against the plain version; the shipped
-    shape's variant gives B1's bits."""
+    """S1: every tile variant of B1 against the plain version; the variant
+    B1 ships at the shape gives B1's bits."""
     from pea_diffusion_tpu_torch.tools import sweep_onepass as sw
 
     dev = _card()
@@ -260,7 +289,7 @@ def test_onepass_variants_match_plain_and_b1_on_card(b, sq, skv, h):
         assert sw.onepass_forward_variant.launches[name] == n + 1
         assert out.dtype == torch.bfloat16 and out.shape == q.shape
         assert _rel_err(out, ref) < RTOL, name
-        if name == sw.BASE:
+        if name == sw.shipped_variant(sq):
             assert torch.equal(out, shipped)
 
 
@@ -271,9 +300,10 @@ def test_onepass_variants_reject_what_they_do_not_take_on_card():
     dev = _card()
     x = torch.zeros(1, 128, 128, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
-        sw.onepass_forward_variant(x, x, x, 2, 64, sw.BASE)
+        sw.onepass_forward_variant(x, x, x, 2, 64, sw.shipped_variant(128))
     with pytest.raises(ValueError, match="head_dim=128"):
-        sw.onepass_forward_variant(x.bfloat16(), x.bfloat16(), x.bfloat16(), 1, 128, sw.BASE)
+        sw.onepass_forward_variant(x.bfloat16(), x.bfloat16(), x.bfloat16(), 1, 128,
+                                    sw.shipped_variant(128))
 
 
 @pytest.mark.gpu

@@ -13,6 +13,7 @@ import torch
 from _torch_parity import host_params, sub_state_dict, t
 from pea_diffusion_tpu.models import layers as J
 from pea_diffusion_tpu_torch.models import layers as P
+from pea_diffusion_tpu_torch.ops import groupnorm as P_gn
 
 ATOL = 1e-4
 
@@ -62,6 +63,30 @@ def test_group_norm_both_forms(batch):
     want = J.group_norm(jnp.asarray(x), scale, bias, 4, 1e-5)
     got = P.group_norm(_nhwc_to_nchw(x), t(scale), t(bias), 4, 1e-5)
     _close(got, want, nchw=True)
+
+
+@pytest.mark.parametrize("knob", ["1", "0", None])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_group_norm_knob_pins_the_form(monkeypatch, knob, batch):
+    """PEA_GN_GROUPED=1 pins the grouped form and =0 the per-channel sums,
+    at any batch; unset, batch <= 2 takes the grouped one. The port's
+    group_norm matches the JAX one under the same setting and gives the bits
+    of the form the setting names. The input sits far from 0, where the
+    one-pass statistics of the two forms round differently."""
+    if knob is None:
+        monkeypatch.delenv("PEA_GN_GROUPED", raising=False)
+    else:
+        monkeypatch.setenv("PEA_GN_GROUPED", knob)
+    x = _rand(batch, 6, 7, 16) + 3
+    rng = np.random.default_rng(2)
+    scale = (1 + 0.1 * rng.standard_normal(16)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(16)).astype(np.float32)
+    args = (_nhwc_to_nchw(x), t(scale), t(bias), 4, 1e-5)
+    got = P.group_norm(*args)
+    grouped, sums = P_gn.group_norm_grouped(*args), P_gn.group_norm_sums(*args)
+    assert not torch.equal(grouped, sums)
+    assert torch.equal(got, grouped if knob == "1" or (knob is None and batch <= 2) else sums)
+    _close(got, J.group_norm(jnp.asarray(x), scale, bias, 4, 1e-5), nchw=True)
 
 
 @pytest.mark.parametrize("batch", [2, 3])

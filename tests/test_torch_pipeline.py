@@ -204,6 +204,33 @@ def test_cli_demo_sd15_writes_an_image(tmp_path):
     assert Image.open(out).size == (16, 16)
 
 
+@pytest.mark.parametrize("mode,size,side", [
+    ("--demo-full", 128, 32),   # --size above the model's own size is taken
+    ("--demo-full", None, 16),  # no --size: the model's own
+    ("--demo", 128, 16),        # the tiny stack caps it at its own size
+])
+def test_cli_size_is_capped_only_under_demo(monkeypatch, tmp_path, mode, size, side):
+    """--demo-full renders the --size asked for (SD1.5 at 1024² above its
+    native 512²); only --demo caps it. Both builders are swapped for the
+    tiny SD1.5 stack reporting 64 as its size (the full stack's 512 at an
+    eighth), so the image (VAE_TINY: latent x2) is side 32 at --size 128
+    and 16 at the cap."""
+    from PIL import Image
+
+    from pea_diffusion_tpu_torch.cli import generate
+
+    def tiny(device="cpu", model="sdxl", seed=0):
+        models, tokenize, _ = build_demo(device, model)
+        return models, tokenize, 64
+
+    monkeypatch.setattr(generate, "build_demo", tiny)
+    monkeypatch.setattr(generate, "build_demo_full", tiny)
+    out = tmp_path / "out.png"
+    main(["--model", "sd15", mode, "--device", "cpu", "--sampler", "ddim", "--steps", "1",
+          "-o", str(out)] + ([] if size is None else ["--size", str(size)]))
+    assert Image.open(out).size == (side, side)
+
+
 def test_demo_tokenizer_is_deterministic():
     tok = make_tokenizer(1000, 8)
     ids = tok(["猫a", ""])

@@ -58,18 +58,39 @@ def test_shapes_match_the_jax_tool():
 
 def test_variant_names_match_the_cuda_table():
     """The wrapper's names are the C table's, in its order, each naming its
-    template's query block, KV tile and stages; the first is the shipped
-    tile shape (kBlockM, kBlockN, kStages)."""
-    src = (REPO / "pea_diffusion_tpu_torch" / "csrc" / "attention_fwd.cu").read_text()
-    table = re.findall(r'\{"(\w+)", launch<__nv_bfloat16, 64, (\d+), (\d+), (\d+)>\}', src)
-    assert tuple(name for name, *_ in table) == sw.VARIANTS
-    for name, bm, bn, st in table:
-        assert name == f"q{bm}_kv{bn}_s{st}"
-    common = (REPO / "pea_diffusion_tpu_torch" / "csrc" / "attention_common.cuh").read_text()
-    shipped = tuple(re.search(rf"constexpr int {c} = (\d+);", common).group(1)
-                    for c in ("kBlockM", "kBlockN", "kStages"))
-    assert sw.BASE == "q{}_kv{}_s{}".format(*shipped)
-    assert len(set(sw.VARIANTS)) == len(sw.VARIANTS) == 8
+    template's shape: the mma.sync body's query block, KV tile and stages,
+    then the wgmma body's warpgroups and stages (_cpasync: the staged form
+    without TMA). shipped_variant is the rule B1 ships by (one warpgroup up
+    to kOneWarpgroupMaxSq query rows, two above; kShippedStages, TMA), and
+    the mma.sync body's own shipped tile shape (kBlockM, kBlockN, kStages),
+    which B1 ran before, is in the table."""
+    csrc = REPO / "pea_diffusion_tpu_torch" / "csrc"
+    src = (csrc / "attention_fwd.cu").read_text()
+    body = src[src.index("constexpr Variant kVariants[] = {"):]
+    body = body[:body.index("};")]
+    entries = re.findall(r'\{"(\w+)", (\w+)<([^>]*)>\}', body)
+    assert tuple(name for name, *_ in entries) == sw.VARIANTS
+    for name, fn, args in entries:
+        if fn == "launch":
+            assert name == "q{}_kv{}_s{}".format(*re.fullmatch(
+                r"__nv_bfloat16, 64, (\d+), (\d+), (\d+)", args).groups())
+        else:
+            assert fn == "wgmma_variant"
+            wg, st, mode = re.fullmatch(r"(\d), (\d), (\d)", args).groups()
+            assert name == f"wg{wg}_kv128_s{st}" + {"0": "_cpasync", "1": ""}[mode]
+    common = (csrc / "attention_common.cuh").read_text()
+    mma_sync = tuple(re.search(rf"constexpr int {c} = (\d+);", common).group(1)
+                     for c in ("kBlockM", "kBlockN", "kStages"))
+    assert "q{}_kv{}_s{}".format(*mma_sync) in sw.VARIANTS
+    sm90 = (csrc / "attention_fwd_sm90.cu").read_text()
+    stages, max_sq = (int(re.search(rf"constexpr int {c} = (\d+);", sm90).group(1))
+                      for c in ("kShippedStages", "kOneWarpgroupMaxSq"))
+    assert "sq <= kOneWarpgroupMaxSq ? 1 : 2;" in sm90
+    assert re.search(r"warpgroups,\s+kShippedStages, sm90::kTma, device", sm90)
+    assert max_sq == sw.ONE_WARPGROUP_MAX_SQ
+    for seq, wg in ((1, 1), (max_sq, 1), (max_sq + 1, 2), (4096, 2)):
+        assert sw.shipped_variant(seq) == f"wg{wg}_kv128_s{stages}" in sw.VARIANTS
+    assert len(set(sw.VARIANTS)) == len(sw.VARIANTS) == 12
 
 
 def test_without_a_card_the_tool_exits_non_zero():
