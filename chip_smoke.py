@@ -25,8 +25,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the forward, the backward of one such call for B4 + B5 together,
    F.group_norm for the GroupNorm alone), each launch after an L2 flush,
    beside the least time the card needs for the same bytes and operations.
-   B1's D = 64 rows run the wgmma + TMA body (attention_fwd_sm90.cu), its
-   D = 128 row the mma.sync body. Then the sweep path (S1): the port's
+   B1's D = 64 rows run the wgmma + TMA body (attention_fwd_sm90_body.cuh),
+   its D = 128 row the mma.sync body. Each B3 row also runs every B3
+   variant built at its head dim (flash_forward_variant: the mma.sync body,
+   the wgmma body with 1 or 2 warpgroups and K/V tiles of 64 or 128 rows):
+   each below 8e-3 of max |plain| with its lse, the shipped one (the
+   library's rule) with the shipped B3's bits, every self-attention row at
+   Sq = Skv >= 1024 on the wgmma body, and each variant's time beside the
+   shipped time. Then the sweep path (S1): the port's
    sweep tool (pea_diffusion_tpu_torch/tools/sweep_onepass.py) runs B1's
    twelve tile variants (eight of the mma.sync body, four of the wgmma
    body) at its b16 and b2 shapes from launch counts of 0; each variant
@@ -113,6 +119,7 @@ H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (SXM data sheet)
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (SXM data sheet)
 H100_BYTES_PER_S = 3.35e12  # HBM3 (SXM data sheet)
 KERNEL_RTOL = 8e-3          # max|out - ref| / max|ref|: 2x bf16's 2^-8 rounding
+LSE_ATOL = 1e-3             # B3's fp32 lse against the plain one (fp32 sums)
 BWD_RTOL = 2e-2             # the same per gradient: P and dS rounded to bf16 too
 MODULE_RTOL = 2e-2          # the same, through the bf16 projections around it
 KD_GRAD_RTOL = 5e-2         # adapter gradient, kernels vs plain attention (rel. L2)
@@ -247,9 +254,10 @@ def chunked(torch, fn, scores_per_row, budget, *tensors):
 
 
 KERNELS = {
-    "B1": dict(name="B1 onepass_attention", route="cuda", source=SRC + "attention_fwd_sm90.cu",
+    "B1": dict(name="B1 onepass_attention", route="cuda",
+               source=SRC + "attention_fwd_sm90_body.cuh",
                replaces="pea_diffusion_tpu/ops/onepass_attention.py:50"),
-    "B3": dict(name="B3 flash_attention", route="cuda", source=SRC + "attention_fwd.cu",
+    "B3": dict(name="B3 flash_attention", route="cuda", source=SRC + "attention_fwd_sm90_body.cuh",
                replaces="pea_diffusion_tpu/ops/flash_attention.py:31"),
     "B4": dict(name="B4 flash_backward_dkdv", route="cuda", source=SRC + "attention_bwd.cu",
                replaces="pea_diffusion_tpu/ops/flash_attention.py:156"),
@@ -387,16 +395,22 @@ def run_forward_cases(torch, F, randn, flush):
         torch.cuda.synchronize()
         err, rel = _check(KERNELS[kern]["name"], what, [out[0] if lse else out],
                           [ref[0] if lse else ref], KERNEL_RTOL)
-        if kern == "B3":  # both variants: the same output, and the lse
+        variants = {}
+        if kern == "B3":  # with and without lse: the same output, and the lse
             out_l, lse_l = out if lse else flash_attention.flash_forward(q, k, v, with_lse=True)
             out_p = flash_attention.flash_forward(q, k, v) if lse else out
             ref_lse = ref[1] if lse else plain_flash(q, k, v, True)[1]
             lse_err = (lse_l - ref_lse).abs().max().item()
-            if not lse_err < 1e-3 or not torch.equal(out_l, out_p):
+            if not lse_err < LSE_ATOL or not torch.equal(out_l, out_p):
                 raise AssertionError(f"B3 {what}: lse error {lse_err}, or the output "
                                      "differs with and without lse")
+            variants = check_flash_variants(torch, flash_attention, what, q, k, v, out_l, lse_l,
+                                            ref[0] if lse else ref, ref_lse)
             del out_l, lse_l, out_p, ref_lse
         del out, ref
+        for name in variants:
+            variants[name]["ms"] = time_ms(torch, lambda: flash_attention.flash_forward_variant(
+                q, k, v, name, with_lse=lse), 10, flush)
         ms = time_ms(torch, run, 20, flush)
         plain_ms = time_ms(torch, plain, 3, flush)
         library_ms = time_ms(
@@ -404,8 +418,37 @@ def run_forward_cases(torch, F, randn, flush):
         flops = 4 * b * h * sq * skv * d
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + (4 * b * sq if lse else 0)
         entries.append(_entry(kern, b, sq, skv, h, d, what, err, rel, KERNEL_RTOL, ms,
-                              plain_ms, flops, nbytes, library_ms, stands_for, lse))
+                              plain_ms, flops, nbytes, library_ms, stands_for, lse, variants))
     return entries
+
+
+def check_flash_variants(torch, fa, what, q, k, v, out, lse, ref, ref_lse):
+    """Every B3 variant built at q's head dim against the plain version
+    (output below KERNEL_RTOL of max |plain|, lse within LSE_ATOL); the
+    variant the library ships at the shape must give shipped B3's bits
+    (`out`, `lse`), and a self-attention row at Sq = Skv >= 1024 must ship a
+    wgmma variant. Returns {variant: {"max_rel_err", "shipped"}}."""
+    _, sq, d = q.shape
+    skv = k.shape[1]
+    shipped = fa.shipped_flash_variant(skv, d)
+    if sq == skv >= 1024 and shipped == "mma_sync":
+        raise AssertionError(f"B3 {what}: self-attention ships the mma.sync body")
+    found = {}
+    for name, dims in fa.FLASH_VARIANTS.items():
+        if d not in dims:
+            continue
+        got, got_lse = fa.flash_forward_variant(q, k, v, name, with_lse=True)
+        torch.cuda.synchronize()
+        _, rel = errors(got, ref)
+        lse_err = (got_lse - ref_lse).abs().max().item()
+        if not (rel < KERNEL_RTOL and lse_err < LSE_ATOL):
+            raise AssertionError(f"B3 variant {name} {what}: {rel} of max |plain| (limit "
+                                 f"{KERNEL_RTOL}), lse error {lse_err} (limit {LSE_ATOL})")
+        if name == shipped and not (torch.equal(got, out) and torch.equal(got_lse, lse)):
+            raise AssertionError(f"B3 {what}: the shipped variant {name} differs from B3")
+        found[name] = {"max_rel_err": rel, "shipped": name == shipped}
+        del got, got_lse
+    return found
 
 
 def backward_cases():
@@ -480,11 +523,13 @@ def run_backward_cases(torch, F, randn, flush):
 
 
 def _entry(kern, b, sq, skv, h, d, what, err, rel, rtol, ms, plain_ms, flops, nbytes,
-           library_ms, stands_for, lse=False):
+           library_ms, stands_for, lse=False, variants=None):
     """One row of the kernels line. `stands_for` maps each path that runs
     this shape to its attention call key (route, sq, skv); the row's launches
     on a path are the launches of that path's calls at the key (for B3, those
-    with lse on a row with lse, the others on a row without)."""
+    with lse on a row with lse, the others on a row without). A B3 row names
+    the variant it ships (`body`) and every variant's time and error
+    (`variants`); its source is the shipped variant's body."""
     bound_ms, bound_by = bound(flops, nbytes)
     shape = f"batch={b} sq={sq} skv={skv} heads={h} head_dim={d} bf16"
     e = dict(KERNELS[kern], shape=shape + (", with lse" if lse else ""),
@@ -493,9 +538,16 @@ def _entry(kern, b, sq, skv, h, d, what, err, rel, rtol, ms, plain_ms, flops, nb
              kernel=kern, lse=lse, stands_for=stands_for, launches_by_path={})
     if kern == "B1" and d != 64:  # B1 at D = 128 runs the mma.sync body
         e["source"] = SRC + "attention_fwd.cu"
+    if variants:
+        e["body"] = next(name for name, v in variants.items() if v["shipped"])
+        e["variants"] = variants
+        if e["body"] == "mma_sync":
+            e["source"] = SRC + "attention_fwd.cu"
     log(f"[kernel] {e['name']} {what} ({e['shape']}): err {err:.3g} (rel {rel:.3g}) "
         f"ms {ms:.4f} plain {plain_ms:.4f} library {library_ms:.4f} "
-        f"bound {bound_ms:.4f} ({bound_by})")
+        f"bound {bound_ms:.4f} ({bound_by})"
+        + (f"; ships {e['body']}; variants ms " + ", ".join(
+            f"{name} {v['ms']:.4f}" for name, v in variants.items()) if variants else ""))
     return e
 
 
@@ -700,7 +752,7 @@ def sweep_phase(torch, F):
                                      f"by {r['max_abs_err_vs_base']}")
             shape = f"batch={b} sq={s} skv={s} heads={h} head_dim={d} bf16"
             e = dict(KERNELS["S1"], name=f"{KERNELS['S1']['name']} {r['variant']}",
-                     source=SRC + ("attention_fwd_sm90.cu" if r["variant"].startswith("wg")
+                     source=SRC + ("attention_fwd_sm90_body.cuh" if r["variant"].startswith("wg")
                                    else "attention_fwd.cu"),
                      shape=shape, what=what, max_abs_err=r["max_abs_err_vs_base"],
                      max_rel_err=r["rel_err_vs_plain"], rel_tolerance=KERNEL_RTOL,
@@ -1006,7 +1058,7 @@ def profile_run(torch, fn, unprofiled_s, table_path, tag):
         raise AssertionError(f"[{tag}] the profiler saw no device time")
     idle = max(0.0, 1 - busy / (unprofiled_s * 1e3))
     fwd = sum(v for k, v in per_kernel.items()
-              if "attention_fwd_kernel" in k or "onepass_wgmma_kernel" in k)
+              if "attention_fwd_kernel" in k or "wgmma_attention_kernel" in k)
     bwd = sum(v for k, v in per_kernel.items() if "attention_bwd_" in k)
     log(f"[{tag}] device busy {busy:.1f} ms of {wall_ms:.1f} ms wall under the "
         f"profiler; of the unprofiled run ({unprofiled_s * 1e3:.1f} ms) the device "

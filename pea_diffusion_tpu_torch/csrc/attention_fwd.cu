@@ -6,10 +6,16 @@
 //   pea_diffusion_tpu/ops/onepass_attention.py::_kernel and _kernel_bb
 //   (the same function; its batch block and exp2 are TPU tuning). At head
 //   dim 64 (every B1 call of the paths) it runs the wgmma + TMA body of
-//   attention_fwd_sm90.cu; at 128, the mma.sync body below.
+//   attention_fwd_sm90_body.cuh; at 128, the mma.sync body below.
 // - pea_flash_attention_fwd (B3) reads head-major [BH, S, D] and can also
 //   store lse. It replaces pea_diffusion_tpu/ops/flash_attention.py::
-//   _fwd_kernel.
+//   _fwd_kernel. It runs the variant its shipped rule picks for the shape
+//   (shipped_flash_variant): the wgmma + TMA body of
+//   attention_fwd_sm90_body.cuh, or the mma.sync body below.
+// - pea_flash_attention_fwd_variant runs B3 in one of a fixed set of
+//   variants (the mma.sync body, the wgmma body's warpgroups and K/V tile),
+//   for the smoke's timings; pea_flash_variant_count, pea_flash_variant_name
+//   and pea_flash_shipped_variant list the set and the rule.
 // - pea_onepass_attention_fwd_variant (S1) runs B1 in one of a fixed set
 //   of tile shapes of either body, for the sweep tool
 //   (tools/sweep_onepass.py of the port). It replaces the TPU tuning variants of tools/sweep_onepass.py
@@ -45,13 +51,15 @@
 // with cp.async into the stages, so the copies of tiles i+1 .. i+kST-1
 // overlap the math on tile i. The shipped entry points run kBM = kBN = 64
 // and kST = 2 (kBlockM, kBlockN, kStages); the variants are listed at
-// pea_onepass_attention_fwd_variant. B1 at D = 64 runs on wgmma and TMA
-// instead (attention_fwd_sm90.cu); B3 and D = 128 move there later.
+// pea_onepass_attention_fwd_variant. B1 at D = 64 and B3 run on wgmma and
+// TMA instead (attention_fwd_sm90_body.cuh), except where B3's shipped rule
+// keeps this body; B1 at D = 128 stays here.
 //
 // D = 160 (SD1.5's level 2 and mid block at 1024^2 and up) runs the same
-// body: its fp32 output accumulator is 80 registers a thread beside the Q
-// fragments (40) and the score tile (32), and its two 64-row K/V stages are
-// 86,016 bytes of shared memory, above the default 48 KB (opt-in).
+// body as a B3 variant: its fp32 output accumulator is 80 registers a
+// thread beside the Q fragments (40) and the score tile (32), and its two
+// 64-row K/V stages are 86,016 bytes of shared memory, above the default
+// 48 KB (opt-in).
 #include "attention_common.cuh"
 #include "attention_fwd_sm90.cuh"
 
@@ -310,8 +318,8 @@ inline AttnParams onepass_params(const void* q, const void* k, const void* v, vo
 // query block (64 or 128 rows: 4 or 8 warps, the JAX tool's bq), the KV
 // tile (64 or 128 rows: more work per step) and the copy depth (2 or 3
 // stages); every combination fits in shared memory (at most 3 * 2 * 128
-// rows * 144 bytes = 110,592); q64_kv64_s2 is its shipped tile shape (B3's
-// and D = 128's). The wgmma body of attention_fwd_sm90.cu
+// rows * 144 bytes = 110,592); q64_kv64_s2 is its shipped tile shape (B1's
+// at D = 128, and B3's mma_sync variant's). The wgmma body of attention_fwd_sm90_body.cuh
 // (wg<warpgroups>_kv128_s<stages>, _cpasync for the staged form without
 // TMA): 1 or 2 warpgroups of 64 query rows, 2 or 3 stages of 128 K/V rows;
 // all give the bits of the instantiations B1 ships there. The TPU tool's other axes
@@ -345,6 +353,80 @@ constexpr Variant kVariants[] = {
 };
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
 
+// B3's variants: the mma.sync body above at its shipped tile (kBlockM,
+// kBlockN, kStages; B3's earlier body), kept as the yardstick, and the
+// wgmma + TMA body (attention_fwd_sm90_body.cuh) with 1 or 2 warpgroups of
+// 64 query rows and K/V tiles of 128 or 64 rows, at the head dims each is
+// built for (each head dim's launch_dim; any other returns
+// cudaErrorInvalidValue). All give the same function; B3 ships the one its
+// rule picks, with the bits of that variant.
+struct FlashVariant {
+  const char* name;
+  int warpgroups;  // 0: the mma.sync body
+  int kv_tile;
+};
+constexpr FlashVariant kFlashVariants[] = {
+    {"mma_sync", 0, kBlockN}, {"wg1_kv128", 1, 128}, {"wg2_kv128", 2, 128},
+    {"wg1_kv64", 1, 64},      {"wg2_kv64", 2, 64},
+};
+constexpr int kNumFlashVariants = sizeof(kFlashVariants) / sizeof(kFlashVariants[0]);
+
+// The index of the variant of kFlashVariants with this shape.
+constexpr int flash_variant(int warpgroups, int kv_tile) {
+  for (int i = 0; i < kNumFlashVariants; ++i) {
+    if (kFlashVariants[i].warpgroups == warpgroups && kFlashVariants[i].kv_tile == kv_tile) {
+      return i;
+    }
+  }
+  return -1;
+}
+
+// B3 as it ships, from the smoke's times of every variant at the paths'
+// shapes (PERF.md, B3): blocks of two warpgroups (one-warpgroup blocks ran
+// 1.3-2x slower at every self-attention shape); at D = 40 K/V tiles of 128
+// rows (64-row ones 5-14 % slower), but up to kFlashShortKv KV rows
+// (cross-attention, one tile) the mma.sync body, measured up to 10 % faster
+// there than the 64-row wgmma tiles; from D = 64 on K/V tiles of 64 rows
+// (rows of two or three swizzle atoms: 128-row tiles leave one block an SM;
+// at D = 64 the 128-row two-warpgroup instantiation is capped at 128
+// registers and spills, the 64-row one takes 103 and measured within 5 %).
+constexpr int kFlashShortKv = 64;
+
+inline int shipped_flash_variant(int skv, int head_dim) {
+  if (head_dim != 40) return flash_variant(2, 64);
+  return skv <= kFlashShortKv ? flash_variant(0, kBlockN) : flash_variant(2, 128);
+}
+
+// B3 in variant `variant` of kFlashVariants (flash_params: head-major
+// strides for the mma.sync body).
+inline int flash_fwd_variant(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int bh, int sq, int skv, int head_dim, float scale, int dtype,
+                             int variant, int device, cudaStream_t stream) {
+  if (variant < 0 || variant >= kNumFlashVariants) return static_cast<int>(cudaErrorInvalidValue);
+  const FlashVariant& var = kFlashVariants[variant];
+  if (var.warpgroups > 0) {
+    return flash_wgmma(q, k, v, o, lse, bh, sq, skv, head_dim, scale, dtype, var.warpgroups,
+                       var.kv_tile, device, stream);
+  }
+  AttnParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.lse = lse;
+  p.q_batch_stride = static_cast<long long>(sq) * head_dim;
+  p.o_batch_stride = static_cast<long long>(sq) * head_dim;
+  p.k_batch_stride = static_cast<long long>(skv) * head_dim;
+  p.v_batch_stride = static_cast<long long>(skv) * head_dim;
+  p.q_head_stride = p.k_head_stride = p.v_head_stride = p.o_head_stride = 0;
+  p.q_row_stride = p.k_row_stride = p.v_row_stride = p.o_row_stride = head_dim;
+  p.heads = 1;
+  p.sq = sq;
+  p.skv = skv;
+  p.scale = scale;
+  return launch_attention_fwd(p, bh, head_dim, dtype, device, stream);
+}
+
 }  // namespace pea
 
 // B1: one-pass attention on [B, S, H*D]. The kernel reads head h of row s
@@ -356,7 +438,7 @@ constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
 // operations per byte (512 and 2048), above the card's ~295: it is bound
 // by tensor-core operations. Both bodies keep every score tile in
 // registers (nothing of the S x S matrix reaches device memory); D = 64
-// feeds the tensor cores with wgmma (attention_fwd_sm90.cu), D = 128 with
+// feeds the tensor cores with wgmma (attention_fwd_sm90_body.cuh), D = 128 with
 // mma.sync. Nothing falls back from one body to the other.
 extern "C" int pea_onepass_attention_fwd(const void* q, const void* k, const void* v,
                                          void* o, int batch, int heads, int sq, int skv,
@@ -376,44 +458,48 @@ extern "C" int pea_onepass_attention_fwd(const void* q, const void* k, const voi
 // parts are dropped: D is not padded to 128 lanes and lse is a plain
 // [BH, Sq] array instead of the [BH, 8, Sq] lane layout.
 //
-// Bound on the H100: on the SDXL path this runs the cross-attention, Sq =
-// 1024 or 4096 query rows against Skv = 52 text tokens at D = 64. The work
-// is 4*BH*Sq*Skv*D operations on 2*BH*(2*Sq + 2*Skv)*D bytes, about 50
-// operations per byte, below the card's ~295: it is bound by device memory.
-// Each query row is read once and written once, and K/V (52 rows, one
-// tile) are read once per 64-row block and then hit in L2. On the SD1.5
-// path it runs every attention call of levels 0 and 1 (D = 40 at S = 4096,
-// D = 80 at S = 1024): the cross-attention as above, the self-attention
-// (S/2 operations per byte, 2048 and 512) bound by tensor-core operations.
-// D = 40 pads its Q.K^T contraction to 48 in registers and shared memory
-// only, a fifth more products than the bound counts. At 1024^2 the SD1.5
-// path adds level 0 at S = 16384 (D = 40), level 1 at 4096 (D = 80) and
-// level 2 at 1024 with D = 160: there the self-attention of the CFG pair,
-// b16 Sq = Skv = 1024, is 4 * 16 * 1024^2 * 160 = 10.7 GFLOP on 21 MB, at
-// least 10.9 us at 989 TFLOP/s (bound by operations), its cross-attention
-// (Skv = 52) about 10.5 MB, at least 3.2 us of device memory.
+// Bound on the H100: the self-attention (Sq = Skv = S: SD1.5's levels 0-2
+// at S = 1024 to 16384, D = 40, 80, 160; SDXL training's student at S =
+// 1600, D = 64) is 4*BH*S*S*D operations on 8*BH*S*D bytes, S/2 operations
+// per byte (512 to 8192), above the card's ~295: bound by tensor-core
+// operations, and at D = 40 by the exponentials (2*BH*S*S exp2 on 16 MUFU
+// lanes an SM a cycle), which the bound does not count. It runs the wgmma
+// + TMA body (attention_fwd_sm90_body.cuh). The cross-attention (Skv = 52
+// or 77 text tokens) is about 50 operations per byte, below the line:
+// bound by device memory. Each query row is read once and written once,
+// and K/V (one tile) are read once per block and then hit in L2.
 extern "C" int pea_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        void* o, float* lse, int bh, int sq, int skv,
                                        int head_dim, float scale, int dtype, int device,
                                        void* stream) {
-  pea::AttnParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.lse = lse;
-  p.q_batch_stride = static_cast<long long>(sq) * head_dim;
-  p.o_batch_stride = static_cast<long long>(sq) * head_dim;
-  p.k_batch_stride = static_cast<long long>(skv) * head_dim;
-  p.v_batch_stride = static_cast<long long>(skv) * head_dim;
-  p.q_head_stride = p.k_head_stride = p.v_head_stride = p.o_head_stride = 0;
-  p.q_row_stride = p.k_row_stride = p.v_row_stride = p.o_row_stride = head_dim;
-  p.heads = 1;
-  p.sq = sq;
-  p.skv = skv;
-  p.scale = scale;
-  return pea::launch_attention_fwd(p, bh, head_dim, dtype, device,
-                                   static_cast<cudaStream_t>(stream));
+  return pea::flash_fwd_variant(q, k, v, o, lse, bh, sq, skv, head_dim, scale, dtype,
+                                pea::shipped_flash_variant(skv, head_dim), device,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// B3 in the variant `variant` (0 .. pea_flash_variant_count() - 1):
+// cudaErrorInvalidValue where that variant is not built for the head dim or
+// type, kTensorMapError + CUresult where a wgmma variant's tensor map cannot
+// be encoded. Bound as B3.
+extern "C" int pea_flash_attention_fwd_variant(const void* q, const void* k, const void* v,
+                                               void* o, float* lse, int bh, int sq, int skv,
+                                               int head_dim, float scale, int dtype,
+                                               int variant, int device, void* stream) {
+  return pea::flash_fwd_variant(q, k, v, o, lse, bh, sq, skv, head_dim, scale, dtype, variant,
+                                device, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pea_flash_variant_count() { return pea::kNumFlashVariants; }
+
+// The name of B3's variant `variant`, or nullptr past the end.
+extern "C" const char* pea_flash_variant_name(int variant) {
+  return variant >= 0 && variant < pea::kNumFlashVariants ? pea::kFlashVariants[variant].name
+                                                          : nullptr;
+}
+
+// The variant B3 ships for skv KV rows at head dim head_dim (its index).
+extern "C" int pea_flash_shipped_variant(int skv, int head_dim) {
+  return pea::shipped_flash_variant(skv, head_dim);
 }
 
 // S1: the variant `variant` (0 .. pea_onepass_variant_count() - 1) of B1 on

@@ -4,8 +4,11 @@ over them.
 
 Port of ``pea_diffusion_tpu/ops/flash_attention.py``. On a CUDA tensor each
 bare wrapper launches its hand-written Hopper kernel: ``flash_forward`` the
-forward in ``csrc/attention_fwd.cu`` (entry point ``pea_flash_attention_fwd``,
-replacing the TPU kernel ``_fwd_kernel``), ``flash_backward_dkdv`` and
+forward (entry point ``pea_flash_attention_fwd`` of ``csrc/attention_fwd.cu``,
+replacing the TPU kernel ``_fwd_kernel``), which runs the wgmma + TMA body
+of ``csrc/attention_fwd_sm90_body.cuh`` or, where its shipped rule says so,
+the mma.sync body of ``attention_fwd.cu`` (``flash_forward_variant`` runs
+any of its variants), ``flash_backward_dkdv`` and
 ``flash_backward_dq`` the backward in ``csrc/attention_bwd.cu`` (replacing
 ``_bwd_dkdv_kernel`` and ``_bwd_dq_kernel``). On a CPU tensor each runs its
 plain version. The kernels' outputs carry no autograd history, so a bare
@@ -18,6 +21,7 @@ sources.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -97,24 +101,97 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return flash_forward_ref(q, k, v, scale, with_lse)
     check_no_grad("flash_forward", q, k, v)
+    out, lse = _launch_forward("pea_flash_attention_fwd", _ARGTYPES, q, k, v, scale, with_lse)
+    flash_forward.launches += 1
+    flash_forward.lse_launches += with_lse
+    return (out, lse) if with_lse else out
+
+
+def _launch_forward(symbol: str, argtypes, q, k, v, scale: float, with_lse: bool, *extra):
+    """Checks what the forward kernels take, allocates the output (and the
+    fp32 lse) and launches the entry point `symbol`: (q, k, v, o, lse, bh,
+    sq, skv, head_dim, scale, dtype, *extra, device, stream). Returns (out,
+    lse or None)."""
     dtype = kernel_build.half_dtype_code(q, k, v)
     _check_shapes("flash kernel", q, k, v)
     bh, sq, d = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    kernel_build.launch("pea_flash_attention_fwd", _ARGTYPES,
-                        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                        None if lse is None else lse.data_ptr(),
-                        bh, sq, k.shape[1], d, scale, dtype, q.device.index,
+    kernel_build.launch(symbol, argtypes, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), None if lse is None else lse.data_ptr(),
+                        bh, sq, k.shape[1], d, scale, dtype, *extra, q.device.index,
                         kernel_build.stream_of(q))
-    flash_forward.launches += 1
-    flash_forward.lse_launches += with_lse
-    return (out, lse) if with_lse else out
+    return out, lse
 
 
 flash_forward.launches = 0
 flash_forward.lse_launches = 0
+
+# B3's variants, in the order of the C table (attention_fwd.cu,
+# kFlashVariants), and the head dims each is built for: the mma.sync body
+# (B3's earlier body), and the wgmma + TMA body with 1 or 2 warpgroups of
+# 64 query rows and K/V tiles of 128 or 64 rows (each head dim's launch_dim,
+# attention_fwd_sm90.cu and flash_fwd_sm90_d<D>.cu).
+FLASH_VARIANTS = {
+    "mma_sync": HEAD_DIMS,
+    "wg1_kv128": (40, 64, 80, 160),
+    "wg2_kv128": (40, 64, 80),
+    "wg1_kv64": HEAD_DIMS,
+    "wg2_kv64": HEAD_DIMS,
+}
+# pea_flash_attention_fwd_variant(q, k, v, o, lse, bh, sq, skv, head_dim,
+#                                 scale, dtype, variant, device, stream)
+_VARIANT_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                     + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+@functools.cache
+def library_flash_variants() -> tuple:
+    """The variant names the built library lists, in its order (read once)."""
+    count = kernel_build.function("pea_flash_variant_count", [])()
+    name = kernel_build.function("pea_flash_variant_name", [ctypes.c_int], ctypes.c_char_p)
+    return tuple(name(i).decode() for i in range(count))
+
+
+def shipped_flash_variant(skv: int, head_dim: int) -> str:
+    """The variant ``flash_forward`` runs for `skv` KV rows at `head_dim`:
+    the library's own rule (``pea_flash_shipped_variant``), so it needs the
+    built library."""
+    index = kernel_build.function("pea_flash_shipped_variant", [ctypes.c_int] * 2)(
+        skv, head_dim)
+    return tuple(FLASH_VARIANTS)[index]
+
+
+def flash_forward_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str,
+                          scale: Optional[float] = None, with_lse: bool = False):
+    """B3 in the variant `variant` (a name of ``FLASH_VARIANTS``), the same
+    function as ``flash_forward``. CUDA tensors launch it and count the launch
+    in ``flash_forward_variant.launches[variant]`` (not in
+    ``flash_forward.launches``) and raise on anything ``flash_forward``
+    refuses; CPU tensors run ``flash_forward_ref``. A head dim the variant is
+    not built for raises on either."""
+    if variant not in FLASH_VARIANTS:
+        raise ValueError(f"flash variant {variant!r}: one of {', '.join(FLASH_VARIANTS)}")
+    d = q.shape[-1]
+    if d not in FLASH_VARIANTS[variant]:
+        raise ValueError(f"flash variant {variant}: head_dim {d} (built for "
+                         f"{', '.join(map(str, FLASH_VARIANTS[variant]))})")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if not q.is_cuda:
+        return flash_forward_ref(q, k, v, scale, with_lse)
+    check_no_grad("flash_forward_variant", q, k, v)
+    if library_flash_variants() != tuple(FLASH_VARIANTS):
+        raise RuntimeError(f"the library's flash variants {library_flash_variants()} are not "
+                           f"{tuple(FLASH_VARIANTS)}")
+    out, lse = _launch_forward("pea_flash_attention_fwd_variant", _VARIANT_ARGTYPES, q, k, v,
+                               scale, with_lse, tuple(FLASH_VARIANTS).index(variant))
+    flash_forward_variant.launches[variant] += 1
+    return (out, lse) if with_lse else out
+
+
+flash_forward_variant.launches = dict.fromkeys(FLASH_VARIANTS, 0)
 
 
 def flash_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

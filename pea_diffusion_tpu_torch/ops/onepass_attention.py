@@ -6,7 +6,7 @@ Port of ``pea_diffusion_tpu/ops/onepass_attention.py``. On a CUDA tensor
 point ``pea_onepass_attention_fwd`` of ``csrc/attention_fwd.cu`` (replacing
 the TPU kernels ``_kernel`` and ``_kernel_bb``), which reads Q/K/V and
 writes O in place in [B, S, H*D]: at head dim 64, every call of the paths,
-the wgmma + TMA body of ``csrc/attention_fwd_sm90.cu``; at 128 the mma.sync
+the wgmma + TMA body of ``csrc/attention_fwd_sm90_body.cuh``; at 128 the mma.sync
 body of ``attention_fwd.cu``. On a CPU tensor it runs
 ``onepass_forward_ref``, the plain version of the same function. The kernel
 is bound by tensor-core operations at the SDXL self-attention shapes; its

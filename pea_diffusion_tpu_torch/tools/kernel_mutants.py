@@ -6,9 +6,10 @@ For each deliberate fault below it copies the package and ``chip_smoke.py``
 into ``build/mutants/<n>/`` at the root of the checkout, plants the fault in
 the copy's ``csrc/`` sources, and runs the copy's kernel phase and sweep
 phase (the comparisons; only the sweep's variants are timed) in a process
-of its own, so that each mutant
-builds and loads its own library. It prints each case's relative error and
-whether the comparison failed the run, as it must for a fault it is meant to
+of its own, so that each mutant builds and loads its own library; JOBS
+mutants run at once on the one card. It prints each case's relative error
+and whether the comparison failed the run (an assertion or any other error
+the phases raise, as the smoke would), as it must for a fault it is meant to
 catch. Needs a CUDA card and nvcc; exits non-zero if a mutant that must be
 caught is not. Numbers N run those mutants alone (0-based, in the order of
 MUTANTS).
@@ -18,12 +19,14 @@ from __future__ import annotations
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 MASK = "if (ragged && n0 + j * 8 + t * 2 + (e & 1) >= p.skv) x = kNegInf;"
 FWD, BWD, COMMON = "attention_fwd.cu", "attention_bwd.cu", "attention_common.cuh"
-SM90 = "attention_fwd_sm90.cu"
+SM90 = "attention_fwd_sm90_body.cuh"  # the wgmma body of B1 (D = 64) and B3
+JOBS = 4  # mutants at once: each builds on the host's cores, then checks on the card
 GN = "groupnorm.cu"
 B4_P = "const float pr = exp2f(x - ls[col]);"
 # D = 40: the zeroing of shared-memory columns 40-47, and the guard that
@@ -35,18 +38,16 @@ A_PAST_D = (COMMON, "const bool hi = kk * 16 + 8 < D;", "const bool hi = true;")
 # D = 160: B4's dV pass accumulates its 20 output n-tiles in pairs
 DV_NTILES = "for (int j = 0; j < kDTiles; j += 2) mma_ntiles<T, D>(acc, pa[kk], rhs + off, j, lm_mat);"
 
-# B1 at D = 64 (the wgmma body): its tensor maps flattened to 2-D over
+# The wgmma body (B1 at D = 64, B3): its tensor maps flattened to 2-D over
 # [B*S, H*D] (a 3-D map with a unit batch dimension and the batch folded
 # into the row coordinate), so that a box past a batch's last row reads the
 # next batch's rows instead of zeros
 FLAT_MAP = [
     (SM90, "static_cast<cuuint64_t>(rows),\n", "static_cast<cuuint64_t>(rows) * batch,\n"),
     (SM90, "static_cast<cuuint64_t>(batch)};", "1};"),
-    (SM90, "head * kD, q0, bidx);", "head * kD, bidx * p.sq + q0, 0);"),
-    (SM90, "head * kD, s * kBN, bidx);", "head * kD, bidx * p.skv + s * kBN, 0);", 2),
-    (SM90, "head * kD, tile * kBN, bidx);", "head * kD, bidx * skv + tile * kBN, 0);", 2),
-    (SM90, "int head, int tile, int bidx) {", "int head, int tile, int bidx, int skv) {"),
-    (SM90, "head, tile + kST, bidx);", "head, tile + kST, bidx, p.skv);"),
+    (SM90, "head * kD, q0, bidx, kQAtom);", "head * kD, bidx * p.sq + q0, 0, kQAtom);"),
+    (SM90, "head * kD, s * kBN, bidx);", "head * kD, bidx * p.skv + s * kBN, 0);"),
+    (SM90, "head * kD, row, bidx);", "head * kD, bidx * p.skv + row, 0);"),
 ]
 SM90_MASK = (SM90, "      if (ragged && n0 + j * 8 + t * 2 + (e & 1) >= skv) x = kNegInf;\n", "")
 
@@ -105,19 +106,37 @@ MUTANTS = [
     ("S1: three-stage variants read stage tile % 2 (the third stage never read)",
      [(FWD, "const uint16_t* ks = smem + (tile % kST) * 2 * kTile;",
        "const uint16_t* ks = smem + (tile % 2) * 2 * kTile;")], True),
-    ("B1 (wgmma): the last k-step of P.V dropped",
-     [(SM90, "for (int kk = 0; kk < kBN / 16; ++kk) Wgmma<T>::pv(",
-       "for (int kk = 0; kk < kBN / 16 - 1; ++kk) Wgmma<T>::pv(")], True),
+    ("wgmma body (B1, B3): the last k-step of P.V dropped",
+     [(SM90, "for (int kk = 0; kk < kBN / 16; ++kk) WgmmaRS<T, kD>::run(",
+       "for (int kk = 0; kk < kBN / 16 - 1; ++kk) WgmmaRS<T, kD>::run(")], True),
     # The next batch's rows that a flattened map reads past a ragged tail
     # are real values, but as K/V columns >= skv they get -1e30 (P = 0, and
     # 0 times a finite V row adds 0) and as Q rows >= sq they are never
     # stored: the 3-D map's zero fill is a second guard behind the mask, so
     # the flattening alone cannot change the output
-    ("B1 (wgmma): 2-D tensor maps over [B*S, H*D]", FLAT_MAP, False),
+    ("wgmma body (B1, B3): 2-D tensor maps over [B*S, H*D]", FLAT_MAP, False),
     # without the mask, the zero-filled K rows of a ragged tail score 0
     # (not -1e30) and enter the row sums: zero fill is not a mask
-    ("B1 (wgmma): KV mask dropped (zero-filled columns counted)", [SM90_MASK], True),
-    ("B1 (wgmma): 2-D tensor maps and the KV mask dropped", FLAT_MAP + [SM90_MASK], True),
+    ("wgmma body (B1, B3): KV mask dropped (zero-filled columns counted)", [SM90_MASK], True),
+    ("wgmma body (B1, B3): 2-D tensor maps and the KV mask dropped", FLAT_MAP + [SM90_MASK],
+     True),
+    # B3 on the wgmma body. (a) D = 40 takes three k-steps of Q.K^T, the
+    # third over columns 32-47: two leave columns 32-39 out of every score
+    ("B3 (wgmma) at D=40: the last Q.K^T k-step dropped (2 k-steps, not 3)",
+     [(SM90, "constexpr int kKSteps = (kD + 15) / 16;",
+       "constexpr int kKSteps = kD == 40 ? 2 : (kD + 15) / 16;")], True),
+    # (b) the maps' inner extent padded to whole atoms (64 at D = 40, 128 at
+    # 80, 192 at 160) over rows of D columns: the pad columns of Q and K read
+    # the next row's first values instead of zeros, and enter the scores
+    ("B3 (wgmma): tensor maps with the padded inner extent (pad columns read the next row)",
+     [(SM90, "const cuuint64_t dims[3] = {static_cast<cuuint64_t>(feat), ",
+       "const cuuint64_t dims[3] = {static_cast<cuuint64_t>((feat + 63) / 64 * 64), ")], True),
+    ("B3 (wgmma): lse stored in the log2 domain (m + log(l), no ln 2)",
+     [(SM90, "m_run[r] * kLn2 + logf(l_run[r])", "m_run[r] + logf(l_run[r])")], True),
+    # (d) D = 160's rows span three atoms; Q.K^T stops after the second
+    ("B3 (wgmma) at D=160: Q.K^T skips the third atom (columns 128-159)",
+     [(SM90, "for (int kk = 0; kk < kKSteps; ++kk) {",
+       "for (int kk = 0; kk < (kD == 160 ? 8 : kKSteps); ++kk) {")], True),
 ]
 
 _RUN = """
@@ -130,39 +149,52 @@ chip_smoke.time_ms = lambda *args, **kwargs: 0.0
 try:
     chip_smoke.kernel_phases(torch, F)
     chip_smoke.sweep_phase(torch, F)
-except AssertionError as e:
-    print("CAUGHT:", e)
+except Exception as e:
+    print("CAUGHT:", type(e).__name__, e)
 else:
     print("NOT CAUGHT")
 """
 
 
+def plant(n: int) -> Path:
+    """A copy of the package and chip_smoke.py under build/mutants/<n>/ with
+    mutant n's fault planted in its CUDA sources."""
+    what, edits, _ = MUTANTS[n]
+    root = REPO / "build" / "mutants" / str(n)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(REPO / "pea_diffusion_tpu_torch", root / "pea_diffusion_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(REPO / "chip_smoke.py", root)
+    for name, old, new, *count in edits:
+        src = root / "pea_diffusion_tpu_torch" / "csrc" / name
+        text = src.read_text()
+        times = count[0] if count else 1
+        if text.count(old) != times:
+            raise RuntimeError(f"mutant {what!r}: its target is not in {name} {times}x")
+        src.write_text(text.replace(old, new))
+    return root
+
+
+def run(n: int) -> str:
+    """Mutant n's comparison run in a process of its own: its output."""
+    proc = subprocess.run([sys.executable, "-c", _RUN], cwd=plant(n), capture_output=True,
+                          text=True)
+    return proc.stdout + proc.stderr
+
+
 def main(argv=None) -> int:
     chosen = {int(a) for a in (sys.argv[1:] if argv is None else argv)}
+    numbers = [n for n in range(len(MUTANTS)) if not chosen or n in chosen]
     missed = []
-    for n, (what, edits, must) in enumerate(MUTANTS):
-        if chosen and n not in chosen:
-            continue
-        root = REPO / "build" / "mutants" / str(n)
-        shutil.rmtree(root, ignore_errors=True)
-        shutil.copytree(REPO / "pea_diffusion_tpu_torch", root / "pea_diffusion_tpu_torch",
-                        ignore=shutil.ignore_patterns("__pycache__"))
-        shutil.copy(REPO / "chip_smoke.py", root)
-        for name, old, new, *count in edits:
-            src = root / "pea_diffusion_tpu_torch" / "csrc" / name
-            text = src.read_text()
-            times = count[0] if count else 1
-            if text.count(old) != times:
-                raise RuntimeError(f"mutant {what!r}: its target is not in {name} {times}x")
-            src.write_text(text.replace(old, new))
-        proc = subprocess.run([sys.executable, "-c", _RUN], cwd=root,
-                              capture_output=True, text=True)
-        print(f"--- mutant {n}: {what} (must be caught: {must})")
-        for line in (proc.stdout + proc.stderr).splitlines():
-            if line.startswith(("[kernel]", "CAUGHT", "NOT CAUGHT")) or "Error" in line:
-                print(line)
-        if must and "CAUGHT:" not in proc.stdout:
-            missed.append(what)
+    with ThreadPoolExecutor(JOBS) as pool:
+        for n, out in zip(numbers, pool.map(run, numbers)):
+            what, _, must = MUTANTS[n]
+            print(f"--- mutant {n}: {what} (must be caught: {must})")
+            for line in out.splitlines():
+                if line.startswith(("[kernel]", "CAUGHT", "NOT CAUGHT")) or "Error" in line:
+                    print(line)
+            if must and "CAUGHT:" not in out:
+                missed.append(what)
     print(f"mutants that must be caught and were not: {missed}")
     return 1 if missed else 0
 

@@ -10,7 +10,7 @@ CUDA bodies (entry point ``pea_onepass_attention_fwd_variant`` of
 ``csrc/attention_fwd.cu``) at other tile shapes: the mma.sync body of
 ``attention_fwd.cu`` (query block 64 or 128 rows, 4 or 8 warps; KV tile 64
 or 128 rows; 2 or 3 ``cp.async`` stages) and the wgmma body of
-``attention_fwd_sm90.cu`` (1 or 2 warpgroups of 64 query rows; 2 or 3 TMA
+``attention_fwd_sm90_body.cuh`` (1 or 2 warpgroups of 64 query rows; 2 or 3 TMA
 stages of 128 K/V rows; the staged form filled by ``cp.async``).
 ``shipped_variant(seq)`` is the instantiation B1 ships at that sequence
 length; ``q64_kv64_s2`` is the mma.sync body's shipped shape, which B1 ran

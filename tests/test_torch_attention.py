@@ -391,8 +391,9 @@ def test_smoke_route_walk_of_sd15_at_1024():
 def test_smoke_names_each_kernel_in_its_build_lines():
     """chip_smoke.py's [build] lines: one per compiled kernel, its name
     (namespaces below pea kept), element type and integer template
-    arguments, with ptxas's registers and spills; a wgmma serialisation
-    warning as it stands."""
+    arguments (the wgmma body's head dim, warpgroups, K/V tile rows, stages
+    and fill mode), with ptxas's registers and spills; a wgmma
+    serialisation warning as it stands."""
     import chip_smoke
 
     log = "\n".join([
@@ -410,10 +411,10 @@ def test_smoke_names_each_kernel_in_its_build_lines():
         " for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 54 registers, 384 bytes cmem[0]",
-        "ptxas info    : Compiling entry function '_ZN3pea4sm9020onepass_wgmma_kernelI6__half"
-        "Li2ELi3ELi1EEEvNS0_6ParamsE14CUtensorMap_stS3_S3_' for 'sm_90a'",
-        "ptxas info    : Function properties for _ZN3pea4sm9020onepass_wgmma_kernelI6__half"
-        "Li2ELi3ELi1EEEvNS0_6ParamsE14CUtensorMap_stS3_S3_",
+        "ptxas info    : Compiling entry function '_ZN3pea4sm9022wgmma_attention_kernelI6__half"
+        "Li160ELi2ELi64ELi2ELi1EEEvNS0_6ParamsE14CUtensorMap_stS3_S3_' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN3pea4sm9022wgmma_attention_kernelI6__half"
+        "Li160ELi2ELi64ELi2ELi1EEEvNS0_6ParamsE14CUtensorMap_stS3_S3_",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions "
         "are serialized due to insufficient register resources for the wgmma pipeline",
@@ -428,7 +429,7 @@ def test_smoke_names_each_kernel_in_its_build_lines():
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions "
         "are serialized due to insufficient register resources for the wgmma pipeline",
-        "sm90::onepass_wgmma_kernel<fp16,2,3,1>: 128 registers; "
+        "sm90::wgmma_attention_kernel<fp16,160,2,64,2,1>: 128 registers; "
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
     ]
 
@@ -439,14 +440,14 @@ def _mutants():
     return kernel_mutants.MUTANTS
 
 
-@pytest.mark.parametrize("n", range(16))
+@pytest.mark.parametrize("n", range(20))
 def test_each_kernel_mutant_names_text_of_the_sources(n):
     """tools/kernel_mutants.py plants each fault by replacing text of the
     CUDA sources: every replaced text occurs in its source as often as the
     mutant says, so that no mutant silently stops planting its fault."""
     from pea_diffusion_tpu_torch.tools import kernel_mutants
 
-    assert len(_mutants()) == 16
+    assert len(_mutants()) == 20
     what, edits, _ = _mutants()[n]
     csrc = kernel_mutants.REPO / "pea_diffusion_tpu_torch" / "csrc"
     for name, old, new, *count in edits:

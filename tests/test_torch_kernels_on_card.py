@@ -1,5 +1,6 @@
 """The port's attention kernels (B1 one-pass, at head dim 64 the wgmma + TMA
-body; B3 flash forward, B4/B5 flash backward) against their plain versions
+body; B3 flash forward, on the wgmma + TMA body, in every variant; B4/B5
+flash backward) against their plain versions
 on a CUDA card, in the working types bf16/fp16, at SDXL's head dim 64,
 SD1.5's 40, 80 and 160, and 128, and B1's tile variants (S1, both bodies)
 against the plain version and shipped B1. Forward: the
@@ -69,7 +70,7 @@ def test_onepass_kernel_matches_plain_on_card(b, sq, skv, h, d, dtype):
     (3, 200, 100, 4),      # a single KV tile (Skv <= 128), ragged Q
 ])
 def test_onepass_wgmma_kernel_matches_plain_on_card(b, sq, skv, h, dtype):
-    """B1 at head dim 64, the wgmma + TMA body (attention_fwd_sm90.cu), at
+    """B1 at head dim 64, the wgmma + TMA body (attention_fwd_sm90_body.cuh), at
     the paths' shapes and the ragged cases its 3-D tensor maps must read as
     zeros, in both working types."""
     dev = _card()
@@ -117,6 +118,69 @@ def test_flash_kernel_matches_plain_on_card(bh, sq, skv, d, dtype):
     assert torch.equal(out, plain)
     assert _rel_err(out, ref) < RTOL
     assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
+# B3's cases for every variant: ragged Sq and Skv, Sq > Skv and Sq < Skv,
+# one partial K/V tile (Skv 52 and 77), a single K/V tile of 100 rows
+FLASH_CASES = [(4, 1000, 1000), (2, 1600, 1000), (2, 1000, 1600), (4, 300, 52), (4, 300, 77),
+               (3, 200, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,sq,skv", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", flash_attention.HEAD_DIMS)
+def test_flash_variants_match_plain_on_card(d, dtype, bh, sq, skv):
+    """B3 in every variant built at the head dim (the wgmma + TMA body's
+    warpgroups and K/V tiles, and the mma.sync body), with and without
+    lse: below 8e-3 of max |plain|, the lse within 1e-3 of the plain one,
+    the same output with and without lse, one launch each; shipped B3
+    gives the bits of the variant its rule picks."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(d + sq + skv)
+    q, k, v = (torch.randn(bh, s, d, device=dev, generator=g).to(dtype)
+               for s in (sq, skv, skv))
+    ref, ref_lse = flash_attention.flash_forward_ref(
+        q.float(), k.float(), v.float(), with_lse=True)
+    shipped = flash_attention.shipped_flash_variant(skv, d)
+    for name, dims in flash_attention.FLASH_VARIANTS.items():
+        if d not in dims:
+            continue
+        n = flash_attention.flash_forward_variant.launches[name]
+        out, lse = flash_attention.flash_forward_variant(q, k, v, name, with_lse=True)
+        plain = flash_attention.flash_forward_variant(q, k, v, name)
+        torch.cuda.synchronize()
+        assert flash_attention.flash_forward_variant.launches[name] == n + 2
+        assert out.dtype == dtype and out.shape == q.shape and lse.shape == (bh, sq)
+        assert torch.equal(out, plain), name
+        assert _rel_err(out, ref) < RTOL, name
+        assert (lse - ref_lse).abs().max().item() < 1e-3, name
+        if name == shipped:
+            got, got_lse = flash_attention.flash_forward(q, k, v, with_lse=True)
+            assert torch.equal(got, out) and torch.equal(got_lse, lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,skv,d", [
+    (4096, 4096, 40), (16384, 16384, 40), (4096, 52, 40), (4096, 77, 40),  # SD1.5 level 0
+    (1024, 1024, 80), (4096, 4096, 80), (1024, 52, 80), (4096, 77, 80),    # level 1
+    (1024, 1024, 160), (1024, 52, 160), (1024, 77, 160),                  # level 2 at 1024²
+    (1600, 1600, 64), (1600, 52, 64), (4096, 52, 64), (1024, 52, 64),     # SDXL
+])
+def test_flash_ships_its_variant_at_the_paths_shapes_on_card(sq, skv, d):
+    """At each (Sq, Skv, D) the paths run, shipped B3 gives the bits of the
+    variant its rule names, with and without lse, and every self-attention
+    shape runs the wgmma body."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(4, s, d, device=dev, generator=g).bfloat16() for s in (sq, skv, skv))
+    shipped = flash_attention.shipped_flash_variant(skv, d)
+    assert sq != skv or shipped != "mma_sync"
+    for with_lse in (False, True):
+        got = flash_attention.flash_forward(q, k, v, with_lse=with_lse)
+        want = flash_attention.flash_forward_variant(q, k, v, shipped, with_lse=with_lse)
+        for a, b in zip(got if with_lse else [got], want if with_lse else [want]):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
