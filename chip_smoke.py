@@ -37,7 +37,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    twelve tile variants (eight of the mma.sync body, four of the wgmma
    body) at its b16 and b2 shapes from launch counts of 0; each variant
    must stay below 8e-3 of max |plain| and the shipped variant must give
-   shipped B1's bits;
+   shipped B1's bits. Each B4/B5 row likewise runs every variant of B4 and
+   of B5 built at its head dim (flash_backward_variant: the mma.sync body,
+   the wgmma + TMA body of attention_bwd_sm90_body.cuh with 1 or 2
+   warpgroups and streamed tiles of 32, 64 or 128 rows): each below 2e-2
+   of max |plain| per gradient, two launches with the same bits, the
+   shipped one with the shipped kernel's bits, every self-attention row at
+   Sq = Skv >= 1024 on the wgmma body, and each variant's time;
 4. references: the tiny fp32 SDXL and SD1.5 stacks on the card against the
    same weights on the CPU (the paths the CPU tests hold against the JAX
    package), and, with each full-width stack, its UNet's attention modules
@@ -118,6 +124,7 @@ from pathlib import Path
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (SXM data sheet)
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (SXM data sheet)
 H100_BYTES_PER_S = 3.35e12  # HBM3 (SXM data sheet)
+H100_EXP2_PER_S = 132 * 16 * 1.98e9  # MUFU: 16 a cycle an SM, 132 SMs, 1.98 GHz boost
 KERNEL_RTOL = 8e-3          # max|out - ref| / max|ref|: 2x bf16's 2^-8 rounding
 LSE_ATOL = 1e-3             # B3's fp32 lse against the plain one (fp32 sums)
 BWD_RTOL = 2e-2             # the same per gradient: P and dS rounded to bf16 too
@@ -259,9 +266,11 @@ KERNELS = {
                replaces="pea_diffusion_tpu/ops/onepass_attention.py:50"),
     "B3": dict(name="B3 flash_attention", route="cuda", source=SRC + "attention_fwd_sm90_body.cuh",
                replaces="pea_diffusion_tpu/ops/flash_attention.py:31"),
-    "B4": dict(name="B4 flash_backward_dkdv", route="cuda", source=SRC + "attention_bwd.cu",
+    "B4": dict(name="B4 flash_backward_dkdv", route="cuda",
+               source=SRC + "attention_bwd_sm90_body.cuh",
                replaces="pea_diffusion_tpu/ops/flash_attention.py:156"),
-    "B5": dict(name="B5 flash_backward_dq", route="cuda", source=SRC + "attention_bwd.cu",
+    "B5": dict(name="B5 flash_backward_dq", route="cuda",
+               source=SRC + "attention_bwd_sm90_body.cuh",
                replaces="pea_diffusion_tpu/ops/flash_attention.py:203"),
     "B6": dict(name="B6 group_norm", route="cuda", source=SRC + "groupnorm.cu",
                replaces="pea_diffusion_tpu/ops/groupnorm.py:126"),
@@ -480,7 +489,8 @@ def backward_cases():
 
 
 def run_backward_cases(torch, F, randn, flush):
-    """B4 and B5 against flash_backward_ref, head-major [BH, S, D] bf16."""
+    """B4 and B5 against flash_backward_ref, head-major [BH, S, D] bf16, each
+    with every variant built at the row's head dim (check_bwd_variants)."""
     from pea_diffusion_tpu_torch.ops import flash_attention as fa
 
     entries = []
@@ -502,7 +512,14 @@ def run_backward_cases(torch, F, randn, flush):
         torch.cuda.synchronize()
         err4, rel4 = _check("B4", what, [dk, dv], [ref_dk, ref_dv], BWD_RTOL)
         err5, rel5 = _check("B5", what, [dq], [ref_dq], BWD_RTOL)
+        args = (q, k, v, do, lse, delta, scale)
+        variants4 = check_bwd_variants(torch, fa, "dkdv", what, args, (dk, dv), (ref_dk, ref_dv))
+        variants5 = check_bwd_variants(torch, fa, "dq", what, args, (dq,), (ref_dq,))
         del ref_dq, ref_dk, ref_dv, dq, dk, dv
+        for which, variants in (("dkdv", variants4), ("dq", variants5)):
+            for name in variants:
+                variants[name]["ms"] = time_ms(torch, lambda: fa.flash_backward_variant(
+                    *args, name, which), 10, flush)
         ms4, ms5 = time_ms(torch, run4, 10, flush), time_ms(torch, run5, 10, flush)
         plain_ms = time_ms(torch, plain, 2, flush)
         qs, ks, vs = (t.unsqueeze(0).detach().requires_grad_(True) for t in (q, k, v))
@@ -513,23 +530,61 @@ def run_backward_cases(torch, F, randn, flush):
         del sdpa
         rows = 2 * bh * sq * 4  # lse and delta, fp32
         ops = bh * sq * skv * d
+        exp_ms = bh * sq * skv / H100_EXP2_PER_S * 1e3  # one exp2 a score, both kernels
         entries.append(_entry("B4", bh, sq, skv, 1, d, what, err4, rel4, BWD_RTOL, ms4,
                               plain_ms, 8 * ops, 2 * bh * (2 * sq + 4 * skv) * d + rows,
-                              library_ms, stands_for))
+                              library_ms, stands_for, variants=variants4, exp_ms=exp_ms))
         entries.append(_entry("B5", bh, sq, skv, 1, d, what, err5, rel5, BWD_RTOL, ms5,
                               plain_ms, 6 * ops, 2 * bh * (3 * sq + 2 * skv) * d + rows,
-                              library_ms, stands_for))
+                              library_ms, stands_for, variants=variants5, exp_ms=exp_ms))
     return entries
 
 
+def check_bwd_variants(torch, fa, which, what, args, outs, refs):
+    """Every variant of B4 (`which` "dkdv") or B5 ("dq") built at the head
+    dim against the plain version (each output below BWD_RTOL of its max
+    |plain|), launched twice with the same bits; the variant the library
+    ships at the shape must give the entry point's bits (`outs`), and a
+    self-attention row at Sq = Skv >= 1024 must ship a wgmma variant.
+    Returns {variant: {"max_rel_err", "shipped"}}."""
+    kern = "B4" if which == "dkdv" else "B5"
+    q, k = args[0], args[1]
+    _, sq, d = q.shape
+    skv = k.shape[1]
+    shipped = fa.shipped_bwd_variant(which, sq, skv, d)
+    if sq == skv >= 1024 and shipped == "mma_sync":
+        raise AssertionError(f"{kern} {what}: self-attention ships the mma.sync body")
+    found = {}
+    for name, dims in fa.BWD_VARIANTS[which].items():
+        if d not in dims:
+            continue
+        got = fa.flash_backward_variant(*args, name, which)
+        again = fa.flash_backward_variant(*args, name, which)
+        got, again = ((got,), (again,)) if which == "dq" else (got, again)
+        torch.cuda.synchronize()
+        rel = max(errors(a, b)[1] for a, b in zip(got, refs))
+        if not rel < BWD_RTOL:
+            raise AssertionError(f"{kern} variant {name} {what}: {rel} of max |plain| (limit "
+                                 f"{BWD_RTOL})")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{kern} variant {name} {what}: two launches differ")
+        if name == shipped and not all(torch.equal(a, b) for a, b in zip(got, outs)):
+            raise AssertionError(f"{kern} {what}: the shipped variant {name} differs from {kern}")
+        found[name] = {"max_rel_err": rel, "shipped": name == shipped}
+        del got, again
+    return found
+
+
 def _entry(kern, b, sq, skv, h, d, what, err, rel, rtol, ms, plain_ms, flops, nbytes,
-           library_ms, stands_for, lse=False, variants=None):
+           library_ms, stands_for, lse=False, variants=None, exp_ms=None):
     """One row of the kernels line. `stands_for` maps each path that runs
     this shape to its attention call key (route, sq, skv); the row's launches
     on a path are the launches of that path's calls at the key (for B3, those
     with lse on a row with lse, the others on a row without). A B3 row names
     the variant it ships (`body`) and every variant's time and error
-    (`variants`); its source is the shipped variant's body."""
+    (`variants`); its source is the shipped variant's body. B4 and B5 rows
+    carry `exp_ms`, the least time the card's exp2 units take for the
+    scores' exponentials, beside the bound."""
     bound_ms, bound_by = bound(flops, nbytes)
     shape = f"batch={b} sq={sq} skv={skv} heads={h} head_dim={d} bf16"
     e = dict(KERNELS[kern], shape=shape + (", with lse" if lse else ""),
@@ -538,14 +593,17 @@ def _entry(kern, b, sq, skv, h, d, what, err, rel, rtol, ms, plain_ms, flops, nb
              kernel=kern, lse=lse, stands_for=stands_for, launches_by_path={})
     if kern == "B1" and d != 64:  # B1 at D = 128 runs the mma.sync body
         e["source"] = SRC + "attention_fwd.cu"
+    if exp_ms is not None:
+        e["exp_ms"] = exp_ms
     if variants:
         e["body"] = next(name for name, v in variants.items() if v["shipped"])
         e["variants"] = variants
         if e["body"] == "mma_sync":
-            e["source"] = SRC + "attention_fwd.cu"
+            e["source"] = SRC + ("attention_fwd.cu" if kern == "B3" else "attention_bwd.cu")
     log(f"[kernel] {e['name']} {what} ({e['shape']}): err {err:.3g} (rel {rel:.3g}) "
         f"ms {ms:.4f} plain {plain_ms:.4f} library {library_ms:.4f} "
         f"bound {bound_ms:.4f} ({bound_by})"
+        + (f", exp2 floor {exp_ms:.4f}" if exp_ms is not None else "")
         + (f"; ships {e['body']}; variants ms " + ", ".join(
             f"{name} {v['ms']:.4f}" for name, v in variants.items()) if variants else ""))
     return e
@@ -1059,7 +1117,7 @@ def profile_run(torch, fn, unprofiled_s, table_path, tag):
     idle = max(0.0, 1 - busy / (unprofiled_s * 1e3))
     fwd = sum(v for k, v in per_kernel.items()
               if "attention_fwd_kernel" in k or "wgmma_attention_kernel" in k)
-    bwd = sum(v for k, v in per_kernel.items() if "attention_bwd_" in k)
+    bwd = sum(v for k, v in per_kernel.items() if "attention_bwd_" in k or "flash_bwd_" in k)
     log(f"[{tag}] device busy {busy:.1f} ms of {wall_ms:.1f} ms wall under the "
         f"profiler; of the unprofiled run ({unprofiled_s * 1e3:.1f} ms) the device "
         f"is idle {idle:.3f}; B1+B3 kernels {fwd:.1f} ms, B4+B5 kernels {bwd:.1f} ms")

@@ -6,6 +6,11 @@
 // - pea_flash_attention_bwd_dq (B5) writes dQ. It replaces
 //   pea_diffusion_tpu/ops/flash_attention.py::_bwd_dq_kernel.
 //
+// Each runs the variant its rule picks (shipped_bwd_variant, below): the
+// wgmma + TMA body (attention_bwd_sm90_body.cuh) or this file's mma.sync
+// body, kept as the variant `mma_sync` of each (the ..._variant entry points
+// run any variant). This header describes the mma.sync body.
+//
 // Both take head-major [BH, S, D] Q, K, V, dO in bf16 or fp16, the forward's
 // fp32 lse [BH, Sq] and delta = rowsum(dO * O) [BH, Sq] in fp32 (computed by
 // the caller, as the JAX package computes it outside its kernels), and
@@ -62,24 +67,10 @@
 // -1e30, so P = 0 there; they are not stored. Q rows at or past sq read
 // zero Q and dO, lse 0 and delta 0, so they add exactly 0 to dK and dV; they
 // are not stored.
+#include "attention_bwd_sm90.cuh"
 #include "attention_common.cuh"
 
 namespace pea {
-
-struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;    // [bh, sq]
-  const float* delta;  // [bh, sq]
-  void* dq;
-  void* dk;
-  void* dv;
-  int sq;
-  int skv;
-  float scale;
-};
 
 template <int D>
 constexpr int dq_smem_bytes() {  // [stage][K | V][row][k_ld<D>]
@@ -760,6 +751,97 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v, const v
   return p;
 }
 
+int flash_bwd_wgmma(const BwdParams& p, bool dkdv, int bh, int head_dim, int dtype,
+                    int warpgroups, int rows, int device, cudaStream_t stream) {
+  return on_device(device, [&]() -> cudaError_t {
+    int err = static_cast<int>(cudaErrorInvalidValue);
+    const auto run = [&](auto launch_dim) {
+      err = launch_dim(p, dkdv, bh, dtype, warpgroups, rows, device, stream);
+    };
+    if (head_dim == 40) run(sm90::bwd_launch_dim<40>);
+    if (head_dim == 64) run(sm90::bwd_launch_dim<64>);
+    if (head_dim == 80) run(sm90::bwd_launch_dim<80>);
+    if (head_dim == 128) run(sm90::bwd_launch_dim<128>);
+    if (head_dim == 160) run(sm90::bwd_launch_dim<160>);
+    return static_cast<cudaError_t>(err);
+  });
+}
+
+// The variants of B4 and B5: the mma.sync body of this file (their earlier
+// body, kept as the yardstick), and the wgmma + TMA body
+// (attention_bwd_sm90_body.cuh) with 1 or 2 warpgroups of 64 rows (B4: K/V
+// rows, B5: Q rows) and streamed tiles of `rows` rows (B4: Q and dO, B5: K
+// and V), at the head dims each is built for (each head dim's
+// bwd_launch_dim; any other returns cudaErrorInvalidValue). All give the
+// same function; each kernel ships the one its rule picks, with the bits of
+// that variant.
+struct BwdVariant {
+  const char* name;
+  int warpgroups;  // 0: the mma.sync body
+  int rows;
+};
+constexpr BwdVariant kDkdvVariants[] = {
+    {"mma_sync", 0, kBlockM}, {"wg1_q64", 1, 64}, {"wg2_q64", 2, 64}, {"wg2_q32", 2, 32},
+};
+constexpr BwdVariant kDqVariants[] = {
+    {"mma_sync", 0, kBlockN}, {"wg1_kv64", 1, 64}, {"wg2_kv64", 2, 64}, {"wg2_kv128", 2, 128},
+};
+constexpr int kNumDkdvVariants = sizeof(kDkdvVariants) / sizeof(kDkdvVariants[0]);
+constexpr int kNumDqVariants = sizeof(kDqVariants) / sizeof(kDqVariants[0]);
+
+// which: 0 = B4 (dkdv), 1 = B5 (dq).
+constexpr int bwd_variant_count(int which) {
+  return which == 0 ? kNumDkdvVariants : which == 1 ? kNumDqVariants : 0;
+}
+constexpr const BwdVariant* bwd_variants(int which) {
+  return which == 0 ? kDkdvVariants : kDqVariants;
+}
+
+// The index of the variant of `which`'s table with this shape.
+constexpr int bwd_variant(int which, int warpgroups, int rows) {
+  for (int i = 0; i < bwd_variant_count(which); ++i) {
+    if (bwd_variants(which)[i].warpgroups == warpgroups && bwd_variants(which)[i].rows == rows) {
+      return i;
+    }
+  }
+  return -1;
+}
+
+// B4 and B5 as they ship, from the smoke's times of every variant at the
+// paths' shapes (PERF.md, B4 and B5): blocks of two warpgroups for
+// self-attention (one-warpgroup blocks were up to 1.7x slower at D = 40,
+// within 8 % either way from D = 64 on). B4 streams Q tiles of 64 rows at
+// every head dim (32-row ones were as fast at D = 40 and 64 and 17-33 %
+// slower from D = 80 on; at D = 160 the 64-row instantiation takes 252
+// registers without spill), and up to kBwdShortKv K/V rows
+// (cross-attention: one K/V tile a head, BH blocks) one warpgroup, 1.2-1.4x
+// faster than two, whose second 64 rows would be empty. B5 streams K/V
+// tiles of 64 rows (128-row ones 3-21 % slower), but up to kBwdShortKv K/V
+// rows at D <= 80 the mma.sync body, as fast or up to 15 % faster there
+// (at D = 160 the wgmma body is 25 % faster).
+constexpr int kBwdShortKv = 64;
+
+inline int shipped_bwd_variant(int which, int sq, int skv, int head_dim) {
+  (void)sq;
+  const bool short_kv = skv <= kBwdShortKv;
+  if (which == 0) return bwd_variant(0, short_kv ? 1 : 2, 64);
+  return short_kv && head_dim <= 80 ? bwd_variant(1, 0, kBlockN) : bwd_variant(1, 2, 64);
+}
+
+// B4 (which 0) or B5 (1) in variant `variant` of its table.
+inline int flash_bwd_variant(const BwdParams& p, int which, int bh, int head_dim, int dtype,
+                             int variant, int device, cudaStream_t stream) {
+  if (variant < 0 || variant >= bwd_variant_count(which)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const BwdVariant& var = bwd_variants(which)[variant];
+  if (var.warpgroups > 0) {
+    return flash_bwd_wgmma(p, which == 0, bh, head_dim, dtype, var.warpgroups, var.rows, device,
+                           stream);
+  }
+  return launch_attention_bwd(p, which == 0, bh, head_dim, dtype, device, stream);
+}
+
 }  // namespace pea
 
 // B4: dK and dV on head-major [BH, S, D].
@@ -767,13 +849,13 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v, const v
 // Bound on the H100: 8*BH*Sq*Skv*D operations (four products of the S^T
 // tile's size) on 2*BH*(2*Sq + 4*Skv)*D bytes plus 8*BH*Sq of lse and
 // delta. At the self-attention shapes (SDXL: S = 1600, D = 64; SD1.5: S =
-// 4096 at D = 40, 1024 at D = 80) it is bound by tensor-core operations; at
-// the cross-attention shapes (Skv = 52) by device memory, and there one
-// block per (bh, KV tile) walks all of Sq alone: with one KV tile per head,
-// BH blocks serialise Sq / 64 Q tiles each. At D = 160 (SD1.5 training at
-// 1024^2, BH 64, Sq = 1024) the self-attention is 8 * 64 * 1024^2 * 160 =
-// 85.9 GFLOP, at least 86.8 us at 989 TFLOP/s; the split kernel does 10/8
-// of those products, and holds one block of 130,048 bytes per SM.
+// 4096 at D = 40, 1024 at D = 80, and at 1024^2 16384, 4096 and 1024 at
+// D = 40, 80, 160) it is bound by tensor-core operations, and at D = 40
+// nearly as much by the exponentials (attention_bwd_sm90_body.cuh); at the
+// cross-attention shapes (Skv = 52) by device memory, and there one block
+// per (bh, K/V tile) walks all of Sq alone: with one K/V tile per head, BH
+// blocks serialise Sq / 64 Q tiles each. It runs the variant
+// shipped_bwd_variant picks.
 extern "C" int pea_flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
                                             const void* dout, const float* lse,
                                             const float* delta, void* dk, void* dv, int bh,
@@ -782,8 +864,9 @@ extern "C" int pea_flash_attention_bwd_dkdv(const void* q, const void* k, const 
   pea::BwdParams p = pea::bwd_params(q, k, v, dout, lse, delta, sq, skv, scale);
   p.dk = dk;
   p.dv = dv;
-  return pea::launch_attention_bwd(p, true, bh, head_dim, dtype, device,
-                                   static_cast<cudaStream_t>(stream));
+  return pea::flash_bwd_variant(p, 0, bh, head_dim, dtype,
+                                pea::shipped_bwd_variant(0, sq, skv, head_dim), device,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // B5: dQ on head-major [BH, S, D].
@@ -791,10 +874,8 @@ extern "C" int pea_flash_attention_bwd_dkdv(const void* q, const void* k, const 
 // Bound on the H100: 6*BH*Sq*Skv*D operations (three products) on
 // 2*BH*(3*Sq + 2*Skv)*D bytes plus 8*BH*Sq of lse and delta: bound by
 // operations at the self-attention shapes, by device memory at Skv = 52,
-// where each block reads its Q and dO rows once and K/V (one tile) hit in L2.
-// At D = 160 (BH 64, Sq = Skv = 1024) that is 64.4 GFLOP, at least 65.1 us
-// at 989 TFLOP/s; the wide kernel reads each Q and dO fragment from shared
-// memory once per KV tile instead of holding it in registers.
+// where each block reads its Q and dO rows once and K/V (one tile) hit in
+// L2. It runs the variant shipped_bwd_variant picks.
 extern "C" int pea_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                           const void* dout, const float* lse,
                                           const float* delta, void* dq, int bh, int sq,
@@ -802,6 +883,54 @@ extern "C" int pea_flash_attention_bwd_dq(const void* q, const void* k, const vo
                                           int device, void* stream) {
   pea::BwdParams p = pea::bwd_params(q, k, v, dout, lse, delta, sq, skv, scale);
   p.dq = dq;
-  return pea::launch_attention_bwd(p, false, bh, head_dim, dtype, device,
-                                   static_cast<cudaStream_t>(stream));
+  return pea::flash_bwd_variant(p, 1, bh, head_dim, dtype,
+                                pea::shipped_bwd_variant(1, sq, skv, head_dim), device,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// B4 in the variant `variant` (0 .. pea_flash_bwd_variant_count(0) - 1):
+// cudaErrorInvalidValue where that variant is not built for the head dim or
+// type, kTensorMapError + CUresult where a wgmma variant's tensor map cannot
+// be encoded. Bound as B4.
+extern "C" int pea_flash_attention_bwd_dkdv_variant(const void* q, const void* k, const void* v,
+                                                    const void* dout, const float* lse,
+                                                    const float* delta, void* dk, void* dv,
+                                                    int bh, int sq, int skv, int head_dim,
+                                                    float scale, int dtype, int variant,
+                                                    int device, void* stream) {
+  pea::BwdParams p = pea::bwd_params(q, k, v, dout, lse, delta, sq, skv, scale);
+  p.dk = dk;
+  p.dv = dv;
+  return pea::flash_bwd_variant(p, 0, bh, head_dim, dtype, variant, device,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// B5 in the variant `variant` (0 .. pea_flash_bwd_variant_count(1) - 1), as
+// B4's. Bound as B5.
+extern "C" int pea_flash_attention_bwd_dq_variant(const void* q, const void* k, const void* v,
+                                                  const void* dout, const float* lse,
+                                                  const float* delta, void* dq, int bh, int sq,
+                                                  int skv, int head_dim, float scale, int dtype,
+                                                  int variant, int device, void* stream) {
+  pea::BwdParams p = pea::bwd_params(q, k, v, dout, lse, delta, sq, skv, scale);
+  p.dq = dq;
+  return pea::flash_bwd_variant(p, 1, bh, head_dim, dtype, variant, device,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// which: 0 = B4, 1 = B5 (0 variants for any other).
+extern "C" int pea_flash_bwd_variant_count(int which) { return pea::bwd_variant_count(which); }
+
+// The name of variant `variant` of B4 (which 0) or B5 (1), or nullptr past
+// the end.
+extern "C" const char* pea_flash_bwd_variant_name(int which, int variant) {
+  return variant >= 0 && variant < pea::bwd_variant_count(which)
+             ? pea::bwd_variants(which)[variant].name
+             : nullptr;
+}
+
+// The variant B4 (which 0) or B5 (1) ships for sq query and skv KV rows at
+// head dim head_dim (its index).
+extern "C" int pea_flash_bwd_shipped_variant(int which, int sq, int skv, int head_dim) {
+  return pea::shipped_bwd_variant(which, sq, skv, head_dim);
 }

@@ -202,8 +202,14 @@ def flash_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dV = P^T dO with P cast to dO's type; dP = dO V^T; dS = P * (dP - delta);
     dK = dS^T Q * scale and dQ = dS K * scale with dS cast to the operand
     type. Returns (dq, dk, dv) in the inputs' types."""
+    delta = (g.float() * out.float()).sum(dim=-1)
+    return _backward_from_delta(q, k, v, g, lse, delta, scale)
+
+
+def _backward_from_delta(q, k, v, g, lse, delta, scale: float) -> Grads:
+    """``flash_backward_ref`` from delta = rowsum(dO * O) [BH, Sq] (fp32)."""
     qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
-    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    delta = delta.float()[..., None]
     s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
     p = torch.exp(s - lse.float()[..., None])
     dv = torch.einsum("bqk,bqd->bkd", p.to(g.dtype).float(), gf)
@@ -232,9 +238,9 @@ def _backward_args(q, k, v, g, lse, delta):
         raise ValueError(f"flash backward kernel: dO {tuple(g.shape)} vs q {tuple(q.shape)}")
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.dtype != torch.float32 or t.shape != q.shape[:2] or t.device != q.device
-                or not t.is_contiguous()):
-            raise ValueError(f"flash backward kernel: {name} must be contiguous fp32 "
-                             f"{tuple(q.shape[:2])} on {q.device}")
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"flash backward kernel: {name} must be contiguous, 16-byte "
+                             f"aligned fp32 {tuple(q.shape[:2])} on {q.device}")
     return dtype
 
 
@@ -276,6 +282,100 @@ def flash_backward_dq(q, k, v, g, lse, delta, scale: float):
 
 
 flash_backward_dq.launches = 0
+
+# B4's and B5's variants, in the order of the C tables (attention_bwd.cu,
+# kDkdvVariants and kDqVariants), and the head dims each is built for: the
+# mma.sync body (their earlier body), and the wgmma + TMA body with 1 or 2
+# warpgroups of 64 rows (B4: K/V rows, B5: Q rows) and streamed tiles of
+# q<rows> Q and dO rows (B4) or kv<rows> K and V rows (B5) (each head dim's
+# bwd_launch_dim, flash_bwd_sm90_d<D>.cu).
+BWD_VARIANTS = {
+    "dkdv": {
+        "mma_sync": HEAD_DIMS,
+        "wg1_q64": HEAD_DIMS,
+        "wg2_q64": HEAD_DIMS,
+        "wg2_q32": HEAD_DIMS,
+    },
+    "dq": {
+        "mma_sync": HEAD_DIMS,
+        "wg1_kv64": HEAD_DIMS,
+        "wg2_kv64": HEAD_DIMS,
+        "wg2_kv128": (40, 64),
+    },
+}
+_WHICH = tuple(BWD_VARIANTS)  # the C side's `which`: 0 = B4 (dkdv), 1 = B5 (dq)
+
+
+@functools.cache
+def library_bwd_variants(which: str) -> tuple:
+    """The variant names of B4 ("dkdv") or B5 ("dq") the built library lists,
+    in its order (read once)."""
+    index = _WHICH.index(which)
+    count = kernel_build.function("pea_flash_bwd_variant_count", [ctypes.c_int])(index)
+    name = kernel_build.function("pea_flash_bwd_variant_name", [ctypes.c_int] * 2,
+                                 ctypes.c_char_p)
+    return tuple(name(index, i).decode() for i in range(count))
+
+
+def shipped_bwd_variant(which: str, sq: int, skv: int, head_dim: int) -> str:
+    """The variant ``flash_backward_dkdv`` ("dkdv") or ``flash_backward_dq``
+    ("dq") runs at (`sq`, `skv`, `head_dim`): the library's own rule
+    (``pea_flash_bwd_shipped_variant``), so it needs the built library."""
+    index = kernel_build.function("pea_flash_bwd_shipped_variant", [ctypes.c_int] * 4)(
+        _WHICH.index(which), sq, skv, head_dim)
+    return tuple(BWD_VARIANTS[which])[index]
+
+
+def flash_backward_variant(q, k, v, g, lse, delta, scale: float, variant: str, which: str):
+    """B4 (`which` "dkdv": returns (dk, dv)) or B5 ("dq": returns dq) in the
+    variant `variant` (a name of ``BWD_VARIANTS[which]``), with the inputs of
+    ``flash_backward_dkdv``. CUDA tensors launch it and count the launch in
+    ``flash_backward_variant.launches[which][variant]`` (not in the bare
+    wrappers' counts) and raise on anything those refuse; CPU tensors run
+    ``flash_backward_ref``'s arithmetic from `delta`. An unknown kernel or
+    variant, or a head dim the variant is not built for, raises on either."""
+    if which not in BWD_VARIANTS:
+        raise ValueError(f"flash backward kernel {which!r}: one of {', '.join(BWD_VARIANTS)}")
+    table = BWD_VARIANTS[which]
+    if variant not in table:
+        raise ValueError(f"flash backward {which} variant {variant!r}: one of "
+                         f"{', '.join(table)}")
+    d = q.shape[-1]
+    if d not in table[variant]:
+        raise ValueError(f"flash backward {which} variant {variant}: head_dim {d} (built for "
+                         f"{', '.join(map(str, table[variant]))})")
+    if not q.is_cuda:
+        dq, dk, dv = _backward_from_delta(q, k, v, g, lse, delta, scale)
+        return (dk, dv) if which == "dkdv" else dq
+    check_no_grad("flash_backward_variant", q, k, v, g)
+    dtype = _backward_args(q, k, v, g, lse, delta)
+    if library_bwd_variants(which) != tuple(table):
+        raise RuntimeError(f"the library's flash backward {which} variants "
+                           f"{library_bwd_variants(which)} are not {tuple(table)}")
+    bh, sq, d = q.shape
+    index = tuple(table).index(variant)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    tail = (bh, sq, k.shape[1], d, scale, dtype, index, q.device.index,
+            kernel_build.stream_of(q))
+    if which == "dkdv":
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        kernel_build.launch("pea_flash_attention_bwd_dkdv_variant", _DKDV_VARIANT_ARGTYPES,
+                            *args, dk.data_ptr(), dv.data_ptr(), *tail)
+        out = (dk, dv)
+    else:
+        out = torch.empty_like(q)
+        kernel_build.launch("pea_flash_attention_bwd_dq_variant", _DQ_VARIANT_ARGTYPES,
+                            *args, out.data_ptr(), *tail)
+    flash_backward_variant.launches[which][variant] += 1
+    return out
+
+
+flash_backward_variant.launches = {which: dict.fromkeys(table, 0)
+                                   for which, table in BWD_VARIANTS.items()}
+# the entry points' arguments with the variant's index before device, stream
+_DKDV_VARIANT_ARGTYPES = _DKDV_ARGTYPES[:-2] + [ctypes.c_int] + _DKDV_ARGTYPES[-2:]
+_DQ_VARIANT_ARGTYPES = _DQ_ARGTYPES[:-2] + [ctypes.c_int] + _DQ_ARGTYPES[-2:]
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

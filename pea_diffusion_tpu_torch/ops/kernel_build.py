@@ -74,14 +74,14 @@ def build() -> str:
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources(), objects)]
-    log = []
+    log, failed = [], []
     for src, proc in zip(sources(), procs):
         out, _ = proc.communicate()
         log.append(out)
         if proc.returncode != 0:
-            for other in procs:
-                other.wait()
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+            failed.append(f"nvcc failed on {src.name}:\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     tmp = BUILD_DIR / f"{tag}.so.tmp"
     link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -26,6 +26,8 @@ REPO = Path(__file__).resolve().parents[2]
 MASK = "if (ragged && n0 + j * 8 + t * 2 + (e & 1) >= p.skv) x = kNegInf;"
 FWD, BWD, COMMON = "attention_fwd.cu", "attention_bwd.cu", "attention_common.cuh"
 SM90 = "attention_fwd_sm90_body.cuh"  # the wgmma body of B1 (D = 64) and B3
+SM90_COMMON = "sm90_common.cuh"  # its primitives, shared with the backward's
+SM90_BWD = "attention_bwd_sm90_body.cuh"  # the wgmma body of B4 and B5
 JOBS = 4  # mutants at once: each builds on the host's cores, then checks on the card
 GN = "groupnorm.cu"
 B4_P = "const float pr = exp2f(x - ls[col]);"
@@ -43,8 +45,8 @@ DV_NTILES = "for (int j = 0; j < kDTiles; j += 2) mma_ntiles<T, D>(acc, pa[kk], 
 # into the row coordinate), so that a box past a batch's last row reads the
 # next batch's rows instead of zeros
 FLAT_MAP = [
-    (SM90, "static_cast<cuuint64_t>(rows),\n", "static_cast<cuuint64_t>(rows) * batch,\n"),
-    (SM90, "static_cast<cuuint64_t>(batch)};", "1};"),
+    (SM90, "dtype, batch, p.sq, feat", "dtype, 1, batch * p.sq, feat"),
+    (SM90, "dtype, batch, p.skv, feat", "dtype, 1, batch * p.skv, feat", 2),
     (SM90, "head * kD, q0, bidx, kQAtom);", "head * kD, bidx * p.sq + q0, 0, kQAtom);"),
     (SM90, "head * kD, s * kBN, bidx);", "head * kD, bidx * p.skv + s * kBN, 0);"),
     (SM90, "head * kD, row, bidx);", "head * kD, bidx * p.skv + row, 0);"),
@@ -106,8 +108,8 @@ MUTANTS = [
     ("S1: three-stage variants read stage tile % 2 (the third stage never read)",
      [(FWD, "const uint16_t* ks = smem + (tile % kST) * 2 * kTile;",
        "const uint16_t* ks = smem + (tile % 2) * 2 * kTile;")], True),
-    ("wgmma body (B1, B3): the last k-step of P.V dropped",
-     [(SM90, "for (int kk = 0; kk < kBN / 16; ++kk) WgmmaRS<T, kD>::run(",
+    ("wgmma body (B1, B3, and B5's dQ += dS.K): the last k-step of P.V dropped",
+     [(SM90_COMMON, "for (int kk = 0; kk < kBN / 16; ++kk) WgmmaRS<T, kD>::run(",
        "for (int kk = 0; kk < kBN / 16 - 1; ++kk) WgmmaRS<T, kD>::run(")], True),
     # The next batch's rows that a flattened map reads past a ragged tail
     # are real values, but as K/V columns >= skv they get -1e30 (P = 0, and
@@ -122,21 +124,50 @@ MUTANTS = [
      True),
     # B3 on the wgmma body. (a) D = 40 takes three k-steps of Q.K^T, the
     # third over columns 32-47: two leave columns 32-39 out of every score
-    ("B3 (wgmma) at D=40: the last Q.K^T k-step dropped (2 k-steps, not 3)",
-     [(SM90, "constexpr int kKSteps = (kD + 15) / 16;",
+    ("wgmma bodies at D=40: the last Q.K^T-shaped k-step dropped (2 k-steps, not 3)",
+     [(SM90_COMMON, "constexpr int kKSteps = (kD + 15) / 16;",
        "constexpr int kKSteps = kD == 40 ? 2 : (kD + 15) / 16;")], True),
     # (b) the maps' inner extent padded to whole atoms (64 at D = 40, 128 at
     # 80, 192 at 160) over rows of D columns: the pad columns of Q and K read
     # the next row's first values instead of zeros, and enter the scores
     ("B3 (wgmma): tensor maps with the padded inner extent (pad columns read the next row)",
-     [(SM90, "const cuuint64_t dims[3] = {static_cast<cuuint64_t>(feat), ",
-       "const cuuint64_t dims[3] = {static_cast<cuuint64_t>((feat + 63) / 64 * 64), ")], True),
+     [(SM90, "feat, feat,", "(feat + 63) / 64 * 64, feat,", 3)], True),
     ("B3 (wgmma): lse stored in the log2 domain (m + log(l), no ln 2)",
      [(SM90, "m_run[r] * kLn2 + logf(l_run[r])", "m_run[r] + logf(l_run[r])")], True),
     # (d) D = 160's rows span three atoms; Q.K^T stops after the second
-    ("B3 (wgmma) at D=160: Q.K^T skips the third atom (columns 128-159)",
-     [(SM90, "for (int kk = 0; kk < kKSteps; ++kk) {",
+    ("wgmma bodies at D=160: Q.K^T-shaped products skip the third atom (columns 128-159)",
+     [(SM90_COMMON, "for (int kk = 0; kk < kKSteps; ++kk) {",
        "for (int kk = 0; kk < (kD == 160 ? 8 : kKSteps); ++kk) {")], True),
+    # B4 and B5 on the wgmma body. (a) B4 takes each score's lse from the Q
+    # row of its column; read by the thread's K/V row instead, every P^T is
+    # off by exp(lse_column - lse_row)
+    ("B4 (wgmma): lse read by the row, not by the column",
+     [(SM90_BWD, "pr[e] = exp2f(x - ls[c] * kLog2e);",
+       "pr[e] = exp2f(x - ls[(threadIdx.x % 32 / 4 + 8 * (e >> 1)) % kBM] * kLog2e);")], True),
+    ("B5 (wgmma): the delta subtraction dropped (dS = P * dP)",
+     [(SM90_BWD, "ds[e] = exp2f(x - lse2[e >> 1]) * (dp[j * 4 + e] - delta[e >> 1]);",
+       "ds[e] = exp2f(x - lse2[e >> 1]) * dp[j * 4 + e];")], True),
+    ("B4 (wgmma): the last k-step of dV += P^T.dO dropped",
+     [(SM90_BWD, "WgmmaRS<T, kD>::run(dv, pa[kk], desc_do + 128 * kk);",
+       "if (kk < kBM / 16 - 1) WgmmaRS<T, kD>::run(dv, pa[kk], desc_do + 128 * kk);")], True),
+    # (d) D = 160's rows span three atoms: dK's dP^T = V.dO^T stops after
+    # the second, so dS^T, and with it dK, misses columns 128-159
+    ("B4 (wgmma) at D=160: dK's dP^T = V.dO^T skips the third atom",
+     [(SM90_BWD, "issue_qk<T, kD, kBM, kKAtom, kQAtom>(dpt, desc_v, desc_sw128(do_addr));",
+       "issue_qk<T, (kD == 160 ? 128 : kD), kBM, kKAtom, kQAtom>(dpt, desc_v, "
+       "desc_sw128(do_addr));")], True),
+    # (e) as mutant 17 for the backward's maps: the pad columns of D = 40
+    # read the next row's first values, which the third k-step multiplies
+    ("B4/B5 (wgmma): tensor maps with the padded inner extent",
+     [(SM90_BWD, "return encode(map, ptr, dtype, bh, rows, kD, kD, box_rows);",
+       "return encode(map, ptr, dtype, bh, rows, atoms(kD) * kAtomCols, kD, box_rows);")],
+     True),
+    # K and V rows past skv are zero-filled: a counted column scores 0, so
+    # P is not 0 there, but dS times K's zero row adds 0 to dQ, and B5 never
+    # stores past sq: the mask is a second guard that no output can show
+    ("B5 (wgmma): KV mask dropped (zero-filled columns counted)",
+     [(SM90_BWD, "      if (ragged && n0 + j * 8 + t * 2 + (e & 1) >= skv) x = kNegInf;\n", "")],
+     False),
 ]
 
 _RUN = """

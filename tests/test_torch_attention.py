@@ -440,14 +440,14 @@ def _mutants():
     return kernel_mutants.MUTANTS
 
 
-@pytest.mark.parametrize("n", range(20))
+@pytest.mark.parametrize("n", range(26))
 def test_each_kernel_mutant_names_text_of_the_sources(n):
     """tools/kernel_mutants.py plants each fault by replacing text of the
     CUDA sources: every replaced text occurs in its source as often as the
     mutant says, so that no mutant silently stops planting its fault."""
     from pea_diffusion_tpu_torch.tools import kernel_mutants
 
-    assert len(_mutants()) == 20
+    assert len(_mutants()) == 26
     what, edits, _ = _mutants()[n]
     csrc = kernel_mutants.REPO / "pea_diffusion_tpu_torch" / "csrc"
     for name, old, new, *count in edits:

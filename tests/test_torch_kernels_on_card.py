@@ -1,6 +1,7 @@
 """The port's attention kernels (B1 one-pass, at head dim 64 the wgmma + TMA
 body; B3 flash forward, on the wgmma + TMA body, in every variant; B4/B5
-flash backward) against their plain versions
+flash backward, on the wgmma + TMA body, in every variant) against their
+plain versions
 on a CUDA card, in the working types bf16/fp16, at SDXL's head dim 64,
 SD1.5's 40, 80 and 160, and 128, and B1's tile variants (S1, both bodies)
 against the plain version and shipped B1. Forward: the
@@ -230,6 +231,75 @@ def test_flash_backward_kernels_match_plain_on_card(bh, sq, skv, d, dtype):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == b.shape, name
         assert _rel_err(a, b) < BWD_RTOL, (name, _rel_err(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,sq,skv", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", flash_attention.HEAD_DIMS)
+def test_flash_backward_variants_match_plain_on_card(d, dtype, bh, sq, skv):
+    """B4 and B5 in every variant built at the head dim (the wgmma + TMA
+    body's warpgroups and streamed tiles, and the mma.sync body): dQ, dK and
+    dV each below 2e-2 of max |plain|, the same bits from two launches, one
+    launch each; the shipped B4 and B5 give the bits of the variant their
+    rule picks."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(d + sq + skv + 1)
+    q, k, v = (torch.randn(bh, s, d, device=dev, generator=g).to(dtype)
+               for s in (sq, skv, skv))
+    do = torch.randn(bh, sq, d, device=dev, generator=g).to(dtype)
+    out, lse = flash_attention.flash_forward(q, k, v, with_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    scale = d ** -0.5
+    args = (q, k, v, do, lse, delta, scale)
+    ref_dq, ref_dk, ref_dv = flash_attention.flash_backward_ref(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float(), scale)
+    shipped = {"dkdv": flash_attention.flash_backward_dkdv(*args),
+               "dq": (flash_attention.flash_backward_dq(*args),)}
+    refs = {"dkdv": (("dk", ref_dk), ("dv", ref_dv)), "dq": (("dq", ref_dq),)}
+    for which, table in flash_attention.BWD_VARIANTS.items():
+        ship = flash_attention.shipped_bwd_variant(which, sq, skv, d)
+        for name, dims in table.items():
+            if d not in dims:
+                continue
+            n = flash_attention.flash_backward_variant.launches[which][name]
+            got = flash_attention.flash_backward_variant(*args, name, which)
+            again = flash_attention.flash_backward_variant(*args, name, which)
+            got, again = (got, again) if which == "dkdv" else ((got,), (again,))
+            torch.cuda.synchronize()
+            assert flash_attention.flash_backward_variant.launches[which][name] == n + 2
+            for a, b, (out_name, ref) in zip(got, again, refs[which]):
+                assert a.dtype == dtype and a.shape == ref.shape, (name, out_name)
+                assert torch.equal(a, b), (name, out_name)
+                assert _rel_err(a, ref) < BWD_RTOL, (name, out_name, _rel_err(a, ref))
+            if name == ship:
+                assert all(torch.equal(a, b) for a, b in zip(got, shipped[which])), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,skv,d", [
+    (4096, 4096, 40), (16384, 16384, 40), (4096, 52, 40), (16384, 52, 40),  # SD1.5 level 0
+    (1024, 1024, 80), (4096, 4096, 80), (1024, 52, 80), (4096, 52, 80),    # level 1
+    (1024, 1024, 160), (1024, 52, 160),                                   # level 2 at 1024²
+    (1600, 1600, 64), (1600, 52, 64),                                     # SDXL training
+])
+def test_flash_backward_ships_its_variant_at_the_paths_shapes_on_card(sq, skv, d):
+    """At each (Sq, Skv, D) the training paths run, shipped B4 and B5 give
+    the bits of the variants their rule names, and every self-attention
+    shape runs the wgmma body."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(10)
+    q, k, v = (torch.randn(2, s, d, device=dev, generator=g).bfloat16() for s in (sq, skv, skv))
+    do = torch.randn(2, sq, d, device=dev, generator=g).bfloat16()
+    out, lse = flash_attention.flash_forward(q, k, v, with_lse=True)
+    args = (q, k, v, do, lse, (do.float() * out.float()).sum(-1), d ** -0.5)
+    for which, run in (("dkdv", flash_attention.flash_backward_dkdv),
+                       ("dq", flash_attention.flash_backward_dq)):
+        shipped = flash_attention.shipped_bwd_variant(which, sq, skv, d)
+        assert sq != skv or shipped != "mma_sync"
+        got, want = run(*args), flash_attention.flash_backward_variant(*args, shipped, which)
+        got, want = (got, want) if which == "dkdv" else ((got,), (want,))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), which
 
 
 @pytest.mark.gpu
