@@ -18,8 +18,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    gradient (P and dS are rounded to bf16 before their products).
    GroupNorm (B6, B6-b): every GroupNorm shape of the SDXL ControlNet path
    (read from the UNet, ControlNet and VAE modules), plus an fp32 and two
-   ragged cases, each input contiguous and channels-last, below 8e-3 of max
-   |plain| (the output is rounded to bf16 once).
+   ragged cases, each input contiguous and channels-last, in both variants
+   (three_pass; persistent, one cooperative launch), each below 8e-3 of max
+   |plain| (the output is rounded to bf16 once), two launches with the same
+   bits, the shipped kernel with the bits of the variant the library's rule
+   picks, and each variant's time also with its launches queued behind a
+   device sleep (the wrapper's host time outside the window).
    CUDA-event times of the kernel, the plain version and a PyTorch
    yardstick (the port never calls it: F.scaled_dot_product_attention for
    the forward, the backward of one such call for B4 + B5 together,
@@ -81,7 +85,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    attention calls and 67 GroupNorms per UNet + ControlNet forward, 30 per
    VAE decode), a request at conditioning scale 0 that must differ, and a
    guess-mode request's stage times and profile
-   (build/chip_smoke_controlnet_profile.txt);
+   (build/chip_smoke_controlnet_profile.txt), in which the GroupNorm kernels
+   must be one launch a call where the persistent variant ships (three where
+   three_pass does; so too in the opt-in-on SDXL profile of phase 5);
 7. the training paths: each full-width KD stack (the serving stack with an
    fp32 adapter and VAE, plus the CLIP teachers: ViT-L and bigG for SDXL,
    ViT-L alone for SD1.5) from cli/train.py's build_demo_full: first one KD
@@ -173,6 +179,7 @@ CONTROLNET_PATH = "sdxl controlnet serving"
 PROMPTS = ["一只戴着帽子的可爱猫咪", "雪山下的湖泊，清晨的阳光"]
 SWEEP_PATH = "onepass sweep"
 SWEEP_SHAPES, SWEEP_ITERS = "b16,b2", 20
+QUEUE_SLEEP_CYCLES = 40_000_000  # ~20 ms at the H100's 1.98 GHz: the host queues the launches
 
 
 def log(msg):
@@ -202,11 +209,34 @@ def time_ms(torch, fn, iters, flush):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def queued_ms(torch, fn, iters, flush):
+    """time_ms with every launch queued behind a device sleep of
+    QUEUE_SLEEP_CYCLES, so that the host's time to issue the launches (the
+    wrapper's Python and ctypes) falls outside the timed windows: the
+    device time of `fn` alone, each launch after an L2 flush."""
+    for _ in range(2):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    for s, e in zip(starts, ends):
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
 def ptxas_lines(log_text):
     """One line per compiled kernel from nvcc's -Xptxas -v output: its name,
-    element type and integer template arguments (head dim and tile shape
-    for the attention kernels; the wgmma body's warpgroups, stages and TMA),
-    registers, and spill stores and loads; and any line of ptxas's about
+    element type and integer and bool template arguments (head dim and tile
+    shape for the attention kernels; the wgmma body's warpgroups, stages and
+    TMA; the GroupNorm's vector width and, for the persistent variant,
+    channels-last), registers, static shared memory (the persistent
+    GroupNorm's ring is dynamic: its bytes are in its kernel rows), and
+    spill stores and loads; and any line of ptxas's about
     wgmma (a warning that it serialised a kernel's wgmma instructions) as
     it stands."""
     import re
@@ -227,15 +257,37 @@ def ptxas_lines(log_text):
                     rest = rest[n:]
                 kind = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}.get(
                     re.match(r"(?:I(13__nv_bfloat16|6__half|f))?", rest).group(1), "")
-                args = re.findall(r"Li(\d+)E", rest)
+                args = re.findall(r"L[ib](\d+)E", rest)
                 name = f"{'::'.join(parts[1:])}<{','.join(filter(None, [kind] + args))}>"
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name is not None:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            lines.append(f"{name}: {regs} registers; {spill}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"{name}: {regs} registers, {smem.group(1) if smem else 0} bytes "
+                         f"static smem; {spill}")
             name, spill = None, ""
     return lines
+
+
+def persistent_smem_line(torch):
+    """The persistent GroupNorm's dynamic shared memory (its ring, fold
+    buffer and mbarriers, set per launch by the plan) at the GroupNorm
+    shapes of the paths, channels-last, on this card's SMs."""
+    from pea_diffusion_tpu_torch.ops import groupnorm as gn
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smem = {}
+    for _, b, c, h, w, groups, _, dtype, _, _ in groupnorm_cases():
+        size = torch.empty((), dtype=dtype).element_size()
+        plan = gn.persistent_plan(b, c, h * w, groups, True,
+                                  gn.vector_width(c // groups, size, 0), size, sms)
+        smem[f"{b}x{c}x{h}x{w}"] = (plan.smem, plan.resident)
+    lo, hi = min(v[0] for v in smem.values()), max(v[0] for v in smem.values())
+    return (f"gn::gn_persistent dynamic shared memory a block: {lo}-{hi} bytes at the "
+            f"GroupNorm shapes (at most {gn.SMEM_MAX}; {gn.P_THREADS} threads, one block an "
+            f"SM on {sms} SMs); resident maps: "
+            + ", ".join(k for k, (_, res) in smem.items() if res))
 
 
 def errors(out, ref):
@@ -272,9 +324,10 @@ KERNELS = {
     "B5": dict(name="B5 flash_backward_dq", route="cuda",
                source=SRC + "attention_bwd_sm90_body.cuh",
                replaces="pea_diffusion_tpu/ops/flash_attention.py:203"),
-    "B6": dict(name="B6 group_norm", route="cuda", source=SRC + "groupnorm.cu",
+    "B6": dict(name="B6 group_norm", route="cuda", source=SRC + "groupnorm_sm90.cu",
                replaces="pea_diffusion_tpu/ops/groupnorm.py:126"),
-    "B6-b": dict(name="B6-b group_norm with bias", route="cuda", source=SRC + "groupnorm.cu",
+    "B6-b": dict(name="B6-b group_norm with bias", route="cuda",
+                 source=SRC + "groupnorm_sm90.cu",
                  replaces="pea_diffusion_tpu/ops/groupnorm.py:131"),
     "S1": dict(name="S1 onepass_attention tile variant", route="cuda",
                source=SRC + "attention_fwd.cu", replaces="tools/sweep_onepass.py:50"),
@@ -696,16 +749,23 @@ def groupnorm_cases():
 
 def run_groupnorm_cases(torch, F, flush):
     """B6 and B6-b against fused_gn_ref in fp32 from the same inputs, each
-    input contiguous and channels-last; CUDA-event times of the kernel in
-    both layouts ("ms" is channels-last's: the UNet, ControlNet and VAE take
-    NHWC and permute it, so every GroupNorm on the path gets a channels-last
-    tensor, as the ControlNet phase tallies), of the plain version in the
-    input's type and of one F.group_norm call (x + t formed beforehand: the
-    GroupNorm alone), each on the channels-last input."""
+    input contiguous and channels-last, in every variant (group_norm_variant:
+    three_pass and persistent): each below KERNEL_RTOL of max |plain|, two
+    launches with the same bits, and the shipped wrappers with the bits of
+    the variant the library's rule picks for the shape and layout. CUDA-event
+    times of each variant in both layouts, as time_ms takes them and queued
+    behind a device sleep (queued_ms: the wrapper's host time outside the
+    window); "ms" is the shipped variant's channels-last time (the UNet,
+    ControlNet and VAE take NHWC and permute it, so every GroupNorm on the
+    path gets a channels-last tensor, as the ControlNet phase tallies), with
+    whether its map stayed resident in shared memory; then the plain version
+    in the input's type and one F.group_norm call (x + t formed beforehand:
+    the GroupNorm alone), each on the channels-last input."""
     from pea_diffusion_tpu_torch.ops import groupnorm as gn
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     entries = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for kern, b, c, h, w, groups, act, dtype, stands_for, what in groupnorm_cases():
         def randn(*shape, sd=1.0, mean=0.0):
             return (mean + sd * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
@@ -720,37 +780,82 @@ def run_groupnorm_cases(torch, F, flush):
             return gn.group_norm_bias_fwd(xx, tb, scale, bias, groups, 1e-5, act)
 
         x_cl = x.contiguous(memory_format=torch.channels_last)
+        layouts = (("contiguous", x), ("channels-last", x_cl))
         ref = gn.fused_gn_ref(x.float(), scale.float(), bias.float(), groups, 1e-5, act,
                               None if tb is None else tb.float())
-        outs = [run(x), run(x_cl)]
-        torch.cuda.synchronize()
-        if outs[0].dtype != dtype or not outs[1].is_contiguous(
-                memory_format=torch.channels_last):
-            raise AssertionError(f"{kern} {what}: output type or layout")
-        err, rel = _check(KERNELS[kern]["name"], what, outs, [ref, ref], KERNEL_RTOL)
+        shipped = {name: gn.shipped_gn_variant(b, c, h * w, groups, name == "channels-last",
+                                               dtype, xx.data_ptr()) for name, xx in layouts}
+        outs = {name: run(xx) for name, xx in layouts}
+        variants, err, rel = {}, 0.0, 0.0
+        for var in gn.GN_VARIANTS:
+            def run_var(xx, var=var):
+                return gn.group_norm_variant(xx, scale, bias, groups, 1e-5, act, t=tb,
+                                             variant=var)
+
+            for name, xx in layouts:
+                out, again = run_var(xx), run_var(xx)
+                torch.cuda.synchronize()
+                if out.dtype != dtype or out.is_contiguous(
+                        memory_format=torch.channels_last) != (name == "channels-last"):
+                    raise AssertionError(f"{kern} {what}, {var} {name}: output type or layout")
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{kern} {what}, {var} {name}: two launches differ")
+                if shipped[name] == var and not torch.equal(outs[name], out):
+                    raise AssertionError(f"{kern} {what}, {name}: shipped B6/B6-b does not "
+                                         f"give the bits of {var}")
+                e_abs, e_rel = _check(KERNELS[kern]["name"], f"{what}, {var} {name}", [out],
+                                      [ref], KERNEL_RTOL)
+                err, rel = max(err, e_abs), max(rel, e_rel)
+                variants.setdefault(var, {})["max_rel_err" if name == "channels-last"
+                                             else "max_rel_err_contiguous"] = e_rel
+                del out, again
+            v = variants[var]
+            gc.collect()  # no collection inside the timed windows of these short launches
+            gc.disable()
+            try:
+                v["ms"] = time_ms(torch, lambda: run_var(x_cl), 20, flush)
+                v["ms_contiguous"] = time_ms(torch, lambda: run_var(x), 20, flush)
+                v["queued_ms"] = queued_ms(torch, lambda: run_var(x_cl), 20, flush)
+                v["queued_ms_contiguous"] = queued_ms(torch, lambda: run_var(x), 20, flush)
+            finally:
+                gc.enable()
         del outs, ref
-        ms, ms_nchw = time_ms(torch, lambda: run(x_cl), 20, flush), time_ms(
-            torch, lambda: run(x), 20, flush)
+        size = x.element_size()
+        plan = gn.persistent_plan(b, c, h * w, groups, True,
+                                  gn.vector_width(c // groups, size, x_cl.data_ptr()), size,
+                                  sms)
+        variants["persistent"].update(resident=plan.resident, smem_bytes=plan.smem)
+        ship = variants[shipped["channels-last"]]
         plain_ms = time_ms(torch, lambda: gn.fused_gn_ref(
             x_cl, scale, bias, groups, 1e-5, act, tb), 5, flush)
         xt = x_cl if tb is None else x_cl + tb[:, :, None, None]
         library_ms = time_ms(torch, lambda: F.group_norm(xt, groups, scale, bias, 1e-5), 20,
                              flush)
-        size = x.element_size()
         nbytes = 2 * x.numel() * size + 2 * c * size + (0 if tb is None else tb.numel() * size)
         flops = x.numel() * (5 + (4 if act == "silu" else 0) + (0 if tb is None else 1))
         bound_ms, bound_by = bound(flops, nbytes, H100_FP32_FLOPS)
         shape = (f"batch={b} channels={c} h={h} w={w} groups={groups} act={act} "
                  f"{str(dtype).replace('torch.', '')}")
-        e = dict(KERNELS[kern], shape=shape, what=what, max_abs_err=err, max_rel_err=rel,
-                 rel_tolerance=KERNEL_RTOL, ms=ms, ms_contiguous=ms_nchw, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        source = "groupnorm_sm90.cu" if shipped["channels-last"] == "persistent" else "groupnorm.cu"
+        e = dict(KERNELS[kern], source=SRC + source, shape=shape, what=what, max_abs_err=err,
+                 max_rel_err=rel, rel_tolerance=KERNEL_RTOL, ms=ship["ms"],
+                 ms_contiguous=variants[shipped["contiguous"]]["ms_contiguous"],
+                 queued_ms=ship["queued_ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=library_ms,
                  library_what="F.group_norm" + (", GN only" if act == "silu" or tb is not None
                                                 else ""),
-                 kernel=kern, lse=False, stands_for=stands_for, launches_by_path={})
-        log(f"[kernel] {e['name']} {what} ({shape}): err {err:.3g} (rel {rel:.3g}) ms "
-            f"{ms:.4f} (channels-last) contiguous {ms_nchw:.4f} plain {plain_ms:.4f} library "
-            f"{library_ms:.4f} bound {bound_ms:.4f} ({bound_by})")
+                 kernel=kern, lse=False, body=shipped["channels-last"],
+                 body_contiguous=shipped["contiguous"],
+                 resident=plan.resident if shipped["channels-last"] == "persistent" else None,
+                 variants=variants, stands_for=stands_for, launches_by_path={})
+        log(f"[kernel] {e['name']} {what} ({shape}): err {err:.3g} (rel {rel:.3g}); ships "
+            f"{e['body']} (channels-last, resident {e['resident']}, smem {plan.smem} bytes) / "
+            f"{e['body_contiguous']} (contiguous); ms {e['ms']:.4f} (queued "
+            f"{e['queued_ms']:.4f}) contiguous {e['ms_contiguous']:.4f} plain {plain_ms:.4f} "
+            f"library {library_ms:.4f} bound {bound_ms:.4f} ({bound_by}); variants ms "
+            + ", ".join(f"{var} {v['ms']:.4f} (queued {v['queued_ms']:.4f}) / contiguous "
+                        f"{v['ms_contiguous']:.4f} (queued {v['queued_ms_contiguous']:.4f})"
+                        for var, v in variants.items()))
         entries.append(e)
         del x, x_cl, xt
     return entries
@@ -924,6 +1029,32 @@ def stamp_launches(kernels, path, calls, measured, gn_calls=None):
                              f"the wrapper counted {measured['B3 with lse']}")
 
 
+def log_gn_path_sums(kernels, path):
+    """The kernel rows' times summed over `path`'s B6 and B6-b launches,
+    channels-last, per variant and for the shipped kernel, beside the sum of
+    their bounds: the UNet and ControlNet maps (batch 2) and the VAE
+    decoder's (batch 1) apart."""
+    sums = {}
+    for e in kernels:
+        n = e["launches_by_path"].get(path, 0) if e["kernel"] in GN_KERNELS else 0
+        if not n:
+            continue
+        part = "VAE decoder" if e["stands_for"][path][0] == 1 else "UNet + ControlNet"
+        row = sums.setdefault(part, {"launches": 0, "bound": 0.0, "shipped": 0.0,
+                                     "shipped queued": 0.0})
+        row["launches"] += n
+        row["bound"] += n * e["bound_ms"]
+        row["shipped"] += n * e["ms"]
+        row["shipped queued"] += n * e["queued_ms"]
+        for var, v in e["variants"].items():
+            row[var] = row.get(var, 0.0) + n * v["ms"]
+            row[f"{var} queued"] = row.get(f"{var} queued", 0.0) + n * v["queued_ms"]
+    for part, row in sums.items():
+        log(f"[{path}] GroupNorm kernel ms summed over the path's channels-last launches, "
+            f"{part}: " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                                    for k, v in row.items()))
+
+
 def launch_counts():
     from pea_diffusion_tpu_torch.ops import flash_attention as fa
     from pea_diffusion_tpu_torch.ops import groupnorm as gn
@@ -1094,11 +1225,26 @@ def stage_times(torch, models, tokenize, prompt, kernels, forwards, model, size,
         f"launches per forward); VAE decode {dec:.3f} ms")
 
 
-def profile_run(torch, fn, unprofiled_s, table_path, tag):
+def gn_kernel_launches(gn_calls):
+    """The GroupNorm kernel launches a profile must show for `gn_calls`
+    ({(kernel, batch, channels, side, act): calls}, channels-last bf16 maps
+    in 32 groups): one a call where the library ships the persistent
+    variant, three (statistics, finalize, apply) where it ships three_pass."""
+    import torch
+
+    from pea_diffusion_tpu_torch.ops import groupnorm as gn
+
+    return sum(n * (1 if gn.shipped_gn_variant(b, c, side * side, 32, True, torch.bfloat16)
+                    == "persistent" else 3)
+               for (_, b, c, side, _), n in gn_calls.items())
+
+
+def profile_run(torch, fn, unprofiled_s, table_path, tag, gn_launches=None):
     """torch.profiler over one call of `fn`: device busy time against wall
     time and against the unprofiled call (`unprofiled_s`), and the kernels
     that take the most device time. The full table goes to `table_path`.
-    Returns the idle share of the unprofiled call."""
+    With `gn_launches`, the GroupNorm kernels (pea::gn) the profile saw must
+    be that many launches. Returns the idle share of the unprofiled call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1107,10 +1253,13 @@ def profile_run(torch, fn, unprofiled_s, table_path, tag):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t) * 1e3
-    per_kernel = {}
+    per_kernel, gn_count, gn_ms = {}, 0, 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            ms = e.time_range.elapsed_us() / 1e3
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + ms
+            if "pea::gn::" in e.name or "_ZN3pea2gn" in e.name:
+                gn_count, gn_ms = gn_count + 1, gn_ms + ms
     busy = sum(per_kernel.values())
     if busy == 0:
         raise AssertionError(f"[{tag}] the profiler saw no device time")
@@ -1120,7 +1269,12 @@ def profile_run(torch, fn, unprofiled_s, table_path, tag):
     bwd = sum(v for k, v in per_kernel.items() if "attention_bwd_" in k or "flash_bwd_" in k)
     log(f"[{tag}] device busy {busy:.1f} ms of {wall_ms:.1f} ms wall under the "
         f"profiler; of the unprofiled run ({unprofiled_s * 1e3:.1f} ms) the device "
-        f"is idle {idle:.3f}; B1+B3 kernels {fwd:.1f} ms, B4+B5 kernels {bwd:.1f} ms")
+        f"is idle {idle:.3f}; B1+B3 kernels {fwd:.1f} ms, B4+B5 kernels {bwd:.1f} ms, "
+        f"GroupNorm kernels {gn_ms:.1f} ms in {gn_count} launches"
+        + ("" if gn_launches is None else f" (want {gn_launches})"))
+    if gn_launches is not None and gn_count != gn_launches:
+        raise AssertionError(f"[{tag}] {gn_count} GroupNorm kernel launches in the profile, "
+                             f"want {gn_launches}")
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         log(f"[{tag}]   {ms:9.2f} ms  {name[:110]}")
     table_path.parent.mkdir(exist_ok=True)
@@ -1400,11 +1554,17 @@ def fused_gn_ab(torch, models, pipe, tokenize, prompt, repo):
             lat[on].append(time.time() - t0)
         diff = (imgs[True] - imgs[False]).abs().max().item()
         idle = {}
+        latent = size // 8
+        per_request = groupnorm_calls(models.unet, latent, 2)
+        for key, n in groupnorm_calls(models.vae.decoder, latent, 1).items():
+            per_request[key] += n
+        per_request = {key: n * (steps if key[1] == 2 else 1) for key, n in per_request.items()}
         for on in (False, True):
             set_fused_gn(on)
             idle[on] = profile_run(torch, request, min(lat[on]),
                                    repo / "build" / f"chip_smoke_gn_{'on' if on else 'off'}"
-                                   "_profile.txt", f"fused gn {'on' if on else 'off'} profile")
+                                   "_profile.txt", f"fused gn {'on' if on else 'off'} profile",
+                                   gn_kernel_launches(per_request) if on else 0)
     finally:
         set_fused_gn(False)
     log(f"[fused gn] warm {size}² request, opt-in off {lat[False]} s, on {lat[True]} s "
@@ -1488,6 +1648,7 @@ def controlnet_phase(torch, model, kernels, repo):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check_launches(tag, served, want)
         stamp_launches(kernels, CONTROLNET_PATH, calls, served, gn_calls)
+        log_gn_path_sums(kernels, CONTROLNET_PATH)
 
         layouts = Counter()
         hooks = [m.register_forward_pre_hook(lambda mod, args: layouts.update(
@@ -1541,7 +1702,8 @@ def controlnet_phase(torch, model, kernels, repo):
             f"{cn_ms:.3f} ms + UNet (CFG pair) = {step_ms:.3f} ms a step; VAE decode "
             f"{dec:.3f} ms; request {guess_s:.4f} s")
         profile_run(torch, lambda: request(PROMPTS[1], 5, guess_mode=True), guess_s,
-                    repo / "build" / "chip_smoke_controlnet_profile.txt", f"{tag} profile")
+                    repo / "build" / "chip_smoke_controlnet_profile.txt", f"{tag} profile",
+                    gn_kernel_launches({key: n // REQUESTS for key, n in gn_calls.items()}))
     finally:
         set_fused_gn(False)
 
@@ -1601,6 +1763,7 @@ def main() -> int:
 
     for line in ptxas_lines(kernel_build.build()):
         log(f"[build] {line}")
+    log(f"[build] {persistent_smem_line(torch)}")
     log(f"[build] done in {time.time() - t0:.1f}s")
 
     kernels = kernel_phases(torch, F)

@@ -20,7 +20,12 @@
 // the card's ~295 per byte): device memory. SDXL's maps run from
 // 2x1280x32x32 (5 MB in bf16) to the VAE decoder's 1x128x1024x1024 (268 MB).
 //
-// Design. The TPU kernel held one sample's whole map in VMEM, walked it
+// Two variants compute it, listed in kGnVariants and picked per call by the
+// wrapper (shipped_gn_variant below, or by name for a comparison):
+// `persistent` (groupnorm_sm90.cu), one cooperative launch that keeps the
+// map in shared memory where it fits, and `three_pass`, this file's kernels.
+//
+// three_pass. The TPU kernel held one sample's whole map in VMEM, walked it
 // twice (statistics, then the affine) and ran one grid step per sample. A
 // Hopper block holds 227 KB, a group of the VAE's last level is 4 M
 // elements, and one block per (sample, group) would be 32-64 blocks for 132
@@ -47,7 +52,7 @@
 //     threads in a fixed order), then per group.
 // Loads and stores are vectors of `V` elements (16 bytes where the row and
 // the pointer allow), chosen by the wrapper.
-#include "attention_common.cuh"
+#include "groupnorm_common.cuh"
 
 namespace pea {
 namespace gn {
@@ -68,40 +73,6 @@ struct GnParams {
   int silu;
   int scale_f32, bias_f32, t_f32;
 };
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __half from_float<__half>(float v) { return __float2half_rn(v); }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// A weight, bias or t value: fp32, or x's type.
-template <typename T>
-__device__ __forceinline__ float param(const void* p, long long i, int is_f32) {
-  return is_f32 ? static_cast<const float*>(p)[i] : to_float(static_cast<const T*>(p)[i]);
-}
-
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
-__device__ __forceinline__ float silu(float v) { return v / (1.f + __expf(-v)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ float* partial_at(const GnParams& p, int n, int g, int chunk) {
   return p.partials + ((static_cast<long long>(n) * p.groups + g) * p.chunks + chunk) * 2;
@@ -192,25 +163,6 @@ __global__ void __launch_bounds__(kThreads) apply_nchw(GnParams p) {
 
 // ---- channels-last NHWC: blocks (chunk, sample) over whole pixel rows
 
-// Which channel vectors and rows a thread takes: with at most kThreads
-// vectors in a row, kThreads / per_row rows go in parallel and each thread
-// owns one vector; with more, one row at a time and each thread owns the
-// vectors t, t + kThreads, ...
-struct RowSplit {
-  int per_row, rows_par, sub, col0;
-  bool active;
-  __device__ RowSplit(int c, int v) {
-    per_row = c / v;
-    const bool narrow = per_row <= kThreads;
-    rows_par = narrow ? kThreads / per_row : 1;
-    sub = narrow ? threadIdx.x / per_row : 0;
-    col0 = narrow ? threadIdx.x % per_row : threadIdx.x;
-    active = sub < rows_par;
-  }
-  __device__ int col(int m) const { return col0 + m * kThreads; }
-  __device__ bool owns(int m) const { return active && col(m) < per_row; }
-};
-
 __device__ __forceinline__ void row_range(const GnParams& p, int chunk, int& r0, int& r1) {
   const int per_chunk = (p.hw + p.chunks - 1) / p.chunks;
   r0 = chunk * per_chunk;
@@ -221,7 +173,7 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kThreads) stats_nhwc(GnParams p) {
   extern __shared__ float sums[];  // [2, C]: sums of v, then of v^2, per channel
   const int chunk = blockIdx.x, n = blockIdx.z;
-  const RowSplit rs(p.c, V);
+  const RowSplit<kThreads> rs(p.c, V);
   int r0, r1;
   row_range(p, chunk, r0, r1);
   const T* x = static_cast<const T*>(p.x) + static_cast<long long>(n) * p.hw * p.c;
@@ -288,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) apply_nhwc(GnParams p) {
     affine<T>(p, n, ch, ab_c[ch], ab_c[p.c + ch]);
   }
   __syncthreads();
-  const RowSplit rs(p.c, V);
+  const RowSplit<kThreads> rs(p.c, V);
   int r0, r1;
   row_range(p, chunk, r0, r1);
   float a[kMaxCols][V], b[kMaxCols][V];
@@ -386,7 +338,7 @@ inline cudaError_t launch_vec(const GnParams& p, bool nhwc, int vec, cudaStream_
 
 // dtype: 0 = bfloat16, 1 = float16, 2 = float32. The scratch holds the
 // partial sums, then mean and rstd: N*G*(chunks + 1)*2 floats.
-inline int launch_group_norm(const void* x, const void* t, const void* scale, const void* bias,
+inline int launch_three_pass(const void* x, const void* t, const void* scale, const void* bias,
                              void* y, float* scratch, int n, int c, int hw, int groups,
                              int chunks, float eps, int silu, int channels_last, int vec,
                              int dtype, int scale_f32, int bias_f32, int t_f32, int device,
@@ -424,27 +376,90 @@ inline int launch_group_norm(const void* x, const void* t, const void* scale, co
   });
 }
 
+// The variants, in the order of the wrapper's GN_VARIANTS.
+constexpr const char* kGnVariants[] = {"three_pass", "persistent"};
+constexpr int kGnVariantCount = sizeof(kGnVariants) / sizeof(kGnVariants[0]);
+
+// The variant B6 and B6-b run for a shape: `persistent` wherever it takes
+// the map, `three_pass` elsewhere. It takes channels-last maps of at most
+// 1024 groups whose rows split into at most 512 vectors, each in one group
+// (a vector: the most of 16 bytes that divides a group's channels and x's
+// alignment `align`, in bytes), and contiguous maps of at most 1023
+// channels a group. On the card it was the faster of the two at every
+// channels-last shape of the paths (by 1.1-2.3x) and at 27 of the 29
+// contiguous ones (chip_smoke.py's GroupNorm rows).
+inline int shipped_variant(int n, int c, int hw, int groups, int channels_last, int dtype,
+                           int align) {
+  const int size = dtype == 2 ? 4 : 2;
+  if (n < 1 || hw < 1 || groups < 1 || c % groups) return 0;
+  const int cg = c / groups;
+  if (!channels_last) return cg <= 1023 ? 1 : 0;
+  int vec = 16 / size;
+  while (vec > 1 && (cg % vec || align % (vec * size))) vec /= 2;
+  return groups <= 1024 && c / vec <= 512 ? 1 : 0;
+}
+
+// variant: an index of kGnVariants. three_pass takes `chunks` and a scratch
+// of N*G*(chunks + 1)*2 floats; persistent takes `width` (a row's elements:
+// C channels-last, a divisor of H*W contiguous), `tile_rows`, `slots` and
+// `blocks` (the wrapper's plan) and a work buffer that keeps its first 16
+// bytes (the grid barrier's word, zero at first) from launch to launch.
+inline int launch_group_norm(const void* x, const void* t, const void* scale, const void* bias,
+                             void* y, float* work, int n, int c, int hw, int groups, float eps,
+                             int silu, int channels_last, int vec, int dtype, int scale_f32,
+                             int bias_f32, int t_f32, int variant, int chunks, int width,
+                             int tile_rows, int slots, int blocks, int device, void* stream) {
+  if (variant == 0) {
+    return launch_three_pass(x, t, scale, bias, y, work, n, c, hw, groups, chunks, eps, silu,
+                             channels_last, vec, dtype, scale_f32, bias_f32, t_f32, device,
+                             stream);
+  }
+  if (variant != 1 || n < 1 || c < 1 || hw < 1 || groups < 1 || c % groups) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_persistent(x, t, scale, bias, y, work, n, c, hw, groups, eps, silu,
+                           channels_last, vec, dtype, scale_f32, bias_f32, t_f32, width,
+                           tile_rows, slots, blocks, device, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace gn
 }  // namespace pea
 
+extern "C" int pea_gn_variant_count() { return pea::gn::kGnVariantCount; }
+
+extern "C" const char* pea_gn_variant_name(int i) {
+  return i >= 0 && i < pea::gn::kGnVariantCount ? pea::gn::kGnVariants[i] : "";
+}
+
+extern "C" int pea_gn_shipped_variant(int n, int c, int hw, int groups, int channels_last,
+                                      int dtype, int align) {
+  return pea::gn::shipped_variant(n, c, hw, groups, channels_last, dtype, align);
+}
+
 // B6: y = GN(x) [+ SiLU] on [N, C, H, W], contiguous (channels_last 0) or
-// channels-last (1). Three launches on `stream`: statistics, finalize, apply.
+// channels-last (1), in the variant `variant` on `stream`.
 extern "C" int pea_group_norm_fwd(const void* x, const void* scale, const void* bias, void* y,
-                                  float* scratch, int n, int c, int hw, int groups, int chunks,
-                                  float eps, int silu, int channels_last, int vec, int dtype,
-                                  int scale_f32, int bias_f32, int device, void* stream) {
-  return pea::gn::launch_group_norm(x, nullptr, scale, bias, y, scratch, n, c, hw, groups,
-                                    chunks, eps, silu, channels_last, vec, dtype, scale_f32,
-                                    bias_f32, 0, device, stream);
+                                  float* work, int n, int c, int hw, int groups, float eps,
+                                  int silu, int channels_last, int vec, int dtype, int scale_f32,
+                                  int bias_f32, int variant, int chunks, int width,
+                                  int tile_rows, int slots, int blocks, int device,
+                                  void* stream) {
+  return pea::gn::launch_group_norm(x, nullptr, scale, bias, y, work, n, c, hw, groups, eps,
+                                    silu, channels_last, vec, dtype, scale_f32, bias_f32, 0,
+                                    variant, chunks, width, tile_rows, slots, blocks, device,
+                                    stream);
 }
 
 // B6-b: y = GN(x + t) [+ SiLU], t [N, C]; otherwise as B6.
 extern "C" int pea_group_norm_bias_fwd(const void* x, const void* t, const void* scale,
-                                       const void* bias, void* y, float* scratch, int n, int c,
-                                       int hw, int groups, int chunks, float eps, int silu,
+                                       const void* bias, void* y, float* work, int n, int c,
+                                       int hw, int groups, float eps, int silu,
                                        int channels_last, int vec, int dtype, int scale_f32,
-                                       int bias_f32, int t_f32, int device, void* stream) {
-  return pea::gn::launch_group_norm(x, t, scale, bias, y, scratch, n, c, hw, groups, chunks,
-                                    eps, silu, channels_last, vec, dtype, scale_f32, bias_f32,
-                                    t_f32, device, stream);
+                                       int bias_f32, int t_f32, int variant, int chunks,
+                                       int width, int tile_rows, int slots, int blocks,
+                                       int device, void* stream) {
+  return pea::gn::launch_group_norm(x, t, scale, bias, y, work, n, c, hw, groups, eps, silu,
+                                    channels_last, vec, dtype, scale_f32, bias_f32, t_f32,
+                                    variant, chunks, width, tile_rows, slots, blocks, device,
+                                    stream);
 }

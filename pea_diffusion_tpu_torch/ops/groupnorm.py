@@ -5,14 +5,19 @@ opt-in gate ``fused_gn_applicable``.
 
 Port of ``pea_diffusion_tpu/ops/groupnorm.py``. On a CUDA tensor
 ``group_norm_fwd`` and ``group_norm_bias_fwd`` launch the hand-written
-Hopper kernels in ``csrc/groupnorm.cu`` (entry points ``pea_group_norm_fwd``
-and ``pea_group_norm_bias_fwd``, replacing the TPU kernels ``_gn_kernel``
-and ``_gn_bias_kernel``); on a CPU tensor each runs ``fused_gn_ref``, the
-plain version of the same function. Inputs are [N, C, H, W] in either dense
-layout: contiguous (a group is one slab of cg*H*W elements) or channels-last
-(the TPU kernel's NHWC, and what every GroupNorm of the UNet, ControlNet and
-VAE receives: they take NHWC and permute it). Any other strides
-are made contiguous by one copy, counted in ``group_norm_fwd.copies``. The
+Hopper kernels behind ``csrc/groupnorm.cu``'s entry points
+``pea_group_norm_fwd`` and ``pea_group_norm_bias_fwd`` (replacing the TPU
+kernels ``_gn_kernel`` and ``_gn_bias_kernel``) in the variant the library's
+rule ships for the shape (``shipped_gn_variant``): ``persistent``
+(``csrc/groupnorm_sm90.cu``, one cooperative launch, the map kept in shared
+memory where it fits, planned by ``persistent_plan``) or ``three_pass``
+(statistics, finalize, apply). ``group_norm_variant`` runs either by name.
+On a CPU tensor each runs ``fused_gn_ref``, the plain version of the same
+function. Inputs are [N, C, H, W] in either dense layout: contiguous (a
+group is one slab of cg*H*W elements) or channels-last (the TPU kernel's
+NHWC, and what every GroupNorm of the UNet, ControlNet and VAE receives:
+they take NHWC and permute it). Any other strides are made contiguous by
+one copy, counted in ``group_norm_fwd.copies``. The
 kernels' outputs carry no autograd history: ``fused_group_norm`` takes
 inputs that need a gradient through ``FusedGroupNorm`` /
 ``FusedGroupNormBias``, whose forward is the kernel and whose backward is
@@ -22,9 +27,11 @@ XLA VJPs of its plain version too).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
-from typing import Callable, Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -36,6 +43,22 @@ TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the H100's 132 SMs
 MAX_ROW_VECTORS = 2 * THREADS  # channels-last: vectors of a pixel row a block holds
 MAX_GROUP_CHANNELS = 6144      # contiguous: 2 fp32 per channel of a group in 48 KB
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+GN_VARIANTS = ("three_pass", "persistent")  # csrc/groupnorm.cu, kGnVariants
+
+# The persistent variant (csrc/groupnorm_sm90.cu): one block of P_THREADS
+# threads a SM, each thread owning one vector of a row (so at most
+# P_THREADS vectors a row) and up to MAX_GROUPS groups, a ring of up to
+# MAX_SLOTS tiles in TILE_BUDGET bytes of shared memory beside the fixed
+# SMEM_FIXED (the fold buffer of RED_FLOATS and the mbarriers), in the
+# card's SMEM_MAX a block; tiles of about TILE_TARGET bytes.
+P_THREADS = 512
+RED_FLOATS = 2048
+MAX_GROUPS = RED_FLOATS // 2
+MAX_SLOTS = 32
+SMEM_MAX = 227 * 1024
+SMEM_FIXED = RED_FLOATS * 4 + MAX_SLOTS * 8
+TILE_BUDGET = 216 * 1024
+TILE_TARGET = 32 * 1024
 
 
 def group_norm_grouped(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -155,14 +178,148 @@ def plan(n: int, c: int, hw: int, groups: int, nhwc: bool, vec: int) -> int:
     return max(1, min(-(-TARGET_BLOCKS // (n * groups)), -(-per_group // (4 * THREADS))))
 
 
-# pea_group_norm_fwd(x, scale, bias, y, scratch, n, c, hw, groups, chunks, eps, silu,
-#                    channels_last, vec, dtype, scale_f32, bias_f32, device, stream);
+@dataclass(frozen=True)
+class TilePlan:
+    """How the persistent variant cuts a map: `segs` segments (channels-last:
+    the samples; contiguous: the (sample, group) slabs) of `seg_rows` rows
+    of `width` elements, in tiles of `tile_rows` rows (the last of a segment
+    ragged), `per_block` consecutive tiles a block over `blocks` blocks, a
+    ring of `slots` slots of `slot_bytes`. Resident: every block's tiles fit
+    its slots, so x is read from device memory once."""
+    segs: int
+    seg_rows: int
+    width: int
+    groups_per_seg: int
+    tile_rows: int
+    blocks: int
+    slots: int
+    slot_bytes: int
+    per_block: int
+    resident: bool
+
+    @property
+    def tiles_per_seg(self) -> int:
+        return -(-self.seg_rows // self.tile_rows)
+
+    @property
+    def tiles(self) -> int:
+        return self.segs * self.tiles_per_seg
+
+    @property
+    def smem(self) -> int:
+        return self.slots * self.slot_bytes + SMEM_FIXED
+
+    @property
+    def partial_floats(self) -> int:
+        return self.segs * self.groups_per_seg * self.blocks * 2
+
+
+def row_width(hw: int, vec: int) -> int:
+    """Contiguous layout: the persistent variant's row, the largest divisor
+    of `hw` that is a multiple of `vec` and at most P_THREADS vectors (a row
+    then lies in one channel)."""
+    for k in range(max(1, -(-hw // (P_THREADS * vec))), hw // vec + 1):
+        if hw % k == 0 and (hw // k) % vec == 0:
+            return hw // k
+    raise ValueError(f"group norm: no row width for H*W = {hw} in vectors of {vec}")
+
+
+@functools.lru_cache(maxsize=1024)
+def persistent_plan(n: int, c: int, hw: int, groups: int, nhwc: bool, vec: int,
+                    elem_size: int, blocks: int) -> TilePlan:
+    """The persistent variant's tiles for an [N, C, H, W] map: each segment
+    spread over its share of the blocks (at least one), each block's rows cut
+    into tiles of about TILE_TARGET bytes, as many ring slots as a block has
+    tiles up to TILE_BUDGET. Raises ValueError for what the variant does not
+    take."""
+    cg = c // groups
+    if nhwc:
+        segs, seg_rows, width, gs = n, hw, c, groups
+        if cg % vec or groups > MAX_GROUPS:
+            raise ValueError(f"persistent group norm: {groups} groups of {cg} channels in "
+                             f"vectors of {vec}")
+    else:
+        width = row_width(hw, vec)
+        segs, seg_rows, gs = n * groups, cg * hw // width, 1
+        if 2 + 2 * cg > RED_FLOATS:
+            raise ValueError(f"persistent group norm: {cg} channels per group (contiguous)")
+    if width % vec or width // vec > P_THREADS:
+        raise ValueError(f"persistent group norm: rows of {width} elements in vectors of {vec}")
+    row = width * elem_size
+    rows_per_block = -(-seg_rows // max(1, blocks // segs))
+    per_tile = -(-rows_per_block * row // TILE_TARGET)
+    tile_rows = -(-rows_per_block // per_tile)
+    slot_bytes = -(-tile_rows * row // 128) * 128
+    fit = min(MAX_SLOTS, TILE_BUDGET // slot_bytes)
+    if fit < 1:
+        raise ValueError(f"persistent group norm: a row of {row} bytes")
+    tiles = segs * -(-seg_rows // tile_rows)
+    per_block = -(-tiles // blocks)
+    return TilePlan(segs, seg_rows, width, gs, tile_rows, blocks, min(fit, per_block),
+                    slot_bytes, per_block, per_block <= fit)
+
+
+def plan_tiles(plan: TilePlan, block: int) -> List[Tuple[int, int, int]]:
+    """(segment, first row, rows) of each tile block `block` takes, in its
+    order: the kernel's tile_at over [block * per_block, ...)."""
+    first = min(plan.tiles, block * plan.per_block)
+    last = min(plan.tiles, first + plan.per_block)
+    out = []
+    for i in range(first, last):
+        seg, j = divmod(i, plan.tiles_per_seg)
+        r0 = j * plan.tile_rows
+        out.append((seg, r0, min(plan.tile_rows, plan.seg_rows - r0)))
+    return out
+
+
+# pea_group_norm_fwd(x, scale, bias, y, work, n, c, hw, groups, eps, silu,
+#                    channels_last, vec, dtype, scale_f32, bias_f32, variant, chunks,
+#                    width, tile_rows, slots, blocks, device, stream);
 # pea_group_norm_bias_fwd takes t after x and t_f32 after bias_f32
-_INTS = [ctypes.c_int] * 5
-_TAIL = [ctypes.c_float] + [ctypes.c_int] * 4
-_ARGTYPES = [ctypes.c_void_p] * 5 + _INTS + _TAIL + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_BIAS_ARGTYPES = ([ctypes.c_void_p] * 6 + _INTS + _TAIL + [ctypes.c_int] * 4
-                  + [ctypes.c_void_p])
+_HEAD = [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 6
+_PLAN = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + _HEAD + _PLAN
+_BIAS_ARGTYPES = [ctypes.c_void_p] * 6 + _HEAD + [ctypes.c_int] + _PLAN
+
+
+@functools.cache
+def library_gn_variants() -> tuple:
+    """The variant names the built library lists, in its order (read once)."""
+    count = kernel_build.function("pea_gn_variant_count", [])()
+    name = kernel_build.function("pea_gn_variant_name", [ctypes.c_int], ctypes.c_char_p)
+    return tuple(name(i).decode() for i in range(count))
+
+
+def shipped_gn_variant(n: int, c: int, hw: int, groups: int, nhwc: bool,
+                       dtype: torch.dtype, ptr: int = 0) -> str:
+    """The variant B6 and B6-b run for the shape, layout and type of a map at
+    address `ptr` (its alignment counts): the library's own rule
+    (``pea_gn_shipped_variant``), so it needs the built library."""
+    index = kernel_build.function("pea_gn_shipped_variant", [ctypes.c_int] * 7)(
+        n, c, hw, groups, int(nhwc), _DTYPES[dtype], min(16, ptr & -ptr) if ptr else 16)
+    return GN_VARIANTS[index]
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_WORK = {}  # (device index, stream) -> the persistent variant's work buffer
+
+
+def _work(x: torch.Tensor, floats: int) -> torch.Tensor:
+    """The persistent variant's work buffer on x's device and current stream:
+    the grid barrier's word (zero when made; its arrivals are zero again
+    after every launch, its generation moves on) then the partial sums.
+    Grown, never shrunk; launches on one stream run in order, so they share
+    it."""
+    key = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    work = _WORK.get(key)
+    if work is None or work.numel() < 4 + floats:
+        work = torch.zeros(max(4 + floats, 1 << 16), dtype=torch.float32, device=x.device)
+        _WORK[key] = work
+    return work
 
 
 def _param(p: torch.Tensor, x: torch.Tensor, shape: Tuple[int, ...], what: str):
@@ -178,8 +335,11 @@ def _param(p: torch.Tensor, x: torch.Tensor, shape: Tuple[int, ...], what: str):
 
 
 def _launch(name: str, x: torch.Tensor, t: Optional[torch.Tensor], scale: torch.Tensor,
-            bias: torch.Tensor, groups: int, eps: float, act: str) -> torch.Tensor:
-    """Checks the inputs and launches B6 (t None) or B6-b on x's layout."""
+            bias: torch.Tensor, groups: int, eps: float, act: str,
+            variant: Optional[str] = None, blocks: Optional[int] = None) -> torch.Tensor:
+    """Checks the inputs and launches B6 (t None) or B6-b on x's layout in
+    `variant` (None: the shipped one) on `blocks` blocks (persistent; None:
+    one a SM)."""
     if x.ndim != 4 or x.dtype not in _DTYPES:
         raise TypeError(f"group norm kernel: x {tuple(x.shape)} {x.dtype} "
                         "(takes 4-d bfloat16, float16 or float32)")
@@ -191,20 +351,34 @@ def _launch(name: str, x: torch.Tensor, t: Optional[torch.Tensor], scale: torch.
     if c // groups > MAX_GROUP_CHANNELS:
         raise ValueError(f"group norm kernel: {c // groups} channels per group "
                          f"(takes up to {MAX_GROUP_CHANNELS})")
-    nhwc = layout(x) == "nhwc"
-    vec = vector_width(c if nhwc else h * w, x.element_size(), x.data_ptr())
-    if layout(x) == "strided" or (nhwc and c // vec > MAX_ROW_VECTORS):
+    if layout(x) == "strided":
         x = x.contiguous()
         group_norm_fwd.copies += 1
-        nhwc = False
-        vec = vector_width(h * w, x.element_size(), x.data_ptr())
-    chunks = plan(n, c, h * w, groups, nhwc, vec)
+    nhwc = layout(x) == "nhwc"
+    if variant is None:
+        variant = shipped_gn_variant(n, c, h * w, groups, nhwc, x.dtype, x.data_ptr())
+    chunks = width = tile_rows = slots = 0
+    if variant == "three_pass":
+        vec = vector_width(c if nhwc else h * w, x.element_size(), x.data_ptr())
+        if nhwc and c // vec > MAX_ROW_VECTORS:
+            x = x.contiguous()
+            group_norm_fwd.copies += 1
+            nhwc = False
+            vec = vector_width(h * w, x.element_size(), x.data_ptr())
+        chunks = plan(n, c, h * w, groups, nhwc, vec)
+        work = torch.empty(n * groups * (chunks + 1) * 2, dtype=torch.float32,
+                           device=x.device)
+        blocks = 0
+    else:
+        vec = vector_width(c // groups if nhwc else h * w, x.element_size(), x.data_ptr())
+        p = persistent_plan(n, c, h * w, groups, nhwc, vec, x.element_size(),
+                            blocks or _sm_count(x.device.index))
+        width, tile_rows, slots, blocks = p.width, p.tile_rows, p.slots, p.blocks
+        work = _work(x, p.partial_floats)
     scale, scale_f32 = _param(scale, x, (c,), "weight")
     bias, bias_f32 = _param(bias, x, (c,), "bias")
     y = torch.empty_like(x, memory_format=torch.channels_last if nhwc
                          else torch.contiguous_format)
-    scratch = torch.empty(n * groups * (chunks + 1) * 2, dtype=torch.float32,
-                          device=x.device)
     head = [x.data_ptr()]
     flags = [scale_f32, bias_f32]
     argtypes = _ARGTYPES
@@ -214,9 +388,10 @@ def _launch(name: str, x: torch.Tensor, t: Optional[torch.Tensor], scale: torch.
         flags.append(t_f32)
         argtypes = _BIAS_ARGTYPES
     kernel_build.launch(name, argtypes, *head, scale.data_ptr(), bias.data_ptr(),
-                        y.data_ptr(), scratch.data_ptr(), n, c, h * w, groups, chunks,
-                        eps, int(act == "silu"), int(nhwc), vec, _DTYPES[x.dtype],
-                        *flags, x.device.index, kernel_build.stream_of(x))
+                        y.data_ptr(), work.data_ptr(), n, c, h * w, groups, eps,
+                        int(act == "silu"), int(nhwc), vec, _DTYPES[x.dtype], *flags,
+                        GN_VARIANTS.index(variant), chunks, width, tile_rows, slots, blocks,
+                        x.device.index, kernel_build.stream_of(x))
     return y
 
 
@@ -253,6 +428,34 @@ def group_norm_bias_fwd(x: torch.Tensor, t: torch.Tensor, scale: torch.Tensor,
 
 
 group_norm_bias_fwd.launches = 0
+
+
+def group_norm_variant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       groups: int, eps: float = 1e-5, act: str = "none",
+                       t: Optional[torch.Tensor] = None, variant: str = "persistent",
+                       blocks: Optional[int] = None) -> torch.Tensor:
+    """B6 (t None) or B6-b in the variant `variant` (a name of
+    ``GN_VARIANTS``), the same function as ``group_norm_fwd`` /
+    ``group_norm_bias_fwd``; `blocks` forces the persistent variant's grid.
+    CUDA tensors launch it and count the launch in
+    ``group_norm_variant.launches[variant]`` (not in the shipped wrappers'
+    counts) and raise on what the variant does not take, or if the card
+    refuses the launch; CPU tensors run ``fused_gn_ref``."""
+    if variant not in GN_VARIANTS:
+        raise ValueError(f"group norm variant {variant!r}: one of {', '.join(GN_VARIANTS)}")
+    if not x.is_cuda:
+        return fused_gn_ref(x, scale, bias, groups, eps, act, extra_bias=t)
+    check_no_grad("group_norm_variant", x, scale, bias, *([] if t is None else [t]))
+    if library_gn_variants() != GN_VARIANTS:
+        raise RuntimeError(f"the library's group norm variants {library_gn_variants()} are "
+                           f"not {GN_VARIANTS}")
+    y = _launch("pea_group_norm_fwd" if t is None else "pea_group_norm_bias_fwd", x, t,
+                scale, bias, groups, eps, act, variant, blocks)
+    group_norm_variant.launches[variant] += 1
+    return y
+
+
+group_norm_variant.launches = dict.fromkeys(GN_VARIANTS, 0)
 
 
 def _recomputed_vjp(ctx, g: torch.Tensor, ref: Callable[..., torch.Tensor]):

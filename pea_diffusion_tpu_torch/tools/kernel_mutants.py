@@ -29,7 +29,8 @@ SM90 = "attention_fwd_sm90_body.cuh"  # the wgmma body of B1 (D = 64) and B3
 SM90_COMMON = "sm90_common.cuh"  # its primitives, shared with the backward's
 SM90_BWD = "attention_bwd_sm90_body.cuh"  # the wgmma body of B4 and B5
 JOBS = 4  # mutants at once: each builds on the host's cores, then checks on the card
-GN = "groupnorm.cu"
+GN = "groupnorm.cu"  # B6/B6-b's three_pass variant
+GN_P = "groupnorm_sm90.cu"  # their persistent variant, the one the paths ship
 B4_P = "const float pr = exp2f(x - ls[col]);"
 # D = 40: the zeroing of shared-memory columns 40-47, and the guard that
 # makes load_a_fragments give 0 for them instead of reading past the row
@@ -87,9 +88,11 @@ MUTANTS = [
     ("D=40: load_a_fragments reads columns 40-47 (the next row) as Q / dO", [A_PAST_D],
      False),
     ("D=40: both of the above", [PAD_UNZEROED, A_PAST_D], True),
-    # GroupNorm. Each kernel row is checked contiguous (the slab of a group)
-    # and channels-last (the per-channel sums folded per group), so the
-    # group's channel range is cut short by one in both statistics kernels.
+    # GroupNorm's three_pass variant (groupnorm.cu), checked at every row
+    # through group_norm_variant. Each
+    # kernel row is checked contiguous (the slab of a group) and
+    # channels-last (the per-channel sums folded per group), so the group's
+    # channel range is cut short by one in both statistics kernels.
     ("B6/B6-b: the group's statistics skip its last channel (cg - 1)",
      [(GN, "const int total = p.cg * per_row;  // the group's channels, one slab",
        "const int total = (p.cg - 1) * per_row;"),
@@ -168,6 +171,27 @@ MUTANTS = [
     ("B5 (wgmma): KV mask dropped (zero-filled columns counted)",
      [(SM90_BWD, "      if (ragged && n0 + j * 8 + t * 2 + (e & 1) >= skv) x = kNegInf;\n", "")],
      False),
+    # B6/B6-b's persistent variant. (a) Without the wait at the grid
+    # barrier a block folds partial sums other blocks have not written yet:
+    # the previous launch's, of another map, in the same work buffer
+    ("persistent B6/B6-b: the grid barrier skipped",
+     [(GN_P, "      while (static_cast<unsigned>(ld_acquire(barrier) >> 32) == gen) "
+             "__nanosleep(32);\n",
+       "      (void)gen;\n")], True),
+    # (b) a group's statistics without the first covering block's rows:
+    # small at 132 blocks a sample, half the data where two blocks cover a
+    # (sample, group) slab (contiguous rows)
+    ("persistent B6/B6-b: the first covering block's partial left out of each fold",
+     [(GN_P, "const int blk = lo + lane + 32 * k;", "const int blk = lo + 1 + lane + 32 * k;")],
+     True),
+    # (c) the apply pass reads the next slot's tile (a block with one tile
+    # reads its own)
+    ("persistent B6/B6-b: the apply pass reads the neighbouring slot's tile",
+     [(GN_P, "const Pack<T, V>* tile = slot(s);\n    Pack<T, V>* out",
+       "const Pack<T, V>* tile = slot((s + 1) % slots);\n    Pack<T, V>* out")], True),
+    ("persistent B6-b: t left out of the statistics",
+     [(GN_P, "const float v = to_float(pk.v[e]) + (kNhwc ? tv[e] : tr);",
+       "const float v = to_float(pk.v[e]);")], True),
 ]
 
 _RUN = """
@@ -177,6 +201,7 @@ import torch.nn.functional as F
 sys.path.insert(0, ".")
 import chip_smoke
 chip_smoke.time_ms = lambda *args, **kwargs: 0.0
+chip_smoke.queued_ms = lambda *args, **kwargs: 0.0
 try:
     chip_smoke.kernel_phases(torch, F)
     chip_smoke.sweep_phase(torch, F)

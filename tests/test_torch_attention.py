@@ -390,9 +390,10 @@ def test_smoke_route_walk_of_sd15_at_1024():
 
 def test_smoke_names_each_kernel_in_its_build_lines():
     """chip_smoke.py's [build] lines: one per compiled kernel, its name
-    (namespaces below pea kept), element type and integer template
+    (namespaces below pea kept), element type and integer and bool template
     arguments (the wgmma body's head dim, warpgroups, K/V tile rows, stages
-    and fill mode), with ptxas's registers and spills; a wgmma
+    and fill mode; the persistent GroupNorm's vector width and layout), with
+    ptxas's registers, static shared memory and spills; a wgmma
     serialisation warning as it stands."""
     import chip_smoke
 
@@ -411,6 +412,10 @@ def test_smoke_names_each_kernel_in_its_build_lines():
         " for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 54 registers, 384 bytes cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_ZN3pea2gn13gn_persistentI13__nv_bfloat16Li8ELb1EEEvNS0_7PParamsE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 64 bytes smem, 400 bytes cmem[0]",
         "ptxas info    : Compiling entry function '_ZN3pea4sm9022wgmma_attention_kernelI6__half"
         "Li160ELi2ELi64ELi2ELi1EEEvNS0_6ParamsE14CUtensorMap_stS3_S3_' for 'sm_90a'",
         "ptxas info    : Function properties for _ZN3pea4sm9022wgmma_attention_kernelI6__half"
@@ -421,15 +426,17 @@ def test_smoke_names_each_kernel_in_its_build_lines():
         "ptxas info    : Used 128 registers, used 1 barriers, 816 bytes cmem[0]",
     ])
     assert chip_smoke.ptxas_lines(log) == [
-        "attention_fwd_kernel<bf16,160,64,64,2>: 238 registers; "
+        "attention_fwd_kernel<bf16,160,64,64,2>: 238 registers, 0 bytes static smem; "
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "attention_bwd_dkdv_wide_kernel<fp16,160>: 255 registers; "
+        "attention_bwd_dkdv_wide_kernel<fp16,160>: 255 registers, 0 bytes static smem; "
         "80 bytes stack frame, 80 bytes spill stores, 80 bytes spill loads",
-        "gn::stats_nhwc<fp32,4>: 54 registers; "
+        "gn::stats_nhwc<fp32,4>: 54 registers, 0 bytes static smem; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "gn::gn_persistent<bf16,8,1>: 128 registers, 64 bytes static smem; "
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions "
         "are serialized due to insufficient register resources for the wgmma pipeline",
-        "sm90::wgmma_attention_kernel<fp16,160,2,64,2,1>: 128 registers; "
+        "sm90::wgmma_attention_kernel<fp16,160,2,64,2,1>: 128 registers, 0 bytes static smem; "
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
     ]
 
@@ -440,14 +447,14 @@ def _mutants():
     return kernel_mutants.MUTANTS
 
 
-@pytest.mark.parametrize("n", range(26))
+@pytest.mark.parametrize("n", range(30))
 def test_each_kernel_mutant_names_text_of_the_sources(n):
     """tools/kernel_mutants.py plants each fault by replacing text of the
     CUDA sources: every replaced text occurs in its source as often as the
     mutant says, so that no mutant silently stops planting its fault."""
     from pea_diffusion_tpu_torch.tools import kernel_mutants
 
-    assert len(_mutants()) == 26
+    assert len(_mutants()) == 30
     what, edits, _ = _mutants()[n]
     csrc = kernel_mutants.REPO / "pea_diffusion_tpu_torch" / "csrc"
     for name, old, new, *count in edits:

@@ -6,9 +6,11 @@ silu, with and without the per-(sample, channel) bias t; the autograd
 Functions' gradients in x, t, scale and bias against ``jax.vjp`` of the JAX
 fused function; the opt-in gate's table; the GroupNorm module with the
 opt-in on (the CPU never takes the kernel); a channels-last input; and the
-wrapper's layout, vector width and chunking rules, which the CUDA kernels
-rely on and which this host can reach. The kernels themselves run in
-tests/test_torch_kernels_on_card.py.
+wrapper's layout, vector width and chunking rules and the persistent
+variant's tile plan (every element in exactly one tile, the resident
+decision against the shared-memory budget at every path shape), which the
+CUDA kernels rely on and which this host can reach. The kernels themselves
+run in tests/test_torch_kernels_on_card.py.
 
 Tolerances: fp32 atol 2e-5 (as tests/test_fused_groupnorm.py holds the
 Pallas kernel), gradients 3e-4; bf16 3e-2 (one bf16 rounding of outputs of
@@ -230,6 +232,142 @@ def test_chunk_plan_covers_the_map(n, c, hw, groups, nhwc, vec):
         assert chunks <= max(1, -(-per_group // G.THREADS))
     if n * c * hw >= 2**24:
         assert blocks >= G.TARGET_BLOCKS
+
+
+def _coverage(n, c, hw, groups, nhwc, vec, elem_size, blocks):
+    """How often the persistent plan's tiles, block by block, cover each
+    element of an [N, C, H*W] map (in its memory order), checking that each
+    block takes at most per_block tiles, a segment's blocks are consecutive
+    and no block before the last busy one is empty."""
+    p = G.persistent_plan(n, c, hw, groups, nhwc, vec, elem_size, blocks)
+    counts = np.zeros(n * c * hw, np.int32)
+    owners = {}
+    busy = [b for b in range(blocks) if G.plan_tiles(p, b)]
+    assert busy == list(range(len(busy)))
+    for b in busy:
+        tiles = G.plan_tiles(p, b)
+        assert len(tiles) <= p.per_block
+        for seg, r0, rows in tiles:
+            owners.setdefault(seg, set()).add(b)
+            start = (seg * p.seg_rows + r0) * p.width
+            counts[start:start + rows * p.width] += 1
+    for blks in owners.values():
+        assert sorted(blks) == list(range(min(blks), max(blks) + 1))
+    return p, counts
+
+
+@pytest.mark.parametrize("n,c,hw,groups,vec,elem_size,blocks", [
+    (2, 64, 96, 8, 8, 2, 132),     # fewer tiles than blocks
+    (3, 32, 50, 4, 8, 2, 4),       # segments shared between blocks
+    (5, 12, 7, 3, 4, 2, 2),        # more samples than blocks
+    (1, 93, 323, 3, 1, 2, 7),      # 31 channels per group, ragged rows
+    (2, 96, 900, 32, 1, 2, 16),    # 3 per group: 1-element vectors
+    (1, 16, 4096, 4, 4, 4, 3),     # fp32, many tiles a block
+])
+@pytest.mark.parametrize("nhwc", [True, False])
+def test_persistent_plan_covers_every_element_once(n, c, hw, groups, vec, elem_size,
+                                                   blocks, nhwc):
+    if not nhwc:
+        vec = G.vector_width(hw, elem_size, 0)
+    p, counts = _coverage(n, c, hw, groups, nhwc, vec, elem_size, blocks)
+    assert (counts == 1).all()
+    if nhwc:  # a row is one pixel's C channels; a vector lies in one group
+        assert (p.segs, p.seg_rows, p.width) == (n, hw, c) and (c // groups) % vec == 0
+    else:  # a row lies in one channel of a (sample, group) slab
+        assert p.segs == n * groups and hw % p.width == 0 and p.width % vec == 0
+
+
+def test_persistent_plan_at_every_path_shape():
+    """At each GroupNorm shape of the SDXL ControlNet path (and the smoke's
+    check shapes), on the H100's 132 SMs, both layouts: each segment's rows
+    covered once, the ring within the shared-memory budget, and the map
+    resident (every block's tiles in its slots) exactly when they fit: the
+    maps up to about 132 x TILE_BUDGET bytes."""
+    import chip_smoke
+
+    sms = 132
+    seen = {}
+    for _, b, c, h, w, groups, _, dtype, _, _ in chip_smoke.groupnorm_cases():
+        size = torch.empty((), dtype=dtype).element_size()
+        for nhwc in (True, False):
+            vec = G.vector_width(c // groups if nhwc else h * w, size, 0)
+            p = G.persistent_plan(b, c, h * w, groups, nhwc, vec, size, sms)
+            rows = {}
+            for blk in range(sms):
+                for seg, r0, n_rows in G.plan_tiles(p, blk):
+                    rows.setdefault(seg, []).append((r0, n_rows))
+            assert sorted(rows) == list(range(p.segs))
+            for spans in rows.values():
+                assert sum(n_rows for _, n_rows in spans) == p.seg_rows
+                assert all(r0 == prev + n for (prev, n), (r0, _) in zip(spans, spans[1:]))
+            assert 1 <= p.slots <= G.MAX_SLOTS and p.smem <= G.SMEM_MAX
+            assert p.tile_rows * p.width * size <= p.slot_bytes <= G.TILE_BUDGET
+            fits = p.per_block * p.slot_bytes <= G.TILE_BUDGET and p.per_block <= G.MAX_SLOTS
+            assert p.resident == fits
+            assert p.slots == min(p.per_block, G.MAX_SLOTS, G.TILE_BUDGET // p.slot_bytes)
+            nbytes = b * c * h * w * size
+            if nbytes * 1.1 <= sms * G.TILE_BUDGET:
+                assert p.resident, (b, c, h, w, nhwc)
+            if nbytes > sms * G.TILE_BUDGET:
+                assert not p.resident, (b, c, h, w, nhwc)
+            if nhwc:
+                seen[b, c, h] = p.resident
+    # the maps the ControlNet path keeps on chip, and those it reads twice
+    assert seen[2, 1280, 64] and seen[2, 320, 128] and seen[1, 512, 128]
+    assert seen[2, 2560, 32] and seen[2, 960, 64]
+    assert not (seen[2, 1920, 64] or seen[2, 640, 128] or seen[2, 960, 128]
+                or seen[1, 512, 256] or seen[1, 128, 1024])
+
+
+@pytest.mark.parametrize("hw,vec,want", [
+    (16384, 8, 4096),   # at most 512 vectors a row
+    (900, 4, 900),
+    (323, 1, 323),
+    (1024 * 1024, 8, 4096),
+    (2 * 1031, 2, 2),   # H*W itself would be 1031 vectors: rows of one vector
+])
+def test_row_width(hw, vec, want):
+    got = G.row_width(hw, vec)
+    assert hw % got == 0 and got % vec == 0 and got // vec <= G.P_THREADS
+    assert got == want
+
+
+def test_persistent_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="groups"):
+        G.persistent_plan(1, 2048, 64, 2048, True, 1, 2, 132)  # over 1024 groups
+    with pytest.raises(ValueError, match="rows of"):
+        G.persistent_plan(1, 1024, 64, 4, True, 1, 2, 132)  # 1024 vectors a row
+    with pytest.raises(ValueError, match="channels per group"):
+        G.persistent_plan(1, 2048, 64, 1, False, 8, 2, 132)  # contiguous, 2048 a group
+
+
+@pytest.mark.parametrize("variant", G.GN_VARIANTS)
+@pytest.mark.parametrize("with_t", [False, True])
+def test_variant_wrapper_on_cpu_is_the_plain_version(variant, with_t):
+    x, scale, bias, tb = _inputs((2, 4, 4, 16), seed=31)
+    args = (_nchw(x), t(scale), t(bias), 4, 1e-5, "silu")
+    got = G.group_norm_variant(*args, t=t(tb) if with_t else None, variant=variant)
+    want = G.fused_gn_ref(*args, extra_bias=t(tb) if with_t else None)
+    assert torch.equal(got, want)
+    assert G.group_norm_variant.launches == dict.fromkeys(G.GN_VARIANTS, 0)
+    with pytest.raises(ValueError, match="one of"):
+        G.group_norm_variant(*args, variant="two_pass")
+
+
+def test_variant_names_match_the_cuda_table():
+    """The wrapper's variant names are the C table's (kGnVariants), in its
+    order, and its persistent constants are the kernel's."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(G.__file__).resolve().parent.parent / "csrc"
+    table = re.search(r"kGnVariants\[\] = \{([^}]*)\}", (csrc / "groupnorm.cu").read_text())
+    assert tuple(re.findall(r'"(\w+)"', table.group(1))) == G.GN_VARIANTS
+    src = (csrc / "groupnorm_sm90.cu").read_text()
+    for name, value in (("kPThreads", G.P_THREADS), ("kRedFloats", G.RED_FLOATS),
+                        ("kMaxSlots", G.MAX_SLOTS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert "constexpr int kPersistentSmem = 227 * 1024;" in src and G.SMEM_MAX == 227 * 1024
 
 
 def test_bare_wrappers_on_cpu_are_differentiable_plain_versions():

@@ -10,8 +10,9 @@ can move it. Backward: below 2e-2 of the largest gradient, per output (P
 and dS are rounded to bf16 before their products, and dS is a difference of
 rounded terms). The attention modules' input gradients through the kernels
 must match the plain route's within 2e-2 too. The GroupNorm kernels (B6,
-B6-b) are held to 8e-3 of their fp32 plain version in bf16, fp16 and fp32,
-contiguous and channels-last, and must give the same bits on a second run.
+B6-b) are held, in each variant (three_pass, persistent), to 8e-3 of their
+fp32 plain version in bf16, fp16 and fp32, contiguous and channels-last,
+and must give the same bits on a second run.
 
 This file imports neither JAX nor the JAX package, so it runs where the
 card is, without the repository's conftest:
@@ -448,10 +449,16 @@ def test_onepass_variants_reject_what_they_do_not_take_on_card():
     ((1, 128, 256, 256), 32, torch.float32, "silu", False),   # fp32 VAE
     ((2, 960, 30, 30), 32, torch.bfloat16, "silu", True),     # ragged H*W, 30 per group
     ((1, 93, 17, 19), 3, torch.float16, "none", True),        # 31 per group, odd rows
+    ((2, 1280, 64, 64), 32, torch.bfloat16, "silu", True),    # resident over many blocks
+    ((1, 256, 512, 512), 32, torch.bfloat16, "silu", False),  # VAE: read twice
 ])
 @pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("variant", ["three_pass", "persistent"])
 def test_groupnorm_kernels_match_plain_on_card(shape, groups, dtype, act, with_t,
-                                               channels_last):
+                                               channels_last, variant):
+    """Each variant of B6/B6-b against fused_gn_ref in fp32, the same bits
+    from two launches, and the shipped wrapper with the bits of the variant
+    the library's rule picks for the shape."""
     from pea_diffusion_tpu_torch.ops import groupnorm
 
     dev = _card()
@@ -464,19 +471,44 @@ def test_groupnorm_kernels_match_plain_on_card(shape, groups, dtype, act, with_t
     bias = (0.1 * torch.randn(c, device=dev, generator=g)).float()  # fp32 beside x's type
     t = torch.randn(n, c, device=dev, generator=g).to(dtype) if with_t else None
     fn = groupnorm.group_norm_bias_fwd if with_t else groupnorm.group_norm_fwd
+    runs = groupnorm.group_norm_variant.launches[variant]
+    out, again = (groupnorm.group_norm_variant(x, scale, bias, groups, 1e-5, act, t=t,
+                                               variant=variant) for _ in range(2))
     n6 = fn.launches
-    out = (fn(x, t, scale, bias, groups, 1e-5, act) if with_t
-           else fn(x, scale, bias, groups, 1e-5, act))
-    again = (fn(x, t, scale, bias, groups, 1e-5, act) if with_t
-             else fn(x, scale, bias, groups, 1e-5, act))
+    shipped = (fn(x, t, scale, bias, groups, 1e-5, act) if with_t
+               else fn(x, scale, bias, groups, 1e-5, act))
     torch.cuda.synchronize()
-    assert fn.launches == n6 + 2
+    assert groupnorm.group_norm_variant.launches[variant] == runs + 2
+    assert fn.launches == n6 + 1
     ref = groupnorm.fused_gn_ref(x.float(), scale.float(), bias, groups, 1e-5, act,
                                  None if t is None else t.float())
     assert out.dtype == dtype and out.shape == x.shape
     assert out.is_contiguous(memory_format=torch.channels_last) == channels_last
     assert torch.equal(out, again)  # fixed summation order: the same bits every run
     assert _rel_err(out, ref) < RTOL
+    if groupnorm.shipped_gn_variant(n, c, shape[2] * shape[3], groups, channels_last,
+                                    dtype, x.data_ptr()) == variant:
+        assert torch.equal(shipped, out)
+
+
+@pytest.mark.gpu
+def test_groupnorm_persistent_raises_on_a_grid_the_card_cannot_hold_on_card():
+    """The persistent variant's cooperative launch with more blocks than the
+    card holds at once is refused, and the wrapper raises instead of
+    running anything else; the next launch runs as before."""
+    from pea_diffusion_tpu_torch.ops import groupnorm
+
+    dev = _card()
+    x = torch.randn(2, 320, 16, 16, device=dev).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    w, b = torch.ones(320, device=dev), torch.zeros(320, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    runs = groupnorm.group_norm_variant.launches["persistent"]
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        groupnorm.group_norm_variant(x, w, b, 32, variant="persistent", blocks=8 * sms)
+    assert groupnorm.group_norm_variant.launches["persistent"] == runs
+    out = groupnorm.group_norm_variant(x, w, b, 32, variant="persistent")
+    assert _rel_err(out, groupnorm.fused_gn_ref(x.float(), w, b, 32)) < RTOL
 
 
 @pytest.mark.gpu
