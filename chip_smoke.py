@@ -77,6 +77,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    fused GroupNorm opt-in (PEA_FUSED_GROUPNORM=1) off and on: one UNet
    forward of the CFG pair against an fp32 forward, warm requests in turns
    for latency, and a profile each way (build/chip_smoke_gn_{off,on}_profile.txt);
+   then few-step serving from a model directory (`fewstep_phase`): the SDXL
+   stack written in the diffusers / transformers layouts under
+   build/fewstep_deployment/ (unet/ and vae/ in bf16 safetensors, a
+   trailing-spacing scheduler config, the Chinese-CLIP tower's BERT config
+   and weights, proj_0/pytorch_model.bin, and a rank-64 peft LoRA over every
+   to_q/to_k/to_v/to_out.0 of the UNet, B nonzero), loaded back through the
+   port's loaders (seconds and file sizes logged). Without the LoRA the
+   loaded stack must give the written stack's bits (one UNet forward at
+   1024², the text tower and adapter on one prompt, every VAE tensor); with
+   it, exactly the file's pairs must have moved, each fused weight within
+   one bf16 step of bf16(W + B.A) computed here in fp32. Then two paths, two
+   requests each from launch counts of 0 (B1 and B3 as the walk gives them
+   at batch 1, no CFG): "lcm-lora serving" (the fused UNet, LCM 4 steps,
+   1024², guidance 0) and "turbo serving" (the plain loaded UNet, Euler-a
+   4 steps on the directory's trailing schedule, 512², guidance 0); the
+   same seed must give the same bits and another seed other bits; a profile
+   of one request each (build/chip_smoke_{lcm,turbo}_profile.txt). The
+   directory is deleted at the end;
 6. the SDXL ControlNet path with the opt-in on: the SDXL stack and a
    full-width SDXL ControlNet (random weights, its zero convs filled from
    the seed), the control image the Canny edges of a seeded image, two
@@ -176,6 +194,50 @@ SD15_TRAIN_BH = TRAINING["sd15 training"]["batch"] * SD15_HEADS
 SD15_1024_TRAIN_BH = TRAINING["sd15 1024 training"]["batch"] * SD15_HEADS
 SD15_1024_SERVING_BH = 2 * SD15_HEADS  # the CFG pair
 CONTROLNET_PATH = "sdxl controlnet serving"
+# Few-step serving from a model directory: image side, sampler, steps (the
+# reference operating points: LCM-LoRA and SDXL-Turbo at 4 steps, no CFG),
+# whether the UNet has the LoRA fused, the profile table.
+FEWSTEP = {
+    "lcm-lora serving": dict(size=1024, sampler="lcm", steps=4, lora=True,
+                             table="chip_smoke_lcm_profile.txt"),
+    "turbo serving": dict(size=512, sampler="euler_a", steps=4, lora=False,
+                          table="chip_smoke_turbo_profile.txt"),
+}
+LCM_PATH, TURBO_PATH = FEWSTEP
+LORA_RANK = 64
+# The deployment's config files, as diffusers and transformers write them
+# for SDXL-base, SDXL-Turbo's scheduler and the Chinese-CLIP RoBERTa-large
+# text tower (BERT layout).
+SDXL_UNET_CONFIG = {
+    "_class_name": "UNet2DConditionModel", "act_fn": "silu",
+    "addition_embed_type": "text_time", "addition_time_embed_dim": 256,
+    "attention_head_dim": [5, 10, 20], "block_out_channels": [320, 640, 1280],
+    "cross_attention_dim": 2048,
+    "down_block_types": ["DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"],
+    "flip_sin_to_cos": True, "freq_shift": 0, "in_channels": 4, "layers_per_block": 2,
+    "mid_block_type": "UNetMidBlock2DCrossAttn", "norm_num_groups": 32, "out_channels": 4,
+    "projection_class_embeddings_input_dim": 2816, "sample_size": 128,
+    "transformer_layers_per_block": [1, 2, 10],
+    "up_block_types": ["CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"],
+    "use_linear_projection": True,
+}
+SDXL_VAE_CONFIG = {
+    "_class_name": "AutoencoderKL", "act_fn": "silu", "block_out_channels": [128, 256, 512, 512],
+    "down_block_types": ["DownEncoderBlock2D"] * 4, "force_upcast": True, "in_channels": 3,
+    "latent_channels": 4, "layers_per_block": 2, "norm_num_groups": 32, "out_channels": 3,
+    "sample_size": 1024, "scaling_factor": 0.13025, "up_block_types": ["UpDecoderBlock2D"] * 4,
+}
+TURBO_SCHEDULER_CONFIG = {
+    "_class_name": "EulerAncestralDiscreteScheduler", "beta_end": 0.012,
+    "beta_schedule": "scaled_linear", "beta_start": 0.00085, "num_train_timesteps": 1000,
+    "prediction_type": "epsilon", "steps_offset": 1, "timestep_spacing": "trailing",
+}
+CHINESE_CLIP_TEXT_CONFIG = {
+    "architectures": ["BertModel"], "model_type": "bert", "hidden_act": "gelu",
+    "hidden_size": 1024, "intermediate_size": 4096, "layer_norm_eps": 1e-12,
+    "max_position_embeddings": 512, "num_attention_heads": 16, "num_hidden_layers": 24,
+    "pad_token_id": 0, "type_vocab_size": 2, "vocab_size": 21128,
+}
 PROMPTS = ["一只戴着帽子的可爱猫咪", "雪山下的湖泊，清晨的阳光"]
 SWEEP_PATH = "onepass sweep"
 SWEEP_SHAPES, SWEEP_ITERS = "b16,b2", 20
@@ -380,12 +442,24 @@ def forward_cases():
          "SDXL serving (and ControlNet): self-attention, level 2"),
         ("B1", 10, 1600, 1600, 10, 64, False, {sdxl_t: ("onepass", 1600, 1600)},
          "SDXL training teacher: self-attention, level 1"),
+        ("B1", 1, 4096, 4096, 10, 64, False, {LCM_PATH: ("onepass", 4096, 4096)},
+         "LCM-LoRA 1024², no CFG: self-attention, level 1"),
+        ("B1", 1, 1024, 1024, 20, 64, False, {LCM_PATH: ("onepass", 1024, 1024)},
+         "LCM-LoRA 1024², no CFG: self-attention, level 2"),
+        ("B1", 1, 1024, 1024, 10, 64, False, {TURBO_PATH: ("onepass", 1024, 1024)},
+         "Turbo 512², no CFG: self-attention, level 1"),
         ("B1", 2, 1024, 1000, 10, 64, False, {}, "masked ragged KV"),
         ("B1", 2, 1024, 1024, 10, 128, False, {}, "head_dim 128"),
         ("B3", 20, 4096, 52, 1, 64, False, sdxl_s(("flash", 4096, 52)),
          "SDXL serving (and ControlNet): cross-attention, level 1"),
         ("B3", 40, 1024, 52, 1, 64, False, sdxl_s(("flash", 1024, 52)),
          "SDXL serving (and ControlNet): cross-attention, level 2"),
+        ("B3", 10, 4096, 52, 1, 64, False, {LCM_PATH: ("flash", 4096, 52)},
+         "LCM-LoRA 1024², no CFG: cross-attention, level 1"),
+        ("B3", 20, 1024, 52, 1, 64, False, {LCM_PATH: ("flash", 1024, 52)},
+         "LCM-LoRA 1024², no CFG: cross-attention, level 2"),
+        ("B3", 10, 1024, 52, 1, 64, False, {TURBO_PATH: ("flash", 1024, 52)},
+         "Turbo 512², no CFG: cross-attention, level 1"),
         ("B3", 20, 1600, 52, 1, 64, True, {sdxl_t: ("flash", 1600, 52)},
          "SDXL training student: cross-attention, level 1, batch 2"),
         ("B3", 20, 1600, 77, 1, 64, False, {sdxl_t: ("flash", 1600, 77)},
@@ -1446,6 +1520,7 @@ def serving_phase(torch, model, kernels, repo):
             log(f"[{path}] done at {time.time() - t1:.1f}s after the stack's build")
     if model == "sdxl":
         fused_gn_ab(torch, models, pipe, tokenize, PROMPTS[0], repo)
+        fewstep_phase(torch, models, tokenize, kernels, repo)
 
 
 def serve_path(torch, models, tokenize, path, kernels, repo):
@@ -1570,6 +1645,223 @@ def fused_gn_ab(torch, models, pipe, tokenize, prompt, repo):
     log(f"[fused gn] warm {size}² request, opt-in off {lat[False]} s, on {lat[True]} s "
         f"(turns off, on, on, off); idle share off {idle[False]:.3f}, on {idle[True]:.3f}; "
         f"max |image on - image off| {diff:.4g}")
+
+
+def write_deployment(torch, models, root):
+    """Writes the serving stack `models` in the layouts a user downloads:
+    a diffusers model directory (unet/ and vae/ as bf16 safetensors with
+    their configs, scheduler/ with SDXL-Turbo's trailing spacing), the
+    Chinese-CLIP tower in a transformers BERT directory (text/), the
+    reference adapter (proj_0/) and a peft LoRA (lora.safetensors, fp16 as
+    LCM-LoRA ships) of rank LORA_RANK over every to_q/to_k/to_v/to_out.0 of
+    the UNet, A ~ N(0, 1/in) and B ~ N(0, 0.02²) from a seed. Returns the
+    LoRA's {UNet weight name: (A, B)} on the card and {file: bytes}."""
+    from pea_diffusion_tpu_torch.checkpoints.orbax_io import export_adapter
+    from pea_diffusion_tpu_torch.checkpoints.safetensors_io import save_safetensors
+
+    for sub, config, name, module in (
+            ("unet", SDXL_UNET_CONFIG, "diffusion_pytorch_model", models.unet),
+            ("vae", SDXL_VAE_CONFIG, "diffusion_pytorch_model", models.vae),
+            ("text", CHINESE_CLIP_TEXT_CONFIG, "model", models.text_encoder)):
+        (root / sub).mkdir(parents=True)
+        (root / sub / "config.json").write_text(json.dumps(config))
+        save_safetensors(str(root / sub / f"{name}.safetensors"), module.state_dict())
+    (root / "scheduler").mkdir()
+    (root / "scheduler" / "scheduler_config.json").write_text(json.dumps(TURBO_SCHEDULER_CONFIG))
+    export_adapter(models.adapter, str(root), 0)
+    dev = models.device
+    gen = torch.Generator(device=dev).manual_seed(17)
+    pairs, lora = {}, {}
+    for k, w in models.unet.state_dict().items():
+        path = k[:-len(".weight")]
+        if not (k.endswith(".weight") and path.endswith((".to_q", ".to_k", ".to_v", ".to_out.0"))):
+            continue
+        out_f, in_f = w.shape
+        a = (torch.randn(LORA_RANK, in_f, generator=gen, device=dev) / in_f ** 0.5).half()
+        b = (torch.randn(out_f, LORA_RANK, generator=gen, device=dev) * 0.02).half()
+        pairs[k] = (a, b)
+        lora[f"unet.{path}.lora_A.weight"], lora[f"unet.{path}.lora_B.weight"] = a, b
+    save_safetensors(str(root / "lora.safetensors"), lora)
+    return pairs, {str(f.relative_to(root)): f.stat().st_size
+                   for f in sorted(root.rglob("*")) if f.is_file()}
+
+
+def load_deployment(torch, root, device="cuda"):
+    """The deployment under `root` through the port's loaders onto the card
+    (`device`) in bf16 (the adapter's weights fp32), each load timed: {part: module or
+    config} and {load: seconds}. The files were just written, so they are
+    read from the page cache."""
+    from pea_diffusion_tpu_torch.checkpoints.load_pretrained import (
+        load_schedule, load_student_tower, load_unet, load_vae)
+    from pea_diffusion_tpu_torch.checkpoints.orbax_io import import_adapter
+    from pea_diffusion_tpu_torch.configs.adapter import ADAPTER_PRESETS
+    from pea_diffusion_tpu_torch.models.adapter import PEAAdapter
+    from pea_diffusion_tpu_torch.pipelines.factory import load_weights
+
+    bf16, d = torch.bfloat16, str(root)
+
+    def adapter():
+        with torch.device("meta"):
+            m = PEAAdapter(ADAPTER_PRESETS["sdxl_chinese_clip"], dtype=bf16)
+        sd = import_adapter(str(root / "proj_0" / "pytorch_model.bin"))
+        return load_weights(m, sd, torch.float32, device, "adapter")
+
+    loads = {
+        "unet": lambda: load_unet(d, dtype=bf16, device=device),
+        "unet with the LoRA fused": lambda: load_unet(
+            d, lora_paths=[str(root / "lora.safetensors")], dtype=bf16, device=device),
+        "vae": lambda: load_vae(d, dtype=bf16, device=device),
+        "schedule": lambda: load_schedule(d),
+        "text tower": lambda: load_student_tower("chinese_clip", str(root / "text"), dtype=bf16,
+                                                 device=device),
+        "adapter": adapter,
+    }
+    out, seconds = {}, {}
+    for name, load in loads.items():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out[name] = load()
+        torch.cuda.synchronize()
+        seconds[name] = time.time() - t0
+    return out, seconds
+
+
+def check_loaded(torch, models, tokenize, loaded, pairs):
+    """(a) the loaded stack without the LoRA gives the written stack's bits:
+    every UNet and VAE tensor, one UNet forward of the CFG pair at 1024²,
+    the text tower and adapter on one prompt; (b) the fused UNet differs
+    from it in exactly the LoRA's weights; (c) each fused weight is within
+    one bf16 step of bf16(W + B.A), computed here in fp32 (scale 1, no
+    alpha). Returns the worst (c) error in bf16 steps and the share of
+    elements not equal to that reference."""
+    from pea_diffusion_tpu_torch.pipelines.text2image import encode_prompt_sdxl, make_add_time_ids
+
+    unet, fused = loaded["unet"][1], loaded["unet with the LoRA fused"][1]
+    if unet.config != models.unet.config or loaded["text tower"][0] != models.text_encoder.config:
+        raise AssertionError("fewstep: the loaded configs differ from the written stack's")
+    for name, a, b in (("unet", models.unet, unet), ("vae", models.vae, loaded["vae"][1]),
+                       ("text tower", models.text_encoder, loaded["text tower"][1]),
+                       ("adapter", models.adapter, loaded["adapter"])):
+        sa, sb = a.state_dict(), b.state_dict()
+        if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k]) for k in sa):
+            raise AssertionError(f"fewstep: the loaded {name} differs from the written one")
+    dev = models.device
+    ids = torch.as_tensor(tokenize([PROMPTS[0]]), device=dev)
+    uncond = torch.as_tensor(tokenize([""]), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    size = SERVING["sdxl serving"]["size"]
+    x = torch.randn((2, size // 8, size // 8, 4), generator=gen, device=dev)
+    t = torch.full((2,), 500, device=dev)
+    with torch.inference_mode():
+        want = encode_prompt_sdxl(models, ids, uncond)
+        got = encode_prompt_sdxl(loaded["models"], ids, uncond)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("fewstep: text tower + adapter bits differ after the load")
+        added = {"text_embeds": want[1], "time_ids": make_add_time_ids(
+            (size, size), (0, 0), (size, size), 2, dev)}
+        if not torch.equal(unet(x, t, want[0], added), models.unet(x, t, want[0], added)):
+            raise AssertionError("fewstep: the loaded UNet's forward differs in bits")
+    sa, sf = unet.state_dict(), fused.state_dict()
+    moved = {k for k in sa if not torch.equal(sa[k], sf[k])}
+    if moved != set(pairs):
+        raise AssertionError(f"fewstep: {len(moved)} weights moved, the LoRA has "
+                             f"{len(pairs)} pairs")
+    steps, off, total = 0.0, 0, 0
+    for k, (a, b) in pairs.items():
+        ref = (sa[k].float() + b.float() @ a.float()).bfloat16().float()
+        err = (sf[k].float() - ref).abs() / 2.0 ** (torch.frexp(ref)[1] - 8)
+        steps = max(steps, err.max().item())
+        off, total = off + int((err > 0).sum()), total + err.numel()
+    if steps > 1:
+        raise AssertionError(f"fewstep: a fused weight is {steps} bf16 steps from bf16(W + B.A)")
+    return steps, off / total
+
+
+def fewstep_phase(torch, models, tokenize, kernels, repo):
+    """Few-step serving from a model directory written from `models` (the
+    SDXL serving stack): the write, the loads and their checks
+    (`check_loaded`), then each FEWSTEP path: REQUESTS requests at guidance
+    0 from launch counts of 0 (B1/B3 launches as the walk gives them, every
+    UNet call at batch 1), the first request again (the same bits) and at
+    another seed (other bits), and a profile of one request."""
+    import shutil
+
+    from pea_diffusion_tpu_torch.pipelines.factory import make_text_encoder_fn
+    from pea_diffusion_tpu_torch.pipelines.text2image import PEAModels
+
+    root = repo / "build" / "fewstep_deployment"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.time()
+        pairs, sizes = write_deployment(torch, models, root)
+        log(f"[fewstep] wrote the deployment in {time.time() - t0:.1f}s: {len(pairs)} LoRA "
+            f"pairs of rank {LORA_RANK}; bytes {sizes}")
+        loaded, seconds = load_deployment(torch, root, models.device)
+        log("[fewstep] load seconds " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+        text_cfg, text = loaded["text tower"]
+        vae_cfg, vae = loaded["vae"]
+        common = dict(text_encoder=text,
+                      text_encoder_fn=make_text_encoder_fn("chinese_clip", text_cfg, text)[1],
+                      adapter=loaded["adapter"], vae=vae, schedule=loaded["schedule"],
+                      vae_scaling=vae_cfg.scaling_factor, device=models.device)
+        loaded["models"] = PEAModels(unet=loaded["unet"][1], **common)
+        steps, off = check_loaded(torch, models, tokenize, loaded, pairs)
+        log(f"[fewstep] loaded stack = written stack (bits: every tensor, UNet forward, text "
+            f"tower + adapter); {len(pairs)} fused weights, the rest unchanged; fused vs "
+            f"bf16(W + B.A) in fp32: worst {steps:.3g} bf16 steps, {off:.3g} of the elements "
+            f"off; schedule {loaded['schedule']}")
+        for path, spec in FEWSTEP.items():
+            unet = loaded["unet with the LoRA fused" if spec["lora"] else "unet"][1]
+            serve_fewstep(torch, PEAModels(unet=unet, **common), tokenize, path, kernels, repo)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def serve_fewstep(torch, models, tokenize, path, kernels, repo):
+    """One FEWSTEP path (see `fewstep_phase`)."""
+    from pea_diffusion_tpu_torch.pipelines.text2image import StableDiffusionXLPEAPipeline
+
+    spec = FEWSTEP[path]
+    size, steps = spec["size"], spec["steps"]
+    pipe = StableDiffusionXLPEAPipeline(models, spec["sampler"])
+
+    def request(prompt, seed):
+        return pipe(tokenize([prompt]), tokenize([""]), height=size, width=size,
+                    num_steps=steps, guidance_scale=0.0, seed=seed).float()
+
+    routes = attention_routes(models.unet, size // 8, TEXT_TOKENS)
+    calls = [("serving", routes, steps * REQUESTS)]
+    want = path_launches(calls)
+    batches = []
+    hook = models.unet.register_forward_pre_hook(lambda m, args: batches.append(args[0].shape[0]))
+    reset_launch_counts()
+    images, req_s = [], []
+    try:
+        for i, prompt in enumerate(PROMPTS[:REQUESTS]):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            images.append(request(prompt, i))
+            torch.cuda.synchronize()
+            req_s.append(time.time() - t0)
+            check_image(images[-1], size, f"{path} request {i}", req_s[-1])
+    finally:
+        hook.remove()
+    served = launch_counts()
+    log(f"[{path}] attention calls per UNet forward at {size}² by (route, sq, skv): "
+        f"{dict(routes)}; UNet calls at batch {sorted(set(batches))}")
+    if batches != [1] * (steps * REQUESTS):
+        raise AssertionError(f"{path}: UNet calls at batches {batches}")
+    check_launches(path, served, want)
+    stamp_launches(kernels, path, calls, served)
+    same, other = request(PROMPTS[0], 0), request(PROMPTS[0], 1)
+    diff = (other - images[0]).abs().max().item()
+    log(f"[{path}] seed 0 again: same bits {torch.equal(same, images[0])}; seed 1: max |image "
+        f"difference| {diff:.4g}")
+    if not torch.equal(same, images[0]) or not diff > 1e-3:
+        raise AssertionError(f"{path}: the request's draws are not the seed's")
+    idle = profile_run(torch, lambda: request(PROMPTS[0], 7), min(req_s),
+                       repo / "build" / spec["table"], f"{path} profile")
+    log(f"[{path}] requests {req_s} s; idle share {idle:.3f}")
 
 
 def control_image(size):

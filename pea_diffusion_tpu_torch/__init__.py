@@ -12,11 +12,15 @@ ops/          attention dispatch, the hand-written Hopper kernels (B1
               one-pass, B3 flash forward, B4/B5 flash backward) with their
               plain versions, and the autograd Functions over them
 csrc/         the kernels' CUDA sources (built with nvcc at first use)
-schedulers/   DDIM and DPM-Solver++ tables and steps, DDPM add_noise
-pipelines/    SDXL text-to-image, sampler interface, model factories
+schedulers/   DDIM, DPM-Solver++, Euler, Euler-ancestral and LCM tables and
+              steps, DDPM add_noise and its ancestral step
+pipelines/    SD1.5 and SDXL text-to-image, SDXL ControlNet, the sampler
+              interface, model factories
 train/        KD loss and train step, the optax-equivalent optimizer,
               the trainer (checkpoints, resume, adapter export)
-checkpoints/  the JAX parameter tree -> the port's state dicts
+checkpoints/  weights from disk: safetensors, diffusers/transformers
+              directories, LoRA fusion, the reference adapter format; and
+              the JAX parameter tree -> the port's state dicts
 utils/        the JSONL metric log
 cli/          the generate and train CLIs
 

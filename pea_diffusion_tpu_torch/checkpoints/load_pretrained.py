@@ -1,0 +1,221 @@
+"""Loads a PEA deployment from checkpoints on disk (port of
+``pea_diffusion_tpu/checkpoints/load_pretrained.py``):
+
+- a diffusers model directory (SDXL / SD1.5 / SSD-1B layout: unet/, vae/,
+  scheduler/, each with its config and *.safetensors or *.bin weights);
+- a student text-tower directory (transformers layout: Chinese-CLIP);
+- a diffusers ControlNetModel directory;
+- LoRA safetensors fused into the UNet or a CLIP tower at load time.
+
+The port's modules carry the diffusers/transformers parameter names, so a
+loader strips the wrapper prefixes the JAX converters strip, loads the state
+dict into the module the factory builds (a missing key raises; extra keys
+are ignored and counted), and casts. Each returns (config, module) on
+`device` (the card unless the caller asks for the CPU); `dtype` None keeps
+float32, as the JAX loaders keep float32 parameters without one.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional
+
+import torch
+
+from ..configs.text_encoder import BertTextConfig, CLIPTextConfig
+from ..configs.unet import ControlNetConfig, UNetConfig, VAEConfig
+from ..pipelines.factory import load_weights
+from .lora import merge_lora_into_state_dict
+from .safetensors_io import load_safetensors_torch
+
+
+def _torch_load(path: str) -> Dict[str, torch.Tensor]:
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+
+def load_state_dict(directory: str) -> Dict[str, torch.Tensor]:
+    """A (possibly sharded) state dict from a directory's *.safetensors
+    files, or else its *.bin / *.pt files, or a single such file. The
+    tensors keep their stored type and view memory maps of the files."""
+    if os.path.isfile(directory):
+        if directory.endswith(".safetensors"):
+            return load_safetensors_torch(directory)
+        return _torch_load(directory)
+    files = sorted(os.listdir(directory))
+    for suffixes, read in (((".safetensors",), load_safetensors_torch),
+                           ((".bin", ".pt"), _torch_load)):
+        shards = [f for f in files if f.endswith(suffixes)]
+        if shards:
+            out: Dict[str, torch.Tensor] = {}
+            for f in shards:
+                out.update(read(os.path.join(directory, f)))
+            return out
+    raise FileNotFoundError(f"no weights in {directory}")
+
+
+def _read_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _fuse_loras(sd, lora_paths, lora_scales, component, device):
+    """Fuses each LoRA file's `component` pairs into `sd` (scales default to
+    1.0); the float32 products run on `device`."""
+    scales = list(lora_scales) + [1.0] * len(lora_paths)
+    for path, scale in zip(lora_paths, scales):
+        sd, _ = merge_lora_into_state_dict(sd, load_safetensors_torch(path), scale,
+                                           component=component, device=device)
+    return sd
+
+
+def load_unet(model_dir: str, lora_paths=(), lora_scales=(), dtype=None, device="cuda"):
+    """model_dir/unet -> (UNetConfig, UNet2DCondition), the LoRAs fused
+    first (the load_lora_weights + fuse_lora path)."""
+    from ..models.unet import UNet2DCondition
+
+    d = os.path.join(model_dir, "unet")
+    cfg = UNetConfig.from_diffusers_config(d)
+    sd = _fuse_loras(load_state_dict(d), lora_paths, lora_scales, "unet", device)
+    with torch.device("meta"):
+        unet = UNet2DCondition(cfg)
+    return cfg, load_weights(unet, sd, dtype or torch.float32, device, "unet")
+
+
+def load_vae(model_dir: str, dtype=None, device="cuda"):
+    """model_dir/vae -> (VAEConfig, AutoencoderKL)."""
+    from ..models.vae import AutoencoderKL
+
+    d = os.path.join(model_dir, "vae")
+    cfg = VAEConfig.from_diffusers_config(d)
+    with torch.device("meta"):
+        vae = AutoencoderKL(cfg)
+    return cfg, load_weights(vae, load_state_dict(d), dtype or torch.float32, device, "vae")
+
+
+def load_schedule(model_dir: str):
+    """model_dir/scheduler/scheduler_config.json -> NoiseScheduleConfig.
+
+    Checkpoints carry their own schedule conventions (SDXL-Turbo ships
+    trailing spacing; some fine-tunes ship v_prediction or zero-SNR betas);
+    without a scheduler directory, the repo's default SDXL_SCHEDULE."""
+    from ..schedulers import SDXL_SCHEDULE, NoiseScheduleConfig
+
+    path = os.path.join(model_dir, "scheduler", "scheduler_config.json")
+    if not os.path.exists(path):
+        return SDXL_SCHEDULE
+    c = _read_json(path)
+    return NoiseScheduleConfig(
+        num_train_timesteps=c.get("num_train_timesteps", 1000),
+        beta_start=c.get("beta_start", 0.00085),
+        beta_end=c.get("beta_end", 0.012),
+        beta_schedule=c.get("beta_schedule", "scaled_linear"),
+        prediction_type=c.get("prediction_type", "epsilon"),
+        timestep_spacing=c.get("timestep_spacing", "leading"),
+        steps_offset=c.get("steps_offset", 1),
+        clip_sample=c.get("clip_sample", False),
+        set_alpha_to_one=c.get("set_alpha_to_one", False),
+        rescale_betas_zero_snr=c.get("rescale_betas_zero_snr", False),
+    )
+
+
+def load_controlnet(directory: str, dtype=None, device="cuda"):
+    """A diffusers ControlNetModel directory -> (ControlNetConfig,
+    ControlNet)."""
+    from ..models.controlnet import ControlNet
+
+    c = _read_json(os.path.join(directory, "config.json"))
+    c.setdefault("out_channels", c.get("in_channels", 4))  # no output head
+    cfg = ControlNetConfig(
+        unet=UNetConfig.from_diffusers_config(c),
+        conditioning_channels=c.get("conditioning_channels", 3),
+        conditioning_embedding_channels=tuple(
+            c.get("conditioning_embedding_out_channels", (16, 32, 96, 256))))
+    with torch.device("meta"):
+        cn = ControlNet(cfg)
+    return cfg, load_weights(cn, load_state_dict(directory), dtype or torch.float32, device,
+                             "controlnet")
+
+
+def _strip(sd, prefixes):
+    """The keys under the first of `prefixes` that any key has, without it
+    (the others dropped); `sd` itself if none has one."""
+    for prefix in prefixes:
+        if any(k.startswith(prefix) for k in sd):
+            return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return sd
+
+
+def load_clip_text(directory: str, with_projection: bool = False, lora_paths=(),
+                   lora_scales=(), component: str = "text_encoder", dtype=None,
+                   device="cuda"):
+    """A transformers CLIPText{Model,ModelWithProjection} directory ->
+    (CLIPTextConfig, CLIPTextEncoder). `lora_paths` fuse the text-encoder
+    halves of LoRA files first; pass component="text_encoder_2" for SDXL's
+    bigG tower so that each file's pairs reach the right tower."""
+    from ..models.clip_text import CLIPTextEncoder
+
+    c = _read_json(os.path.join(directory, "config.json"))
+    cfg = CLIPTextConfig(
+        vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
+        num_layers=c["num_hidden_layers"], num_heads=c["num_attention_heads"],
+        intermediate_size=c["intermediate_size"],
+        max_position_embeddings=c["max_position_embeddings"],
+        hidden_act=c.get("hidden_act", "quick_gelu"),
+        eos_token_id=c.get("eos_token_id", 49407),
+        projection_dim=c.get("projection_dim") if with_projection else None,
+    )
+    sd = _fuse_loras(load_state_dict(directory), lora_paths, lora_scales, component, device)
+    proj = sd.get("text_projection.weight")
+    sd = _strip(sd, ("text_model.",))
+    if proj is not None:
+        sd["text_projection.weight"] = proj
+    with torch.device("meta"):
+        enc = CLIPTextEncoder(cfg)
+    return cfg, load_weights(enc, sd, dtype or torch.float32, device, "clip text")
+
+
+def bert_text_config(c: dict, roberta: Optional[bool] = None) -> BertTextConfig:
+    """A transformers Bert / XLM-R config dict (or a ChineseCLIPConfig, whose
+    `text_config` is read) -> BertTextConfig; RoBERTa positions when the
+    model type says roberta, unless `roberta` is given."""
+    c = c.get("text_config", c)
+    if roberta is None:
+        roberta = "roberta" in c.get("model_type", "")
+    return BertTextConfig(
+        vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
+        num_layers=c["num_hidden_layers"], num_heads=c["num_attention_heads"],
+        intermediate_size=c["intermediate_size"],
+        max_position_embeddings=c["max_position_embeddings"],
+        type_vocab_size=c.get("type_vocab_size", 2),
+        pad_token_id=c.get("pad_token_id", 0),
+        layer_norm_eps=c.get("layer_norm_eps", 1e-12),
+        roberta_position_ids=bool(roberta),
+    )
+
+
+def load_bert_text(directory: str, roberta: Optional[bool] = None, dtype=None,
+                   device="cuda"):
+    """A transformers Bert / XLM-R / Chinese-CLIP text directory ->
+    (BertTextConfig, BertTextEncoder), the `text_model.`, `bert.` or
+    `roberta.` prefix stripped."""
+    from ..models.bert_text import BertTextEncoder
+
+    cfg = bert_text_config(_read_json(os.path.join(directory, "config.json")), roberta)
+    sd = _strip(load_state_dict(directory), ("text_model.", "bert.", "roberta."))
+    with torch.device("meta"):
+        enc = BertTextEncoder(cfg)
+    return cfg, load_weights(enc, sd, dtype or torch.float32, device, "bert text")
+
+
+def load_student_tower(family: str, directory: str, directory_zh: Optional[str] = None,
+                       dtype=None, device="cuda"):
+    """The student text tower of a family -> (config, module), shaped for
+    ``pipelines.factory.make_text_encoder_fn(family, config, module)``.
+    chinese_clip is a transformers Chinese-CLIP / BERT directory; the other
+    families' towers are not ported yet."""
+    if family == "chinese_clip":
+        return load_bert_text(directory, dtype=dtype, device=device)
+    if family in ("mt5", "mul_clip", "alt_clip", "mul_zh"):
+        raise NotImplementedError(
+            f"text-encoder family {family!r} is not ported yet (ROADMAP Queue A item 12)")
+    raise ValueError(f"unknown text-encoder family: {family}")

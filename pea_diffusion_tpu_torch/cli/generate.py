@@ -1,16 +1,28 @@
 """Text-to-image CLI of the PyTorch port.
 
---model picks SDXL (default) or SD1.5. --demo runs a tiny random-weight
-stack of that architecture; --demo-full runs the full-size stack
-(Chinese-CLIP RoBERTa-large, the sdxl_chinese_clip or sd15_chinese_clip
-adapter, the model's UNet and VAE in bf16: the stacks of ``bench.py``) with
-random weights made on the device: real shapes and kernels, meaningless
-pixels. --control-image turns on ControlNet mode (SDXL): a tiny random
-ControlNet under --demo, the full SDXL ControlNet under --demo-full.
-Loading real checkpoints (--controlnet DIR among them) is not ported yet
-(ROADMAP Queue A item 9).
+Real mode loads a deployment from disk: --model-dir (a diffusers SDXL or
+SD1.5 directory: unet/, vae/, scheduler/), --text-encoder-dir (the student
+tower, transformers layout), --adapter (a reference `proj` checkpoint),
+optional --lora files fused into the UNet, and the tokenizer of
+--tokenizer-dir (default: the text-encoder dir) through transformers'
+AutoTokenizer. The UNet's config decides SDXL or SD1.5. --sampler euler_a
+--steps 4 --guidance 0 with a trailing-spacing scheduler is the SDXL-Turbo
+operating point; --lora LCM_LORA --sampler lcm --steps 4 --guidance 0 is
+LCM-LoRA's.
+
+--demo runs a tiny random-weight stack of --model's architecture (SDXL by
+default, or SD1.5; --adapter loads a `cli.train --demo` adapter into it);
+--demo-full runs the full-size stack (Chinese-CLIP RoBERTa-large, the
+sdxl_chinese_clip or sd15_chinese_clip adapter, the model's UNet and VAE in
+bf16: the stacks of ``bench.py``) with random weights made on the device:
+real shapes and kernels, meaningless pixels. --control-image turns on
+ControlNet mode (SDXL): the --controlnet DIR checkpoint in real mode, a tiny
+random ControlNet under --demo, the full SDXL ControlNet under --demo-full.
 
 Usage:
+  python -m pea_diffusion_tpu_torch.cli.generate --model-dir sdxl --text-encoder-dir cn-clip \
+      --adapter proj_1000/pytorch_model.bin --lora lcm-lora.safetensors --sampler lcm \
+      --steps 4 --guidance 0 -o out.png
   python -m pea_diffusion_tpu_torch.cli.generate --demo --device cpu -o out.png
   python -m pea_diffusion_tpu_torch.cli.generate --demo-full --sampler ddim --steps 4 -o out.png
   python -m pea_diffusion_tpu_torch.cli.generate --model sd15 --demo-full --sampler ddim --steps 20 -o out.png
@@ -89,6 +101,44 @@ def build_demo_full(device="cuda", seed: int = 0, model: str = "sdxl"):
     return models, make_tokenizer(CHINESE_CLIP_LARGE.vocab_size, 52), 512 if sd15 else 1024
 
 
+def build_real(args):
+    """The deployment of --model-dir, --text-encoder-dir and --adapter (see
+    the module's docstring) on --device, and its tokenizer. Returns (models,
+    tokenize, --size)."""
+    from ..checkpoints.load_pretrained import (load_schedule, load_student_tower, load_unet,
+                                               load_vae)
+    from ..checkpoints.orbax_io import import_adapter
+    from ..configs.adapter import ADAPTER_PRESETS
+    from ..models.adapter import PEAAdapter
+    from ..pipelines.factory import load_weights, make_text_encoder_fn, resolve_device
+    from ..pipelines.text2image import PEAModels
+
+    dev, bf16 = resolve_device(args.device), torch.bfloat16
+    unet_cfg, unet = load_unet(args.model_dir, lora_paths=args.lora or (),
+                               lora_scales=args.lora_scale or (), dtype=bf16, device=dev)
+    vae_cfg, vae = load_vae(args.model_dir, device=dev)
+    text_cfg, text = load_student_tower(args.family, args.text_encoder_dir, dtype=bf16,
+                                        device=dev)
+    _, text_fn = make_text_encoder_fn(args.family, text_cfg, text)
+    with torch.device("meta"):
+        adapter = PEAAdapter(ADAPTER_PRESETS[args.adapter_preset], dtype=bf16)
+    adapter = load_weights(adapter, import_adapter(args.adapter), torch.float32, dev,
+                           "adapter")
+    models = PEAModels(text_encoder=text, text_encoder_fn=text_fn, adapter=adapter,
+                       unet=unet, vae=vae, schedule=load_schedule(args.model_dir),
+                       vae_scaling=vae_cfg.scaling_factor, device=dev)
+
+    from transformers import AutoTokenizer
+
+    tok = AutoTokenizer.from_pretrained(args.tokenizer_dir or args.text_encoder_dir)
+
+    def tokenize(texts):
+        return tok(texts, padding="max_length", max_length=args.max_length,
+                   truncation=True, return_tensors="np")["input_ids"]
+
+    return models, tokenize, args.size
+
+
 def _load_image(path):
     from PIL import Image
 
@@ -98,9 +148,9 @@ def _load_image(path):
 def make_controlnet_run(args, models, size: int, steps: int):
     """ControlNet mode: the control image (Canny edges of it with
     --control-canny) at the output size, a ControlNet matching the UNet
-    (tiny, fp32, seed 2 under --demo, as the JAX CLI builds it; the full
-    SDXL one in bf16 under --demo-full), and a function that generates one
-    image per prompt."""
+    (the --controlnet checkpoint in bf16 in real mode; tiny, fp32, seed 2
+    under --demo, as the JAX CLI builds it; the full SDXL one in bf16 under
+    --demo-full), and a function that generates one image per prompt."""
     from ..pipelines.controlnet import (canny_edges, generate_sdxl_controlnet,
                                         prepare_control_image)
     from ..pipelines.factory import build_controlnet
@@ -109,7 +159,14 @@ def make_controlnet_run(args, models, size: int, steps: int):
     if args.control_canny:
         arr = canny_edges(arr)
     control = prepare_control_image(arr, size, size, 1)
-    if args.demo:
+    if args.controlnet and not args.demo:
+        from ..checkpoints.load_pretrained import load_controlnet
+
+        _, cn = load_controlnet(args.controlnet, dtype=torch.bfloat16, device=models.device)
+    elif args.demo:
+        if args.controlnet:  # a checkpoint's dims cannot match the tiny stack
+            print("[generate] --demo: ignoring --controlnet checkpoint, using the tiny "
+                  "random-weight ControlNet")
         cn = build_controlnet(models.unet.config, (8, 8, 16, 16), dtype=torch.float32,
                               device=args.device, seed=2)
     else:
@@ -129,27 +186,43 @@ def make_controlnet_run(args, models, size: int, steps: int):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    mode = ap.add_mutually_exclusive_group(required=True)
+    mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--demo", action="store_true",
                       help="tiny random-weight stack")
     mode.add_argument("--demo-full", action="store_true",
                       help="full-size stack with random weights")
-    ap.add_argument("--model", default="sdxl", choices=MODELS)
+    ap.add_argument("--model", default="sdxl", choices=MODELS,
+                    help="the demo stacks' architecture")
     ap.add_argument("--device", default="cuda")
+    real = ap.add_argument_group("real mode (neither --demo nor --demo-full)")
+    real.add_argument("--model-dir", help="diffusers model directory (unet/, vae/, scheduler/)")
+    real.add_argument("--text-encoder-dir", help="the student text tower (transformers)")
+    real.add_argument("--tokenizer-dir", help="default: --text-encoder-dir")
+    real.add_argument("--adapter", help="proj_N/pytorch_model.bin or .safetensors")
+    real.add_argument("--adapter-preset", default="sdxl_chinese_clip")
+    real.add_argument("--family", default="chinese_clip",
+                      choices=["chinese_clip", "mul_clip", "mt5", "alt_clip", "mul_zh"],
+                      help="the student tower's family (only chinese_clip is ported)")
+    real.add_argument("--lora", nargs="*", help="LoRA safetensors fused into the UNet")
+    real.add_argument("--lora-scale", nargs="*", type=float)
+    real.add_argument("--max-length", type=int, default=52)
     ap.add_argument("--prompt", default="一只戴着帽子的可爱猫咪")
     ap.add_argument("--negative-prompt", default="")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--guidance", type=float, default=7.5)
     ap.add_argument("--guidance-rescale", type=float, default=0.0,
                     help="SDXL only")
-    ap.add_argument("--sampler", default="dpm++", choices=["dpm++", "ddim"])
+    ap.add_argument("--sampler", default="dpm++",
+                    choices=["dpm++", "ddim", "euler", "euler_a", "lcm"],
+                    help="euler_a with --steps 4 --guidance 0 is the SDXL-Turbo "
+                         "operating point")
     ap.add_argument("--size", type=int, default=None,
                     help="image side (default: the model's, 1024 or 512; --demo caps it at 256)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("-o", "--output", default="out.png")
     cn = ap.add_argument_group("ControlNet mode (SDXL)")
     cn.add_argument("--controlnet", metavar="DIR",
-                    help="a diffusers ControlNetModel checkpoint (not ported yet)")
+                    help="a diffusers ControlNetModel checkpoint (real mode)")
     cn.add_argument("--control-image", metavar="PATH",
                     help="conditioning image (turns ControlNet mode on)")
     cn.add_argument("--control-canny", action="store_true",
@@ -160,21 +233,38 @@ def main(argv=None):
     cn.add_argument("--control-start", type=float, default=0.0)
     cn.add_argument("--control-end", type=float, default=1.0)
     args = ap.parse_args(argv)
-    if args.controlnet:
-        raise NotImplementedError("loading a ControlNet checkpoint waits for the "
-                                  "safetensors reader (ROADMAP Queue A item 9)")
-    if args.control_image and args.model != "sdxl":
+    real_mode = not (args.demo or args.demo_full)
+    if real_mode:
+        for req in ("model_dir", "text_encoder_dir", "adapter"):
+            if getattr(args, req) is None:
+                ap.error(f"--{req.replace('_', '-')} is required without --demo/--demo-full")
+    if args.controlnet and not args.control_image:
+        ap.error("--controlnet needs --control-image")
+    if real_mode and args.control_image and not args.controlnet:
+        ap.error("ControlNet mode needs --controlnet DIR without --demo/--demo-full")
+    if args.control_image and not real_mode and args.model != "sdxl":
         ap.error("ControlNet mode runs the SDXL stack (--model sdxl)")
 
     from ..pipelines.text2image import (StableDiffusionPEAPipeline,
                                         StableDiffusionXLPEAPipeline, to_pil)
 
-    if args.demo:  # the tiny stack is cut to its own size, as the JAX CLI's
+    if real_mode:
+        models, tokenize, size = build_real(args)
+        size = size or 1024
+        steps, sd15 = args.steps, models.unet.config.addition_embed_type is None
+    elif args.demo:  # the tiny stack is cut to its own size, as the JAX CLI's
         models, tokenize, max_size = build_demo(args.device, args.model)
+        if args.adapter:  # a `cli.train --demo` adapter: trained against these towers
+            from ..checkpoints.orbax_io import import_adapter
+
+            import_adapter(args.adapter, models.adapter)
         size, steps = min(args.size or max_size, max_size), min(args.steps, 8)
+        sd15 = args.model == "sd15"
     else:
         models, tokenize, size = build_demo_full(args.device, model=args.model)
-        size, steps = args.size or size, args.steps
+        size, steps, sd15 = args.size or size, args.steps, args.model == "sd15"
+    if args.control_image and sd15:
+        ap.error("ControlNet mode runs an SDXL UNet")
     extra = {}
     if args.control_image:
         run = make_controlnet_run(args, models, size, steps)
@@ -182,7 +272,7 @@ def main(argv=None):
         to_pil(imgs)[0].save(args.output)
         print(f"wrote {args.output}")
         return
-    if args.model == "sd15":
+    if sd15:
         pipe = StableDiffusionPEAPipeline(models, args.sampler)
     else:
         pipe = StableDiffusionXLPEAPipeline(models, args.sampler)

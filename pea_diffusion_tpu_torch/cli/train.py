@@ -13,8 +13,10 @@ real shapes and kernels, meaningless data.
   ViT-L teacher alone, the SD1.5 UNet and the fp32 SD1.5 VAE encoder, at
   micro-batch 40 and 512x512 by default (the reference's train_sd_zh.py
   operating point).
-Training from real checkpoints and webdataset shards is not ported yet
-(ROADMAP Queue A items 9 and 14).
+--resume-adapter starts from a reference-format adapter checkpoint
+(``proj_N/pytorch_model.bin`` or its safetensors sibling). Training from
+real checkpoints waits for the webdataset data pipeline (ROADMAP Queue A
+item 14).
 
 Usage:
   python -m pea_diffusion_tpu_torch.cli.train --demo --device cpu --steps 2 --output run
@@ -165,12 +167,14 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=100)
     ap.add_argument("--no-kd", action="store_true")
     ap.add_argument("--no-hybrid", action="store_true")
+    ap.add_argument("--resume-adapter", metavar="PATH",
+                    help="start from this reference-format adapter checkpoint")
     args = ap.parse_args(argv)
 
     if not (args.demo or args.demo_full):
         raise NotImplementedError(
-            "training from real checkpoints is not ported yet (ROADMAP Queue A "
-            "item 9); run --demo or --demo-full")
+            "training from real checkpoints waits for the webdataset data pipeline "
+            "(ROADMAP Queue A item 14); run --demo or --demo-full")
 
     from ..configs.train import TrainConfig
     from ..train.trainer import KDTrainer
@@ -183,6 +187,10 @@ def main(argv=None):
         batch = args.batch_size or default_batch
         models, make_batches = build_demo_full(args.device, batch, args.size or default_size,
                                                model=args.model)
+    if args.resume_adapter:
+        from ..checkpoints.orbax_io import import_adapter
+
+        import_adapter(args.resume_adapter, models.adapter)
     cfg = TrainConfig(
         learning_rate=args.lr, output_dir=args.output,
         every_n_steps=args.every_n_steps, log_every_n_steps=args.log_every,

@@ -3,11 +3,14 @@
 
 A down block with ``transformer_layers[i] == 0`` is a plain resnet block,
 otherwise a cross-attention block — diffusers' ``down_block_types`` without
-string matching.
+string matching. ``from_diffusers_config`` reads a diffusers ``config.json``,
+so a checkpoint directory defines its own architecture at load time.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional, Tuple, Union
 
 LayerSpec = Union[int, Tuple[int, ...]]  # per-block: int or per-layer tuple
@@ -66,6 +69,63 @@ class UNetConfig:
         rev = tuple(reversed(spec))
         return rev + (rev[-1],) * (n - len(rev))
 
+    @staticmethod
+    def from_diffusers_config(cfg: Union[dict, str]) -> "UNetConfig":
+        """A diffusers UNet2DConditionModel (or ControlNetModel) config, as a
+        dict or the directory holding its config.json."""
+        cfg = _read_config(cfg)
+        blocks = tuple(cfg["block_out_channels"])
+        n = len(blocks)
+        down_types = cfg.get("down_block_types") or ["CrossAttnDownBlock2D"] * n
+        tl = cfg.get("transformer_layers_per_block", 1)
+        if isinstance(tl, int):
+            tl = [tl] * n
+        layers = []
+        for i, t in enumerate(down_types):
+            if "CrossAttn" in t:
+                spec = tl[i]
+                layers.append(tuple(spec) if isinstance(spec, list) else spec)
+            else:
+                layers.append(0)
+        rev = cfg.get("reverse_transformer_layers_per_block")
+        if rev is not None:
+            rev = tuple(tuple(r) if isinstance(r, list) else r for r in rev)
+        # diffusers' `attention_head_dim` is historically the head *count*
+        # of SD-era UNets (8 for SD1.5, [5, 10, 20] for SDXL)
+        heads = cfg.get("num_attention_heads") or cfg["attention_head_dim"]
+        if isinstance(heads, int):
+            heads = [heads] * n
+        mid_type = str(cfg.get("mid_block_type", "UNetMidBlock2DCrossAttn"))
+        mid = tl[-1] if "CrossAttn" in mid_type else 0
+        if isinstance(mid, (list, tuple)):
+            mid = mid[0]
+        return UNetConfig(
+            in_channels=cfg["in_channels"],
+            out_channels=cfg["out_channels"],
+            block_out_channels=blocks,
+            layers_per_block=cfg.get("layers_per_block", 2),
+            transformer_layers=tuple(layers),
+            reverse_transformer_layers=rev,
+            num_attention_heads=tuple(heads),
+            cross_attention_dim=cfg.get("cross_attention_dim", 768),
+            mid_transformer_layers=mid,
+            norm_num_groups=cfg.get("norm_num_groups", 32),
+            addition_embed_type=cfg.get("addition_embed_type"),
+            addition_time_embed_dim=cfg.get("addition_time_embed_dim", 256),
+            projection_class_embeddings_input_dim=cfg.get(
+                "projection_class_embeddings_input_dim"),
+            flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
+            freq_shift=cfg.get("freq_shift", 0),
+            use_linear_projection=cfg.get("use_linear_projection", False),
+        )
+
+
+def _read_config(cfg: Union[dict, str]) -> dict:
+    if isinstance(cfg, str):
+        with open(os.path.join(cfg, "config.json")) as f:
+            return json.load(f)
+    return cfg
+
 
 SD15_UNET = UNetConfig()  # the defaults are SD1.5
 
@@ -122,6 +182,21 @@ class VAEConfig:
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215  # SDXL: 0.13025
     force_upcast: bool = True
+
+    @staticmethod
+    def from_diffusers_config(cfg: Union[dict, str]) -> "VAEConfig":
+        """A diffusers AutoencoderKL config, as a dict or its directory."""
+        cfg = _read_config(cfg)
+        return VAEConfig(
+            in_channels=cfg.get("in_channels", 3),
+            out_channels=cfg.get("out_channels", 3),
+            block_out_channels=tuple(cfg["block_out_channels"]),
+            layers_per_block=cfg.get("layers_per_block", 2),
+            latent_channels=cfg.get("latent_channels", 4),
+            norm_num_groups=cfg.get("norm_num_groups", 32),
+            scaling_factor=cfg.get("scaling_factor", 0.18215),
+            force_upcast=cfg.get("force_upcast", True),
+        )
 
 
 SD15_VAE = VAEConfig()

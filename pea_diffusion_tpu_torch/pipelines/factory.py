@@ -11,8 +11,9 @@ Modules are created on the meta device, given storage on the target device,
 and filled there from one seeded ``torch.Generator``: norm weights 1, biases
 0, every other weight N(0, 0.02), as the JAX package's ``init_params_host``
 fills them. The modules are built for inference: eval mode, no gradients.
-Real weights load with ``load_state_dict`` (see
-``checkpoints/from_jax.py``).
+Real weights load through ``checkpoints/load_pretrained.py`` (diffusers and
+transformers directories; ``load_weights`` below fills a module from a state
+dict) or from a JAX tree (``checkpoints/from_jax.py``).
 """
 from __future__ import annotations
 
@@ -46,11 +47,13 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def make_text_encoder_fn(family: str, text_cfg: BertTextConfig
+def make_text_encoder_fn(family: str, text_cfg: BertTextConfig,
+                         module: Optional[nn.Module] = None
                          ) -> Tuple[nn.Module, Callable[[torch.Tensor], torch.Tensor]]:
-    """(module, fn(ids) -> token states [B, T, D]) for a student family."""
+    """(module, fn(ids) -> token states [B, T, D]) for a student family; a
+    new module unless `module` (a loaded tower) is given."""
     if family == "chinese_clip":
-        enc = BertTextEncoder(text_cfg)
+        enc = BertTextEncoder(text_cfg) if module is None else module
         return enc, lambda ids: enc(ids).last_hidden_state
     raise NotImplementedError(
         f"text-encoder family {family!r} is not ported yet (ROADMAP Queue A item 12)")
@@ -68,6 +71,26 @@ def _materialize(module: nn.Module, dtype: torch.dtype, device: torch.device,
                 p.zero_()
             else:
                 p.normal_(0.0, 0.02, generator=gen)
+    return module.eval().requires_grad_(False)
+
+
+@torch.no_grad()
+def load_weights(module: nn.Module, state_dict, dtype: torch.dtype, device,
+                 what: str = "module") -> nn.Module:
+    """Fills `module` (built on the meta device) with `state_dict` on
+    `device` in `dtype`, for inference. Every tensor of the module must be in
+    the state dict, or it raises; keys the module does not have are ignored
+    and counted in the message."""
+    own = module.state_dict()
+    missing = [k for k in own if k not in state_dict]
+    if missing:
+        raise KeyError(f"{what}: {len(missing)} weights missing from the checkpoint, "
+                       f"e.g. {missing[:5]}")
+    extra = [k for k in state_dict if k not in own]
+    module.to(dtype).to_empty(device=resolve_device(device))
+    module.load_state_dict({k: state_dict[k] for k in own}, strict=True)
+    print(f"[load] {what}: {len(own)} tensors in {dtype}"
+          + (f", {len(extra)} extra keys ignored" if extra else ""))
     return module.eval().requires_grad_(False)
 
 

@@ -40,17 +40,24 @@ class PEAModels:
 
 
 def denoise_loop(eps_fn: Callable[[torch.Tensor, int], torch.Tensor],
-                 sampler: Sampler, noise: torch.Tensor, start: int = 0,
-                 end: Optional[int] = None,
+                 sampler: Sampler, noise: torch.Tensor,
+                 generator: Optional[torch.Generator] = None, step_noise=None,
+                 start: int = 0, end: Optional[int] = None,
                  init_latents: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sampling loop over steps [start, end). eps_fn(x, i) -> the
-    CFG-combined model output for latent x at step i."""
+    CFG-combined model output for latent x at step i. A stochastic sampler's
+    step i takes `step_noise[i]` if given, else its draw from `generator` (in
+    step order), else no noise (the JAX loop's rng=None)."""
     x = noise * sampler.init_noise_sigma if init_latents is None else init_latents
     state = sampler.init()
     end = sampler.num_steps if end is None else end
     for i in range(start, end):
         out = eps_fn(sampler.scale(i, x), i)
-        x, state = sampler.step(i, x, out, state)
+        if step_noise is not None:
+            draw = step_noise[i]
+        else:
+            draw = None if generator is None else sampler.draw(x, generator)
+        x, state = sampler.step(i, x, out, state, draw)
     return x
 
 
@@ -149,7 +156,9 @@ def generate_sd(models: PEAModels, ids, uncond_ids, *,
                 init_noise=None) -> torch.Tensor:
     """SD1.5: ids, uncond_ids [B, T] -> images [B, height, width, 3] in
     [0, 1], always with CFG. `init_noise` [B, H/8, W/8, C] replaces the
-    initial latents drawn from `generator`."""
+    initial latents drawn from `generator`. As in the JAX package, the
+    denoise loop gets no random source here: an ancestral or LCM sampler
+    takes no fresh noise on this path."""
     device = models.device
     with torch.inference_mode():
         ids, uncond_ids = _ids(ids, device), _ids(uncond_ids, device)
@@ -176,13 +185,16 @@ def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
                   guidance_scale=7.5, guidance_rescale=0.0,
                   original_size=None, crops_coords_top_left=(0, 0),
                   target_size=None, do_cfg: Optional[bool] = None,
-                  init_noise=None) -> torch.Tensor:
+                  init_noise=None, step_noise=None) -> torch.Tensor:
     """ids, uncond_ids [B, T] -> images [B, height, width, 3] in [0, 1].
 
     `guidance_scale` / `guidance_rescale` may be [B] vectors (one per
     request). `do_cfg` defaults to "some guidance > 1"; without CFG only the
-    conditional half runs. `init_noise` [B, H/8, W/8, 4] replaces the
-    initial latents drawn from `generator`."""
+    conditional half runs (the LCM / Turbo few-step path). `init_noise`
+    [B, H/8, W/8, 4] replaces the initial latents drawn from `generator`,
+    and `step_noise` [steps, B, H/8, W/8, 4] the draws of a stochastic
+    sampler's steps, which otherwise come from `generator` after the
+    initial latents."""
     device = models.device
     if do_cfg is None:
         do_cfg = bool(np.max(np.asarray(guidance_scale)) > 1.0)
@@ -210,7 +222,9 @@ def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
             out = models.unet(x_in, t, context, added).float()
             return cfg_combine(out, gs, gr) if do_cfg else out
 
-        latents = denoise_loop(eps_fn, sampler, noise)
+        if step_noise is not None:
+            step_noise = torch.as_tensor(np.asarray(step_noise), device=device)
+        latents = denoise_loop(eps_fn, sampler, noise, generator, step_noise)
         return decode_latents(models, latents)
 
 

@@ -1,4 +1,4 @@
-from . import common, ddim, ddpm, dpm_solver
+from . import common, ddim, ddpm, dpm_solver, euler, lcm
 from .common import NoiseScheduleConfig
 
 # Scheduler configs of the reference checkpoints' scheduler/config.json
@@ -8,5 +8,5 @@ SD15_SCHEDULE = NoiseScheduleConfig(
 )
 SDXL_SCHEDULE = SD15_SCHEDULE
 
-__all__ = ["common", "ddim", "ddpm", "dpm_solver", "NoiseScheduleConfig",
+__all__ = ["common", "ddim", "ddpm", "dpm_solver", "euler", "lcm", "NoiseScheduleConfig",
            "SD15_SCHEDULE", "SDXL_SCHEDULE"]

@@ -81,12 +81,40 @@ def predict_x0(prediction_type: str, sample: torch.Tensor,
     raise ValueError(prediction_type)
 
 
+def predict_eps(prediction_type: str, sample: torch.Tensor,
+                model_output: torch.Tensor, alpha_t: float,
+                sigma_t: float) -> torch.Tensor:
+    """The noise estimate from a model output (alpha_t, sigma_t as in
+    `predict_x0`)."""
+    if prediction_type == "epsilon":
+        return model_output
+    if prediction_type == "v_prediction":
+        return alpha_t * model_output + sigma_t * sample
+    if prediction_type == "sample":
+        return (sample - alpha_t * model_output) / sigma_t
+    raise ValueError(prediction_type)
+
+
+def _acp_coefficients(alphas_cumprod, sample, timesteps):
+    """sqrt(acp) and sqrt(1 - acp) at `timesteps` in the sample's type,
+    shaped to broadcast over each sample."""
+    acp = alphas_cumprod.to(sample.device)[timesteps].to(sample.dtype)
+    shape = (-1,) + (1,) * (sample.ndim - 1)
+    return torch.sqrt(acp).reshape(shape), torch.sqrt(1.0 - acp).reshape(shape)
+
+
 def add_noise(alphas_cumprod: torch.Tensor, sample: torch.Tensor,
               noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
     """q(x_t | x_0), the forward diffusion (DDPMScheduler.add_noise parity):
     the schedule's fp32 alphas_cumprod at `timesteps`, cast to the sample's
     type, then sqrt(acp) * sample + sqrt(1 - acp) * noise in that type."""
-    acp = alphas_cumprod.to(sample.device)[timesteps].to(sample.dtype)
-    shape = (-1,) + (1,) * (sample.ndim - 1)
-    return (torch.sqrt(acp).reshape(shape) * sample
-            + torch.sqrt(1.0 - acp).reshape(shape) * noise)
+    a, s = _acp_coefficients(alphas_cumprod, sample, timesteps)
+    return a * sample + s * noise
+
+
+def get_velocity(alphas_cumprod: torch.Tensor, sample: torch.Tensor,
+                 noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    """The v-prediction target sqrt(acp) * noise - sqrt(1 - acp) * sample,
+    in the sample's type as `add_noise`."""
+    a, s = _acp_coefficients(alphas_cumprod, sample, timesteps)
+    return a * noise - s * sample

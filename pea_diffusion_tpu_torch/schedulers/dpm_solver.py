@@ -26,7 +26,10 @@ class DPMSchedule(NamedTuple):
     prediction_type: str = "epsilon"
 
 
-def make_schedule(cfg: NoiseScheduleConfig, num_steps: int) -> DPMSchedule:
+def make_schedule(cfg: NoiseScheduleConfig, num_steps: int,
+                  lower_order_final: bool = True) -> DPMSchedule:
+    """`lower_order_final` is the JAX signature's: the final step is first
+    order either way (see below)."""
     acp = make_alphas_cumprod(cfg)
     ts = inference_timesteps(cfg, num_steps)
     a = np.sqrt(acp[ts])

@@ -5,9 +5,9 @@ in the reference's format, and resume.
 
 The train state (step, adapter, optimizer) goes through ``torch.save`` to
 ``<output_dir>/checkpoints/step_<N>.pt`` (the newest ``save_top_k`` kept);
-the adapter also goes to ``<output_dir>/proj_<N>/pytorch_model.bin`` under
-the reference's names, as the JAX package's ``orbax_io.export_adapter``
-writes it (the safetensors sibling is not written). DDP/FSDP and the
+the adapter also goes to ``<output_dir>/proj_<N>/pytorch_model.bin`` (and
+its ``model.safetensors`` sibling) under the reference's names, through
+``checkpoints/orbax_io.export_adapter``. DDP/FSDP and the
 per-bucket warmup are not ported (ROADMAP Queue A items 14 and 17).
 """
 from __future__ import annotations
@@ -19,8 +19,8 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..checkpoints.orbax_io import export_adapter
 from ..configs.train import TrainConfig
-from ..models.adapter import PEAAdapter
 from ..utils.metrics import MetricLogger
 from .kd import KDModels, KDState, make_train_step
 
@@ -30,26 +30,6 @@ ARRAY_KEYS = (
     "teacher_uncond_ids_1", "teacher_uncond_ids_2",
     "time_ids", "zh_or_not",
 )
-
-
-def export_adapter(adapter: PEAAdapter, directory: str, step: int) -> str:
-    """Writes ``proj_{step}/pytorch_model.bin``: the adapter's fp32 state
-    dict, whose names are the reference's (layernorm, projector.{0,2,..},
-    fc). Returns the directory."""
-    d = os.path.join(directory, f"proj_{step}")
-    os.makedirs(d, exist_ok=True)
-    torch.save({k: v.detach().float().cpu().contiguous()
-                for k, v in adapter.state_dict().items()},
-               os.path.join(d, "pytorch_model.bin"))
-    return d
-
-
-def import_adapter(adapter: PEAAdapter, path: str) -> PEAAdapter:
-    """Loads a reference ``pytorch_model.bin`` adapter checkpoint into
-    `adapter` (the counterpart of ``orbax_io.import_adapter``)."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    adapter.load_state_dict(sd)
-    return adapter
 
 
 def _batch_to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:

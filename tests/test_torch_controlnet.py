@@ -233,10 +233,41 @@ def test_cli_controlnet_demo_writes_an_image(tmp_path):
     assert Image.open(out).size == (16, 16)  # VAE_TINY upsamples 2x
 
 
-def test_cli_controlnet_checkpoints_name_the_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(["--demo", "--device", "cpu", "--controlnet", str(tmp_path),
-              "--control-image", "x.png"])
+def test_cli_controlnet_checkpoint_dir_serves(tmp_path, monkeypatch, capsys):
+    """Real mode with --controlnet DIR: a tiny SDXL model directory, text
+    tower, adapter and ControlNet written in the diffusers / transformers
+    layouts load through the port's loaders and give an image. The tiny
+    adapter is registered as a preset for the run."""
+    import os
+
+    from PIL import Image
+
+    import _torch_dirs as dirs
+    from pea_diffusion_tpu_torch.checkpoints.orbax_io import export_adapter
+    from pea_diffusion_tpu_torch.cli.generate import tiny_adapter_config
+    from pea_diffusion_tpu_torch.configs import ADAPTER_PRESETS
+
+    models, _, _ = build_demo(device="cpu")
+    cn = build_controlnet(SDXL_UNET_TINY, EMBED, dtype=torch.float32, device="cpu", seed=2,
+                          zero_init=False)
+    model_dir = dirs.write_model_dir(tmp_path / "sdxl", dirs.SDXL_UNET_JSON,
+                                     models.unet.state_dict(), models.vae.state_dict())
+    dirs.write_text_dir(str(tmp_path / "text"), models.text_encoder.state_dict())
+    dirs.write_component(str(tmp_path / "cn"), dirs.CONTROLNET_JSON, cn.state_dict())
+    monkeypatch.setitem(ADAPTER_PRESETS, "tiny", tiny_adapter_config("sdxl"))
+    proj = export_adapter(models.adapter, str(tmp_path), 1)
+    ctrl, out = tmp_path / "ctrl.png", tmp_path / "out.png"
+    arr = np.zeros((64, 64, 3), np.uint8)
+    arr[16:48, 16:48] = 255
+    Image.fromarray(arr).save(ctrl)
+    main(["--model-dir", model_dir, "--text-encoder-dir", str(tmp_path / "text"),
+          "--adapter", os.path.join(proj, "pytorch_model.bin"), "--adapter-preset", "tiny",
+          "--controlnet", str(tmp_path / "cn"), "--control-image", str(ctrl),
+          "--control-canny", "--size", "64", "--steps", "2", "--sampler", "ddim",
+          "--max-length", "8", "--device", "cpu", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert "[load] controlnet" in text and f"wrote {out}" in text
+    assert Image.open(out).size == (16, 16)  # VAE_TINY upsamples 2x
 
 
 def test_smoke_derives_every_groupnorm_call_from_the_modules():

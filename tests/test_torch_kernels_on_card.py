@@ -12,7 +12,8 @@ rounded terms). The attention modules' input gradients through the kernels
 must match the plain route's within 2e-2 too. The GroupNorm kernels (B6,
 B6-b) are held, in each variant (three_pass, persistent), to 8e-3 of their
 fp32 plain version in bf16, fp16 and fp32, contiguous and channels-last,
-and must give the same bits on a second run.
+and must give the same bits on a second run. A LoRA fused on the card
+gives the bits it gives on the CPU.
 
 This file imports neither JAX nor the JAX package, so it runs where the
 card is, without the repository's conftest:
@@ -70,6 +71,9 @@ def test_onepass_kernel_matches_plain_on_card(b, sq, skv, h, d, dtype):
     (10, 1600, 1600, 10),  # the SDXL training teacher: ragged Q and KV tails at batch ends
     (2, 1024, 1000, 10),   # masked ragged KV
     (3, 200, 100, 4),      # a single KV tile (Skv <= 128), ragged Q
+    (1, 4096, 4096, 10),   # no CFG (LCM-LoRA 1024²): batch 1, level 1
+    (1, 1024, 1024, 20),   # no CFG (LCM-LoRA 1024²): batch 1, level 2
+    (1, 1024, 1024, 10),   # no CFG (Turbo 512²): batch 1, level 1
 ])
 def test_onepass_wgmma_kernel_matches_plain_on_card(b, sq, skv, h, dtype):
     """B1 at head dim 64, the wgmma + TMA body (attention_fwd_sm90_body.cuh), at
@@ -105,6 +109,9 @@ def test_onepass_wgmma_kernel_matches_plain_on_card(b, sq, skv, h, dtype):
     (16, 1024, 52, 160, torch.float16),     # SD1.5 cross-attention, level 2 at 1024²
     (4, 1000, 1000, 160, torch.bfloat16),   # ragged Sq and Skv
     (3, 77, 300, 160, torch.float16),
+    (10, 4096, 52, 64, torch.bfloat16),     # no CFG (LCM-LoRA 1024²): cross-attention, level 1
+    (20, 1024, 52, 64, torch.bfloat16),     # no CFG (LCM-LoRA 1024²): level 2
+    (10, 1024, 52, 64, torch.bfloat16),     # no CFG (Turbo 512²): level 1
 ])
 def test_flash_kernel_matches_plain_on_card(bh, sq, skv, d, dtype):
     dev = _card()
@@ -563,3 +570,47 @@ def test_groupnorm_wrappers_refuse_inputs_that_need_grad_on_card():
         groupnorm.group_norm_bias_fwd(x, w[None], w, w, 8)
     with pytest.raises(TypeError):
         groupnorm.group_norm_fwd(x.detach().double(), w, w, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_merge_on_card_gives_the_cpu_bits(dtype):
+    """checkpoints/lora.py on CUDA tensors (weights on the card, or on the
+    CPU with the products on the card, as the loaders run it) against the
+    CPU. On a grid of 1/8 every product and sum is exact in fp32, so the
+    bits must be equal whatever the summation order; on normal draws the
+    float32 merge agrees within 1e-6 of its scale."""
+    from pea_diffusion_tpu_torch.checkpoints.lora import merge_lora_into_state_dict
+
+    dev = _card()
+    g = torch.Generator().manual_seed(0)
+    key = "down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q"
+    base = f"unet.{key}"
+    for grid in (True, False):
+        if grid:
+            w = (torch.randint(-64, 64, (640, 640), generator=g) / 8).to(dtype)
+            down = torch.randint(-8, 8, (64, 640), generator=g) / 8
+            up = torch.randint(-8, 8, (640, 64), generator=g) / 8
+        else:
+            w = torch.randn(640, 640, generator=g).to(dtype)
+            down, up = torch.randn(64, 640, generator=g), torch.randn(640, 64, generator=g)
+        lora_sd = {f"{base}.lora_A.weight": down, f"{base}.lora_B.weight": up,
+                   f"{base}.alpha": torch.tensor(32.0)}
+        cpu, n = merge_lora_into_state_dict({f"{key}.weight": w}, lora_sd, 0.5)
+        on_card, _ = merge_lora_into_state_dict(
+            {f"{key}.weight": w.to(dev)}, {k: v.to(dev) for k, v in lora_sd.items()}, 0.5)
+        products_on_card, _ = merge_lora_into_state_dict({f"{key}.weight": w}, lora_sd, 0.5,
+                                                         device=dev)
+        want = cpu[f"{key}.weight"]
+        assert n == 1 and want.dtype == dtype and not torch.equal(want, w)
+        assert on_card[f"{key}.weight"].device.type == "cuda"
+        assert products_on_card[f"{key}.weight"].device.type == "cpu"
+        for got in (on_card[f"{key}.weight"].cpu(), products_on_card[f"{key}.weight"]):
+            assert got.dtype == dtype
+            err = (got.float() - want.float()).abs()
+            if grid:
+                assert torch.equal(got, want)
+            elif dtype == torch.float32:
+                assert err.max().item() <= 1e-6 * want.abs().max().item()
+            else:  # at most one bf16 step
+                assert bool((err <= 2.0 ** (torch.frexp(want.float())[1] - 8)).all())

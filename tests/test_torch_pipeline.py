@@ -181,9 +181,16 @@ def test_generate_sd_slice_matches_jax(sd15_stacks, sampler_name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3)
 
 
-def test_unported_samplers_name_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        make_sampler("euler_a", SDXL_SCHEDULE, 4)
+@pytest.mark.parametrize("name", ["euler", "euler_a", "euler_ancestral", "lcm"])
+def test_few_step_samplers_are_built(name):
+    """The few-step samplers build with the JAX sampler's timesteps and
+    initial noise scale; a name neither package knows raises ValueError."""
+    js = jax_sampling.make_sampler(name, JAX_SCHEDULE, 4)
+    ps = make_sampler(name, SDXL_SCHEDULE, 4)
+    np.testing.assert_array_equal(np.asarray(js.timesteps), ps.timesteps)
+    assert ps.num_steps == js.num_steps and ps.init_noise_sigma == js.init_noise_sigma
+    with pytest.raises(ValueError, match="unknown sampler"):
+        make_sampler(name + "_x", SDXL_SCHEDULE, 4)
 
 
 def test_cli_demo_writes_an_image(tmp_path):
