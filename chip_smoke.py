@@ -12,6 +12,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    paths' shapes: SDXL's head dim 64, SD1.5's 40, 80 and 160 (bf16 inputs;
    the plain version in fp32 from the same bf16 inputs, in chunks of
    (batch, head) rows where its fp32 score matrices would not fit at once).
+   The forward rows include the refiner's (B1 at 12 and 24 heads, its
+   cross-attention) and SD2.1's at 768² (B3 self-attention at S = 9216 in
+   5 heads, B1 at S = 2304, cross-attention over 77 tokens).
    Forward (B1, B3 with and without lse): max |kernel - plain| below 8e-3
    of max |plain|, twice the most that rounding the output to bf16 can move
    it. Backward (B4: dK, dV; B5: dQ): below 2e-2 of max |plain| per
@@ -94,7 +97,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    4 steps on the directory's trailing schedule, 512², guidance 0); the
    same seed must give the same bits and another seed other bits; a profile
    of one request each (build/chip_smoke_{lcm,turbo}_profile.txt). The
-   directory is deleted at the end;
+   directory is deleted at the end. Then the inpainting, ensemble and
+   preset paths (`presets_phase`) on the SDXL stack's tower, adapter and
+   VAE, each extra UNet built in bf16 from a seed and freed before the
+   next, each path two requests of batch 1 at 1024² (DDIM, CFG 7.5) from
+   launch counts of 0, as the walk gives them (B1 and B3 only), finite
+   images in [0, 1] and the same bits again for the same seed:
+   "inpaint 9-channel serving" (SDXL_INPAINT_UNET, 10 steps at strength
+   0.85: 9 forwards a request; profile build/chip_smoke_inpaint_profile.txt)
+   and "inpaint blend serving" (the serving UNet, strength 0.6: 7
+   forwards), a centred square repainted, where the blend's final latents
+   outside the mask must equal the image's encoded latents bit for bit and
+   a request at strength 0.85 must differ; "sdxl ensemble serving" (the
+   base to the cutoff of 0.8: 8 of 10 steps; SDXL_REFINER_UNET with its
+   own 1280-d adapter the other 2, aesthetic scores 6.0 / 2.5; its
+   attention modules at levels 1 and 2 first held against plain attention
+   as in phase 4; profile build/chip_smoke_ensemble_profile.txt);
+   "ssd-1b serving" (SSD_1B_UNET through StableDiffusionXLPEAPipeline,
+   DDIM 4); stage times of each, the two VAE encodes included; and SD2.1
+   (no PEA pipeline in the JAX package): its level-0/1 attention modules at
+   768² against plain attention, then one UNet forward of the CFG pair at
+   768² over 77 random text states ("sd21 unet forward": level 0's 5 heads
+   take B3, level 1 B1);
 6. the SDXL ControlNet path with the opt-in on: the SDXL stack and a
    full-width SDXL ControlNet (random weights, its zero convs filled from
    the seed), the control image the Canny edges of a seeded image, two
@@ -205,6 +229,31 @@ FEWSTEP = {
 }
 LCM_PATH, TURBO_PATH = FEWSTEP
 LORA_RANK = 64
+# The inpainting, ensemble and preset paths (`presets_phase`, after the
+# few-step phase): the SDXL serving stack's tower, adapter and VAE, each
+# extra UNet in bf16 from a seed and freed before the next; 1024², DDIM
+# (10 steps, cut from 30; SSD-1B 4, as SDXL serving), CFG 7.5. Inpainting
+# repaints a centred square of half the side; the 4-channel blend must
+# keep the rest of the image's latents bit for bit and differ at
+# `other_strength`. The ensemble's base denoises down to the cutoff of
+# HIGH_NOISE_FRAC, the refiner (its own 1280-d adapter: the
+# sdxl_chinese_clip projector with the refiner's text width) the rest.
+INPAINT_9CH, INPAINT_BLEND = "inpaint 9-channel serving", "inpaint blend serving"
+ENSEMBLE_PATH, SSD_1B_PATH = "sdxl ensemble serving", "ssd-1b serving"
+SD21_PATH = "sd21 unet forward"
+PRESET_SIZE, PRESET_STEPS, SSD_1B_STEPS = 1024, 10, 4
+INPAINT = {
+    INPAINT_9CH: dict(unet="SDXL_INPAINT_UNET", strength=0.85,
+                      table="chip_smoke_inpaint_profile.txt"),
+    INPAINT_BLEND: dict(unet=None, strength=0.6, other_strength=0.85),
+}
+HIGH_NOISE_FRAC = 0.8
+ENSEMBLE_TABLE = "chip_smoke_ensemble_profile.txt"
+REFINER_ADAPTER = dict(in_dim=1024, projector_dims=(1024, 1024, 1280), head_dim=1280)
+# SD2.1 (no PEA adapter or pipeline in the JAX package): its attention
+# modules and one UNet forward of the CFG pair at 768² over OpenCLIP-H's 77
+# tokens; level 0's 5 heads fail the one-pass gate and take B3.
+SD21_SIZE, SD21_TOKENS = 768, 77
 # The deployment's config files, as diffusers and transformers write them
 # for SDXL-base, SDXL-Turbo's scheduler and the Chinese-CLIP RoBERTa-large
 # text tower (BERT layout).
@@ -432,14 +481,20 @@ def forward_cases():
     skv)}, what). B3 rows are head-major: batch is B*H, heads 1."""
     sdxl_t, sd15_s, sd15_t = "sdxl training", "sd15 serving", "sd15 training"
 
-    def sdxl_s(key):  # SDXL serving and the ControlNet path run the same shapes
-        return {"sdxl serving": key, CONTROLNET_PATH: key}
+    def sdxl_s(key, heads):
+        """SDXL serving, the ControlNet, inpainting and SSD-1B paths and the
+        ensemble's base run the same shapes; the ensemble's keys carry the
+        heads, which tell the base's calls from the refiner's."""
+        paths = ("sdxl serving", CONTROLNET_PATH, INPAINT_9CH, INPAINT_BLEND, SSD_1B_PATH)
+        return dict({path: key for path in paths}, **{ENSEMBLE_PATH: key + (heads,)})
 
     cases = [
-        ("B1", 2, 4096, 4096, 10, 64, False, sdxl_s(("onepass", 4096, 4096)),
-         "SDXL serving (and ControlNet): self-attention, level 1"),
-        ("B1", 2, 1024, 1024, 20, 64, False, sdxl_s(("onepass", 1024, 1024)),
-         "SDXL serving (and ControlNet): self-attention, level 2"),
+        ("B1", 2, 4096, 4096, 10, 64, False, sdxl_s(("onepass", 4096, 4096), 10),
+         "SDXL serving (ControlNet, inpainting, SSD-1B, ensemble base): self-attention, "
+         "level 1"),
+        ("B1", 2, 1024, 1024, 20, 64, False, sdxl_s(("onepass", 1024, 1024), 20),
+         "SDXL serving (ControlNet, inpainting, SSD-1B, ensemble base): self-attention, "
+         "level 2"),
         ("B1", 10, 1600, 1600, 10, 64, False, {sdxl_t: ("onepass", 1600, 1600)},
          "SDXL training teacher: self-attention, level 1"),
         ("B1", 1, 4096, 4096, 10, 64, False, {LCM_PATH: ("onepass", 4096, 4096)},
@@ -448,12 +503,30 @@ def forward_cases():
          "LCM-LoRA 1024², no CFG: self-attention, level 2"),
         ("B1", 1, 1024, 1024, 10, 64, False, {TURBO_PATH: ("onepass", 1024, 1024)},
          "Turbo 512², no CFG: self-attention, level 1"),
+        ("B1", 2, 4096, 4096, 12, 64, False, {ENSEMBLE_PATH: ("onepass", 4096, 4096, 12)},
+         "SDXL refiner (ensemble): self-attention, level 1"),
+        ("B1", 2, 1024, 1024, 24, 64, False, {ENSEMBLE_PATH: ("onepass", 1024, 1024, 24)},
+         "SDXL refiner (ensemble): self-attention, level 2"),
+        ("B1", 2, 2304, 2304, 10, 64, False, {SD21_PATH: ("onepass", 2304, 2304)},
+         "SD2.1 768²: self-attention, level 1"),
         ("B1", 2, 1024, 1000, 10, 64, False, {}, "masked ragged KV"),
         ("B1", 2, 1024, 1024, 10, 128, False, {}, "head_dim 128"),
-        ("B3", 20, 4096, 52, 1, 64, False, sdxl_s(("flash", 4096, 52)),
-         "SDXL serving (and ControlNet): cross-attention, level 1"),
-        ("B3", 40, 1024, 52, 1, 64, False, sdxl_s(("flash", 1024, 52)),
-         "SDXL serving (and ControlNet): cross-attention, level 2"),
+        ("B3", 20, 4096, 52, 1, 64, False, sdxl_s(("flash", 4096, 52), 10),
+         "SDXL serving (ControlNet, inpainting, SSD-1B, ensemble base): cross-attention, "
+         "level 1"),
+        ("B3", 40, 1024, 52, 1, 64, False, sdxl_s(("flash", 1024, 52), 20),
+         "SDXL serving (ControlNet, inpainting, SSD-1B, ensemble base): cross-attention, "
+         "level 2"),
+        ("B3", 24, 4096, 52, 1, 64, False, {ENSEMBLE_PATH: ("flash", 4096, 52, 12)},
+         "SDXL refiner (ensemble): cross-attention, level 1"),
+        ("B3", 48, 1024, 52, 1, 64, False, {ENSEMBLE_PATH: ("flash", 1024, 52, 24)},
+         "SDXL refiner (ensemble): cross-attention, level 2"),
+        ("B3", 10, 9216, 9216, 1, 64, False, {SD21_PATH: ("flash", 9216, 9216)},
+         "SD2.1 768²: self-attention, level 0 (5 heads: no one-pass kernel)"),
+        ("B3", 10, 9216, SD21_TOKENS, 1, 64, False, {SD21_PATH: ("flash", 9216, SD21_TOKENS)},
+         "SD2.1 768²: cross-attention, level 0"),
+        ("B3", 20, 2304, SD21_TOKENS, 1, 64, False, {SD21_PATH: ("flash", 2304, SD21_TOKENS)},
+         "SD2.1 768²: cross-attention, level 1"),
         ("B3", 10, 4096, 52, 1, 64, False, {LCM_PATH: ("flash", 4096, 52)},
          "LCM-LoRA 1024², no CFG: cross-attention, level 1"),
         ("B3", 20, 1024, 52, 1, 64, False, {LCM_PATH: ("flash", 1024, 52)},
@@ -1008,10 +1081,12 @@ def sweep_phase(torch, F):
     return entries
 
 
-def attention_calls(unet, latent: int, skv: int, device_type="cuda", grad_free=None):
+def attention_calls(unet, latent: int, skv: int, device_type="cuda", grad_free=None,
+                    heads=False):
     """(route, sq, skv, head_dim) of each attention call of one UNet forward
     at a latent side `latent`, in the order the forward runs them, from the
-    dispatch each attention module takes at its level's sequence length.
+    dispatch each attention module takes at its level's sequence length;
+    with `heads`, the call's head count after the head dim.
     With `grad_free` False or True, only the calls whose inputs do or do not
     depend on the text conditioning, which is what decides whether autograd
     records them when the adapter trains: without SDXL's added conditioning
@@ -1034,15 +1109,17 @@ def attention_calls(unet, latent: int, skv: int, device_type="cuda", grad_free=N
                         continue
                     route = attention_route(sq, kv, attn.num_heads, attn.head_dim,
                                             attn.backend, device_type)
-                    yield route, sq, kv, attn.head_dim
+                    yield (route, sq, kv, attn.head_dim) + ((attn.num_heads,) if heads else ())
 
 
-def attention_routes(unet, latent: int, skv: int, device_type="cuda", grad_free=None):
-    """{(route, sq, skv): calls} of one UNet forward (see `attention_calls`)."""
+def attention_routes(unet, latent: int, skv: int, device_type="cuda", grad_free=None,
+                     heads=False):
+    """{(route, sq, skv): calls} of one UNet forward (see `attention_calls`);
+    with `heads`, keyed (route, sq, skv, heads)."""
     from collections import Counter
 
-    return Counter(call[:3] for call in attention_calls(unet, latent, skv, device_type,
-                                                        grad_free))
+    return Counter(call[:3] + call[4:] for call in attention_calls(
+        unet, latent, skv, device_type, grad_free, heads))
 
 
 def routes_by_head_dim(unet, latent: int, skv: int):
@@ -1521,6 +1598,9 @@ def serving_phase(torch, model, kernels, repo):
     if model == "sdxl":
         fused_gn_ab(torch, models, pipe, tokenize, PROMPTS[0], repo)
         fewstep_phase(torch, models, tokenize, kernels, repo)
+        log(f"[fewstep] done at {time.time() - t1:.1f}s after the stack's build")
+        presets_phase(torch, models, tokenize, kernels, repo)
+        log(f"[presets] done at {time.time() - t1:.1f}s after the stack's build")
 
 
 def serve_path(torch, models, tokenize, path, kernels, repo):
@@ -1830,38 +1910,287 @@ def serve_fewstep(torch, models, tokenize, path, kernels, repo):
                     num_steps=steps, guidance_scale=0.0, seed=seed).float()
 
     routes = attention_routes(models.unet, size // 8, TEXT_TOKENS)
-    calls = [("serving", routes, steps * REQUESTS)]
-    want = path_launches(calls)
     batches = []
     hook = models.unet.register_forward_pre_hook(lambda m, args: batches.append(args[0].shape[0]))
-    reset_launch_counts()
-    images, req_s = [], []
     try:
-        for i, prompt in enumerate(PROMPTS[:REQUESTS]):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            images.append(request(prompt, i))
-            torch.cuda.synchronize()
-            req_s.append(time.time() - t0)
-            check_image(images[-1], size, f"{path} request {i}", req_s[-1])
+        images, req_s = serve_requests(torch, path, request, size,
+                                       [("serving", routes, steps * REQUESTS)], kernels)
     finally:
         hook.remove()
-    served = launch_counts()
     log(f"[{path}] attention calls per UNet forward at {size}² by (route, sq, skv): "
         f"{dict(routes)}; UNet calls at batch {sorted(set(batches))}")
-    if batches != [1] * (steps * REQUESTS):
+    if batches != [1] * (steps * (REQUESTS + 1)):  # the requests and the first again
         raise AssertionError(f"{path}: UNet calls at batches {batches}")
-    check_launches(path, served, want)
-    stamp_launches(kernels, path, calls, served)
-    same, other = request(PROMPTS[0], 0), request(PROMPTS[0], 1)
-    diff = (other - images[0]).abs().max().item()
-    log(f"[{path}] seed 0 again: same bits {torch.equal(same, images[0])}; seed 1: max |image "
-        f"difference| {diff:.4g}")
-    if not torch.equal(same, images[0]) or not diff > 1e-3:
-        raise AssertionError(f"{path}: the request's draws are not the seed's")
+    diff = (request(PROMPTS[0], 1) - images[0]).abs().max().item()
+    log(f"[{path}] seed 1: max |image difference| {diff:.4g}")
+    if not diff > 1e-3:
+        raise AssertionError(f"{path}: another seed gave the same image")
     idle = profile_run(torch, lambda: request(PROMPTS[0], 7), min(req_s),
                        repo / "build" / spec["table"], f"{path} profile")
     log(f"[{path}] requests {req_s} s; idle share {idle:.3f}")
+
+
+def serve_requests(torch, path, request, size, calls, kernels):
+    """REQUESTS requests (prompt i, seed i) of `request(prompt, seed)` from
+    launch counts of 0: finite [1, size, size, 3] images in [0, 1] and the
+    launches of `calls` (stamped on the kernel rows); then the first again,
+    which must give the same bits. Returns the images and request seconds."""
+    want = path_launches(calls)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    images, req_s = [], []
+    for i, prompt in enumerate(PROMPTS[:REQUESTS]):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        images.append(request(prompt, i).float())
+        torch.cuda.synchronize()
+        req_s.append(time.time() - t0)
+        check_image(images[-1], size, f"{path} request {i}", req_s[-1])
+    served = launch_counts()
+    log(f"[{path}] UNet forwards {[n for _, _, n in calls]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_launches(path, served, want)
+    stamp_launches(kernels, path, calls, served)
+    same = torch.equal(request(PROMPTS[0], 0).float(), images[0])
+    log(f"[{path}] seed 0 again: same bits {same}")
+    if not same:
+        raise AssertionError(f"{path}: the same seed gave other bits")
+    return images, req_s
+
+
+def inpaint_inputs(torch, size):
+    """A seeded image of 64-pixel blocks and a mask repainting a centred
+    square of half the side, preprocessed as the CLI does, on the card."""
+    import numpy as np
+
+    from pea_diffusion_tpu_torch.pipelines.inpaint import preprocess_image, preprocess_mask
+
+    blocks = np.random.default_rng(1).integers(0, 256, (size // 64, size // 64, 3))
+    image = np.kron(blocks, np.ones((64, 64, 1))).astype(np.uint8)
+    mask = np.zeros((size, size), np.uint8)
+    mask[size // 4:3 * size // 4, size // 4:3 * size // 4] = 255
+    return (torch.from_numpy(preprocess_image(image, size, size)).cuda(),
+            torch.from_numpy(preprocess_mask(mask, size, size)).cuda())
+
+
+def presets_phase(torch, models, tokenize, kernels, repo):
+    """The inpainting paths, the base + refiner ensemble, SSD-1B serving and
+    the SD2.1 checks, on the SDXL serving stack's tower, adapter and VAE
+    (`models`), each extra UNet built from a seed and freed after its path."""
+    from pea_diffusion_tpu_torch import configs
+    from pea_diffusion_tpu_torch.pipelines.factory import with_unet
+
+    for path, spec in INPAINT.items():
+        m = models if spec["unet"] is None else with_unet(
+            models, getattr(configs, spec["unet"]), seed=11)
+        serve_inpaint(torch, m, tokenize, path, kernels, repo)
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    refiner = with_unet(models, configs.SDXL_REFINER_UNET,
+                        configs.AdapterConfig(**REFINER_ADAPTER), seed=12)
+    reference_attention_modules(torch, refiner.unet, PRESET_SIZE // 8, (1, 2))
+    serve_ensemble(torch, models, refiner, tokenize, kernels, repo)
+    del refiner
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_ssd_1b(torch, with_unet(models, configs.SSD_1B_UNET, seed=13), tokenize, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd21_checks(torch, kernels)
+
+
+def serve_inpaint(torch, models, tokenize, path, kernels, repo):
+    """One INPAINT path: REQUESTS requests (`serve_requests`), the VAE
+    encodes' and the UNet's stage times; for the blend, the final latents
+    outside the mask against the image's encoded latents (bit for bit; both
+    captured by wrapping the inpaint module's decode_latents and
+    encode_vae_image) and a request at `other_strength`, which must differ;
+    for the 9-channel path, a profile."""
+    from pea_diffusion_tpu_torch.pipelines import inpaint
+    from pea_diffusion_tpu_torch.pipelines.text2image import (encode_prompt_sdxl,
+                                                              make_add_time_ids)
+
+    spec, size, steps = INPAINT[path], PRESET_SIZE, PRESET_STEPS
+    latent, nine = size // 8, models.unet.config.in_channels == 9
+    image, mask = inpaint_inputs(torch, size)
+
+    def request(prompt, seed, strength=spec["strength"]):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return inpaint.generate_sdxl_inpaint(
+            models, tokenize([prompt]), tokenize([""]), image, mask, generator=gen,
+            sampler_name="ddim", height=size, width=size, num_steps=steps,
+            guidance_scale=GUIDANCE, strength=strength)
+
+    forwards = steps - inpaint.strength_start(steps, spec["strength"])
+    routes = attention_routes(models.unet, latent, TEXT_TOKENS)
+    log(f"[{path}] {models.unet.config.in_channels}-channel UNet, strength {spec['strength']}: "
+        f"steps {steps - forwards}-{steps - 1} ({forwards} UNet forwards a request)")
+    images, req_s = serve_requests(torch, path, request, size,
+                                   [("serving", routes, forwards * REQUESTS)], kernels)
+
+    if not nine:
+        encoded, final = [], []
+        encode, decode = inpaint.encode_vae_image, inpaint.decode_latents
+
+        def encode_and_keep(*args, **kw):
+            encoded.append(encode(*args, **kw))
+            return encoded[-1]
+
+        def keep_and_decode(m, z, *args, **kw):
+            final.append(z)
+            return decode(m, z, *args, **kw)
+
+        inpaint.encode_vae_image, inpaint.decode_latents = encode_and_keep, keep_and_decode
+        try:
+            again = request(PROMPTS[0], 0).float()
+        finally:
+            inpaint.encode_vae_image, inpaint.decode_latents = encode, decode
+        keep = inpaint.mask_to_latents(mask, latent, latent)[0, ..., 0] == 0
+        final, encoded = final[0][0].float(), encoded[0][0].float()  # the image's, not the masked
+        kept = torch.equal(final[keep], encoded[keep])
+        repainted = (final[~keep] - encoded[~keep]).abs().max().item()
+        other = request(PROMPTS[0], 0, spec["other_strength"]).float()
+        diff = (other - images[0]).abs().max().item()
+        log(f"[{path}] final latents outside the mask ({int(keep.sum())} of {keep.numel()} "
+            f"positions x 4) equal the image's encoded latents: {kept}; inside, max "
+            f"|difference| {repainted:.4g}; same bits as request 0: "
+            f"{torch.equal(again, images[0])}; strength {spec['other_strength']}: max |image "
+            f"difference| {diff:.4g}")
+        if not kept or not repainted > 0 or not diff > 1e-3:
+            raise AssertionError(f"{path}: the blend did not keep the image outside the "
+                                 f"mask ({kept}, {repainted}) or strength did nothing ({diff})")
+
+    dev = models.device
+    ids = torch.as_tensor(tokenize([PROMPTS[0]]), device=dev)
+    uncond = torch.as_tensor(tokenize([""]), device=dev)
+    x = torch.randn((2, latent, latent, models.unet.config.in_channels), device=dev)
+    t = torch.full((2,), 500, device=dev)
+    with torch.inference_mode():
+        context, pooled = encode_prompt_sdxl(models, ids, uncond)
+        added = {"text_embeds": pooled, "time_ids": make_add_time_ids(
+            (size, size), (0, 0), (size, size), 2, dev)}
+        enc = event_ms(torch, lambda: encode_prompt_sdxl(models, ids, uncond))
+        vae_enc = event_ms(torch, lambda: inpaint.encode_vae_image(models, image))
+        unet = event_ms(torch, lambda: models.unet(x, t, context, added))
+        dec = event_ms(torch, lambda: inpaint.decode_latents(models, x[:1, ..., :4]))
+    attn_ms = sum(e["ms"] * e["launches_by_path"][path] for e in kernels) / (
+        forwards * REQUESTS)
+    log(f"[{path} stages] prompt encoding {enc:.3f} ms; VAE encode {vae_enc:.3f} ms (two a "
+        f"request: the image and the masked image); UNet forward of the CFG pair {unet:.3f} "
+        f"ms, of which attention kernels ~{attn_ms:.3f} ms; VAE decode {dec:.3f} ms")
+    if "table" in spec:
+        idle = profile_run(torch, lambda: request(PROMPTS[0], 7), min(req_s),
+                           repo / "build" / spec["table"], f"{path} profile")
+        log(f"[{path}] requests {req_s} s; idle share {idle:.3f}")
+    else:
+        log(f"[{path}] requests {req_s} s")
+
+
+def serve_ensemble(torch, base, refiner, tokenize, kernels, repo):
+    """The base + refiner ensemble: REQUESTS requests (`serve_requests`;
+    launches keyed by heads, the base's and the refiner's calls apart), each
+    stage's time and a profile."""
+    from pea_diffusion_tpu_torch.pipelines.sampling import make_sampler
+    from pea_diffusion_tpu_torch.pipelines.text2image import (
+        decode_latents, encode_prompt_sdxl, generate_sdxl_ensemble, make_add_time_ids,
+        steps_at_or_above)
+
+    size, steps, latent, path = PRESET_SIZE, PRESET_STEPS, PRESET_SIZE // 8, ENSEMBLE_PATH
+
+    def request(prompt, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return generate_sdxl_ensemble(
+            base, refiner, tokenize([prompt]), tokenize([""]), generator=gen, height=size,
+            width=size, num_steps=steps, guidance_scale=GUIDANCE,
+            high_noise_frac=HIGH_NOISE_FRAC, sampler_name="ddim")
+
+    base_steps = steps_at_or_above(make_sampler("ddim", base.schedule, steps), base.schedule,
+                                   HIGH_NOISE_FRAC)
+    calls = [("serving", attention_routes(base.unet, latent, TEXT_TOKENS, heads=True),
+              base_steps * REQUESTS),
+             ("serving", attention_routes(refiner.unet, latent, TEXT_TOKENS, heads=True),
+              (steps - base_steps) * REQUESTS)]
+    log(f"[{path}] base steps 0-{base_steps - 1}, refiner {base_steps}-{steps - 1}; refiner "
+        f"calls per forward by (route, sq, skv, heads): {dict(calls[1][1])}")
+    _, req_s = serve_requests(torch, path, request, size, calls, kernels)
+
+    dev = base.device
+    ids = torch.as_tensor(tokenize([PROMPTS[0]]), device=dev)
+    uncond = torch.as_tensor(tokenize([""]), device=dev)
+    x = torch.randn((2, latent, latent, 4), device=dev)
+    t = torch.full((2,), 500, device=dev)
+    times = {}
+    with torch.inference_mode():
+        for name, m, tid in (("base", base, {}), ("refiner", refiner, {"aesthetic_score": 6.0})):
+            context, pooled = encode_prompt_sdxl(m, ids, uncond)
+            added = {"text_embeds": pooled, "time_ids": make_add_time_ids(
+                (size, size), (0, 0), (size, size), 2, dev, **tid)}
+            times[f"{name} prompt encoding"] = event_ms(
+                torch, lambda m=m: encode_prompt_sdxl(m, ids, uncond))
+            times[f"{name} UNet forward (CFG pair)"] = event_ms(
+                torch, lambda m=m, c=context, a=added: m.unet(x, t, c, a))
+        times["VAE decode"] = event_ms(torch, lambda: decode_latents(refiner, x[:1]))
+    log(f"[{path} stages] " + "; ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    idle = profile_run(torch, lambda: request(PROMPTS[0], 7), min(req_s),
+                       repo / "build" / ENSEMBLE_TABLE, f"{path} profile")
+    log(f"[{path}] requests {req_s} s; idle share {idle:.3f}")
+
+
+def serve_ssd_1b(torch, models, tokenize, kernels):
+    """SSD-1B through StableDiffusionXLPEAPipeline: REQUESTS requests of
+    SSD_1B_STEPS DDIM steps (`serve_requests`)."""
+    from pea_diffusion_tpu_torch.pipelines.text2image import StableDiffusionXLPEAPipeline
+
+    size, latent = PRESET_SIZE, PRESET_SIZE // 8
+    pipe = StableDiffusionXLPEAPipeline(models, sampler_name="ddim")
+    routes = attention_routes(models.unet, latent, TEXT_TOKENS)
+    log(f"[{SSD_1B_PATH}] {sum(p.numel() for p in models.unet.parameters()) / 1e9:.3f}B UNet "
+        f"parameters; calls per forward by (route, sq, skv): {dict(routes)}")
+    _, req_s = serve_requests(
+        torch, SSD_1B_PATH, lambda prompt, seed: pipe(
+            tokenize([prompt]), tokenize([""]), height=size, width=size,
+            num_steps=SSD_1B_STEPS, guidance_scale=GUIDANCE, seed=seed),
+        size, [("serving", routes, SSD_1B_STEPS * REQUESTS)], kernels)
+    log(f"[{SSD_1B_PATH}] requests {req_s} s")
+
+
+def sd21_checks(torch, kernels):
+    """SD2.1's UNet in bf16 from a seed: its level-0/1 attention modules at
+    768² through the kernels against plain attention, then one forward of
+    the CFG pair over SD21_TOKENS random text states from launch counts of
+    0 (finite, the launches the walk gives)."""
+    from pea_diffusion_tpu_torch import configs
+    from pea_diffusion_tpu_torch.pipelines.factory import build_unet
+
+    latent = SD21_SIZE // 8
+    unet = build_unet(configs.SD21_UNET, seed=14)
+    reference_attention_modules(torch, unet, latent, (0, 1))
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn((2, latent, latent, 4), generator=gen, device="cuda")
+    ctx = torch.randn((2, SD21_TOKENS, configs.SD21_UNET.cross_attention_dim), generator=gen,
+                      device="cuda")
+    t = torch.full((2,), 500, device="cuda")
+    calls = [("serving", attention_routes(unet, latent, SD21_TOKENS), 1)]
+    want = path_launches(calls)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.inference_mode():
+        out = unet(x, t, ctx).float()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    served = launch_counts()
+    log(f"[{SD21_PATH}] {SD21_SIZE}²: calls by (route, head dim) "
+        f"{dict(routes_by_head_dim(unet, latent, SD21_TOKENS))}; output "
+        f"{tuple(out.shape)} std {out.std().item():.4f} in {seconds:.4f}s")
+    check_launches(SD21_PATH, served, want)
+    stamp_launches(kernels, SD21_PATH, calls, served)
+    if tuple(out.shape) != (2, latent, latent, 4) or not bool(out.isfinite().all()):
+        raise AssertionError(f"{SD21_PATH}: output {tuple(out.shape)} not finite")
+    del unet, out
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def control_image(size):

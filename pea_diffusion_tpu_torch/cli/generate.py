@@ -18,6 +18,11 @@ bf16: the stacks of ``bench.py``) with random weights made on the device:
 real shapes and kernels, meaningless pixels. --control-image turns on
 ControlNet mode (SDXL): the --controlnet DIR checkpoint in real mode, a tiny
 random ControlNet under --demo, the full SDXL ControlNet under --demo-full.
+--inpaint-image with --mask (white = repaint) turns on inpaint mode (SDXL;
+ControlNet mode wins when both are given): a 9-channel UNet (a --model-dir
+whose unet/config.json says in_channels 9) takes the mask and the masked
+image's latents as input, a 4-channel one blends the unmasked region back
+after each step; --strength sets how far into the schedule it starts.
 
 Usage:
   python -m pea_diffusion_tpu_torch.cli.generate --model-dir sdxl --text-encoder-dir cn-clip \
@@ -28,6 +33,8 @@ Usage:
   python -m pea_diffusion_tpu_torch.cli.generate --model sd15 --demo-full --sampler ddim --steps 20 -o out.png
   python -m pea_diffusion_tpu_torch.cli.generate --demo --device cpu --control-image edges.png \
       --control-canny --control-scale 0.8 --control-end 0.6 -o out.png
+  python -m pea_diffusion_tpu_torch.cli.generate --demo --device cpu --inpaint-image photo.png \
+      --mask mask.png --strength 0.6 --sampler ddim -o out.png
 """
 from __future__ import annotations
 
@@ -184,6 +191,28 @@ def make_controlnet_run(args, models, size: int, steps: int):
     return run
 
 
+def make_inpaint_run(args, models, size: int, steps: int):
+    """Inpaint mode: --inpaint-image at the output size in [-1, 1], --mask
+    (as grey levels; white = repaint) binarized at that size, and a function
+    that generates one image per prompt. The UNet's in_channels picks the
+    9-channel input or the 4-channel blend."""
+    from PIL import Image
+
+    from ..pipelines.inpaint import generate_sdxl_inpaint, preprocess_image, preprocess_mask
+
+    image = preprocess_image(_load_image(args.inpaint_image), size, size)
+    mask = preprocess_mask(np.asarray(Image.open(args.mask).convert("L")), size, size)
+
+    def run(ids, uncond, seed):
+        gen = torch.Generator(device=models.device).manual_seed(seed)
+        return generate_sdxl_inpaint(
+            models, ids, uncond, image, mask, generator=gen, sampler_name=args.sampler,
+            height=size, width=size, num_steps=steps, guidance_scale=args.guidance,
+            guidance_rescale=args.guidance_rescale, strength=args.strength)
+
+    return run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     mode = ap.add_mutually_exclusive_group()
@@ -232,6 +261,11 @@ def main(argv=None):
                     help="guess mode: control from the conditional half only")
     cn.add_argument("--control-start", type=float, default=0.0)
     cn.add_argument("--control-end", type=float, default=1.0)
+    inp = ap.add_argument_group("inpaint mode (SDXL)")
+    inp.add_argument("--inpaint-image", metavar="PATH",
+                     help="the image to repaint (turns inpaint mode on; needs --mask)")
+    inp.add_argument("--mask", metavar="PATH", help="repaint-region mask (white = repaint)")
+    inp.add_argument("--strength", type=float, default=0.85)
     args = ap.parse_args(argv)
     real_mode = not (args.demo or args.demo_full)
     if real_mode:
@@ -244,6 +278,11 @@ def main(argv=None):
         ap.error("ControlNet mode needs --controlnet DIR without --demo/--demo-full")
     if args.control_image and not real_mode and args.model != "sdxl":
         ap.error("ControlNet mode runs the SDXL stack (--model sdxl)")
+    inpaint = not args.control_image and bool(args.inpaint_image or args.mask)
+    if inpaint and not (args.inpaint_image and args.mask):
+        ap.error("inpaint mode needs both --inpaint-image and --mask")
+    if inpaint and not real_mode and args.model != "sdxl":
+        ap.error("inpaint mode runs the SDXL stack (--model sdxl)")
 
     from ..pipelines.text2image import (StableDiffusionPEAPipeline,
                                         StableDiffusionXLPEAPipeline, to_pil)
@@ -263,11 +302,12 @@ def main(argv=None):
     else:
         models, tokenize, size = build_demo_full(args.device, model=args.model)
         size, steps, sd15 = args.size or size, args.steps, args.model == "sd15"
-    if args.control_image and sd15:
-        ap.error("ControlNet mode runs an SDXL UNet")
+    if (args.control_image or inpaint) and sd15:
+        ap.error(f"{'ControlNet' if args.control_image else 'inpaint'} mode runs an SDXL UNet")
     extra = {}
-    if args.control_image:
-        run = make_controlnet_run(args, models, size, steps)
+    if args.control_image or inpaint:
+        run = (make_controlnet_run if args.control_image else make_inpaint_run)(
+            args, models, size, steps)
         imgs = run(tokenize([args.prompt]), tokenize([args.negative_prompt]), args.seed)
         to_pil(imgs)[0].save(args.output)
         print(f"wrote {args.output}")

@@ -140,6 +140,39 @@ SDXL_UNET = UNetConfig(
     use_linear_projection=True,
 )
 
+SDXL_INPAINT_UNET = dataclasses.replace(SDXL_UNET, in_channels=9)
+
+# SD 2.1 (768-v): SD1.5's topology, 1024-d OpenCLIP-H conditioning, linear
+# projections, heads of 64 (5 at level 0).
+SD21_UNET = UNetConfig(
+    num_attention_heads=(5, 10, 20, 20),
+    cross_attention_dim=1024,
+    use_linear_projection=True,
+)
+
+# The SDXL refiner's shape: four levels, 1280-d (bigG-only) conditioning,
+# aesthetic-score time ids (5 * 256 + 1280 pooled = 2560). A checkpoint's
+# own config.json defines its exact architecture (from_diffusers_config).
+SDXL_REFINER_UNET = UNetConfig(
+    block_out_channels=(384, 768, 1536, 1536),
+    transformer_layers=(0, 4, 4, 0),
+    num_attention_heads=(6, 12, 24, 24),
+    cross_attention_dim=1280,
+    mid_transformer_layers=4,
+    addition_embed_type="text_time",
+    projection_class_embeddings_input_dim=2560,
+    use_linear_projection=True,
+)
+
+# SSD-1B, the pruned SDXL: the 1280-wide transformer stacks cut from 10 to 4
+# layers, the 640-wide ones kept at 2; diffusers takes the mid depth from
+# transformer_layers_per_block[-1], so 4 (1.32 B parameters).
+SSD_1B_UNET = dataclasses.replace(
+    SDXL_UNET,
+    transformer_layers=(0, 2, 4),
+    mid_transformer_layers=4,
+)
+
 # Tiny configs for tests (same topology, small dims).
 SD15_UNET_TINY = UNetConfig(
     block_out_channels=(32, 64, 64, 64),

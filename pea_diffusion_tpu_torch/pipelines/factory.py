@@ -1,5 +1,6 @@
-"""Builds a PEA deployment (text tower + adapter + UNet + VAE), a ControlNet
-for its UNet, or the KD training stack (the deployment plus the CLIP teacher
+"""Builds a PEA deployment (text tower + adapter + UNet + VAE), one that
+shares its tower and VAE with another UNet (and adapter), a ControlNet for
+its UNet, or the KD training stack (the deployment plus the CLIP teacher
 towers: CLIP ViT-L and bigG for SDXL, ViT-L alone for SD1.5), with random
 weights made on the device (port of ``pea_diffusion_tpu/pipelines/factory.py``
 and of the JAX CLI's ControlNet set-up). The configs decide
@@ -17,6 +18,7 @@ dict) or from a JAX tree (``checkpoints/from_jax.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -122,6 +124,34 @@ def build_models(*, family: str, text_cfg: BertTextConfig,
         vae_scaling=vae_cfg.scaling_factor,
         device=device,
     )
+
+
+def build_unet(unet_cfg: UNetConfig, dtype: torch.dtype = torch.bfloat16, device="cuda",
+               seed: int = 0) -> UNet2DCondition:
+    """A UNet of `unet_cfg` with random weights from `seed` on `device` in
+    `dtype`, for inference."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        unet = UNet2DCondition(unet_cfg)
+    return _materialize(unet, dtype, device, torch.Generator(device=device).manual_seed(seed))
+
+
+def with_unet(models: PEAModels, unet_cfg: UNetConfig,
+              adapter_cfg: Optional[AdapterConfig] = None,
+              dtype: torch.dtype = torch.bfloat16, seed: int = 0) -> PEAModels:
+    """A deployment sharing `models`' text tower and VAE, with a UNet of
+    `unet_cfg` (a 9-channel inpainting UNet, SSD-1B, the SDXL refiner) in
+    `dtype` from `seed` and, when `adapter_cfg` is given, its own adapter
+    (the refiner's 1280-d text width) from `seed` + 1, fp32 weights
+    computing as `models`' adapter does."""
+    adapter = models.adapter
+    if adapter_cfg is not None:
+        with torch.device("meta"):
+            adapter = PEAAdapter(adapter_cfg, dtype=models.adapter.dtype)
+        adapter = _materialize(adapter, torch.float32, models.device,
+                               torch.Generator(device=models.device).manual_seed(seed + 1))
+    return dataclasses.replace(models, unet=build_unet(unet_cfg, dtype, models.device, seed),
+                               adapter=adapter)
 
 
 def build_controlnet(unet_cfg: UNetConfig,

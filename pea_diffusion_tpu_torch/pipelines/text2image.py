@@ -5,7 +5,10 @@ Prompt ids go through the text tower and the PEA adapter (the negative prompt
 too), the UNet runs the CFG pair as one batch ([uncond; cond]) under the
 sampler with `cfg_combine` after each step, and the VAE decodes the latents
 to NHWC images in [0, 1]. SD1.5's adapter gives the cross-attention states
-only; SDXL's also the pooled embedding for the added conditioning.
+only; SDXL's also the pooled embedding for the added conditioning. The SDXL
+ensemble of experts splits the steps at a timestep cutoff: the base's
+`generate_sdxl(..., denoising_end=f)` hands its latents to `refine_sdxl`
+(the refiner's UNet and adapter, aesthetic-score time ids).
 Generation runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
@@ -110,12 +113,39 @@ def to_pil(images: torch.Tensor):
     return [Image.fromarray(a) for a in arr]
 
 
+def encode_vae_image(models: PEAModels, image: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[-1, 1] NHWC image -> scaled latent sample: the image in fp32 on
+    entry, a draw from the VAE encoder's Gaussian (`eps` [B, H/f, W/f, 4] if
+    given, else drawn from `generator`), times the VAE's scaling."""
+    z = models.vae.encode_sample(image.float(), generator=generator, eps=eps)
+    return z * models.vae_scaling
+
+
 def make_add_time_ids(original_size, crops_coords_top_left, target_size,
-                      batch: int, device=None) -> torch.Tensor:
-    """SDXL micro-conditioning [B, 6]."""
-    ids = torch.tensor(list(original_size) + list(crops_coords_top_left)
-                       + list(target_size), dtype=torch.float32, device=device)
+                      batch: int, device=None, aesthetic_score=None) -> torch.Tensor:
+    """SDXL micro-conditioning [B, 6]; with `aesthetic_score`, the refiner's
+    [B, 5] form original_size + crops_coords_top_left + (score,)."""
+    tail = list(target_size) if aesthetic_score is None else [float(aesthetic_score)]
+    ids = torch.tensor(list(original_size) + list(crops_coords_top_left) + tail,
+                       dtype=torch.float32, device=device)
     return ids[None].repeat(batch, 1)
+
+
+def timestep_cutoff(schedule: NoiseScheduleConfig, fraction) -> np.float32:
+    """num_train_timesteps * (1 - fraction), in float32 as the JAX package
+    computes it on its float32 fraction (float64 moves the cut: at 30 steps
+    a fraction of 0.9 keeps timestep 100 above it in float64, not in
+    float32)."""
+    return np.float32(schedule.num_train_timesteps) * (np.float32(1.0) - np.float32(fraction))
+
+
+def steps_at_or_above(sampler: Sampler, schedule: NoiseScheduleConfig, fraction) -> int:
+    """How many of the sampler's timesteps lie at or above the cutoff of
+    `fraction`: the end of a `denoising_end` window, the start of a
+    `denoising_start` one in `refine_sdxl`."""
+    return int(np.sum(sampler.timesteps >= timestep_cutoff(schedule, fraction)))
 
 
 def encode_prompt_sd(models: PEAModels, ids: torch.Tensor,
@@ -185,8 +215,12 @@ def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
                   guidance_scale=7.5, guidance_rescale=0.0,
                   original_size=None, crops_coords_top_left=(0, 0),
                   target_size=None, do_cfg: Optional[bool] = None,
+                  denoising_end: Optional[float] = None,
                   init_noise=None, step_noise=None) -> torch.Tensor:
-    """ids, uncond_ids [B, T] -> images [B, height, width, 3] in [0, 1].
+    """ids, uncond_ids [B, T] -> images [B, height, width, 3] in [0, 1]; with
+    `denoising_end`, the undecoded latents [B, H/8, W/8, 4] after the steps
+    whose timesteps lie at or above its cutoff (the base half of the
+    ensemble, handed to `refine_sdxl`).
 
     `guidance_scale` / `guidance_rescale` may be [B] vectors (one per
     request). `do_cfg` defaults to "some guidance > 1"; without CFG only the
@@ -224,8 +258,77 @@ def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
 
         if step_noise is not None:
             step_noise = torch.as_tensor(np.asarray(step_noise), device=device)
-        latents = denoise_loop(eps_fn, sampler, noise, generator, step_noise)
+        end = None
+        if denoising_end is not None:
+            end = steps_at_or_above(sampler, models.schedule, denoising_end)
+        latents = denoise_loop(eps_fn, sampler, noise, generator, step_noise, end=end)
+        if denoising_end is not None:
+            return latents
         return decode_latents(models, latents)
+
+
+def refine_sdxl(models: PEAModels, ids, uncond_ids, latents, *,
+                sampler_name: str = "ddim", num_steps: int = 30, guidance_scale=7.5,
+                denoising_start: float = 0.8, aesthetic_score: float = 6.0,
+                negative_aesthetic_score: float = 2.5, original_size=None,
+                crops_coords_top_left=(0, 0)) -> torch.Tensor:
+    """The refiner half of the SDXL ensemble of experts: continues the
+    latents of `generate_sdxl(..., denoising_end=f)` from the first step whose
+    timestep lies below the cutoff of `denoising_start` (none when every
+    timestep is at or above it) to the end, with CFG and the refiner's
+    [B, 5] time ids (the unconditional half carries the negative score),
+    and decodes. `models.unet` is typically SDXL_REFINER_UNET. As in the
+    JAX package the loop gets no random source: a stochastic sampler takes
+    no fresh noise here."""
+    device = models.device
+    with torch.inference_mode():
+        ids, uncond_ids = _ids(ids, device), _ids(uncond_ids, device)
+        context, pooled = encode_prompt_sdxl(models, ids, uncond_ids)
+        b = ids.shape[0]
+        sampler = make_sampler(sampler_name, models.schedule, num_steps)
+        latents = torch.as_tensor(latents, device=device)
+        size = (latents.shape[1] * 8, latents.shape[2] * 8)
+        osize = original_size or size
+        time_ids = torch.cat([
+            make_add_time_ids(osize, crops_coords_top_left, size, b, device,
+                              aesthetic_score=score)
+            for score in (negative_aesthetic_score, aesthetic_score)])
+        added = {"text_embeds": pooled, "time_ids": time_ids}
+        gs = torch.as_tensor(guidance_scale, dtype=torch.float32, device=device)
+        start = steps_at_or_above(sampler, models.schedule, denoising_start)
+
+        def eps_fn(x, i):
+            t = torch.full((2 * b,), int(sampler.timesteps[i]), dtype=torch.long,
+                           device=device)
+            out = models.unet(torch.cat([x, x], dim=0), t, context, added).float()
+            return cfg_combine(out, gs)
+
+        latents = denoise_loop(eps_fn, sampler, torch.zeros_like(latents), start=start,
+                               init_latents=latents)
+        return decode_latents(models, latents)
+
+
+def generate_sdxl_ensemble(base_models: PEAModels, refiner_models: PEAModels, ids,
+                           uncond_ids, *, generator: Optional[torch.Generator] = None,
+                           height: int = 1024, width: int = 1024, num_steps: int = 30,
+                           guidance_scale=7.5, high_noise_frac: float = 0.8,
+                           sampler_name: str = "ddim", refiner_ids=None,
+                           refiner_uncond_ids=None, init_noise=None,
+                           step_noise=None) -> torch.Tensor:
+    """Base + refiner ensemble of experts: the base denoises down to the
+    cutoff of `high_noise_frac`, the refiner (its own UNet and adapter,
+    prompted with `refiner_ids` / `refiner_uncond_ids` if given) finishes
+    and decodes. `generator`, `init_noise` and `step_noise` go to the base
+    (`generate_sdxl`); the refiner draws nothing."""
+    latents = generate_sdxl(
+        base_models, ids, uncond_ids, generator=generator, sampler_name=sampler_name,
+        height=height, width=width, num_steps=num_steps, guidance_scale=guidance_scale,
+        denoising_end=high_noise_frac, init_noise=init_noise, step_noise=step_noise)
+    return refine_sdxl(
+        refiner_models, ids if refiner_ids is None else refiner_ids,
+        uncond_ids if refiner_uncond_ids is None else refiner_uncond_ids, latents,
+        sampler_name=sampler_name, num_steps=num_steps, guidance_scale=guidance_scale,
+        denoising_start=high_noise_frac)
 
 
 class StableDiffusionPEAPipeline:

@@ -64,7 +64,9 @@ def make_schedule(cfg: NoiseScheduleConfig, num_steps: int,
 def step(sched: DPMSchedule, i: int, sample: torch.Tensor,
          model_output: torch.Tensor, prev_x0: Optional[torch.Tensor]):
     """One DPM-Solver++(2M) update; returns (prev_sample, x0) where x0 is the
-    state the next step takes as `prev_x0`."""
+    state the next step takes as `prev_x0`. `prev_x0` None reads as zeros,
+    the JAX package's initial state: a loop started past step 0 takes its
+    first step second order with d1 = x0 / r0, as the reference does."""
     a_s, s_s = sched.alpha_s[i], sched.sigma_s[i]
     a_t, s_t = sched.alpha_next[i], sched.sigma_next[i]
     x0 = predict_x0(sched.prediction_type, sample, model_output,
@@ -74,7 +76,7 @@ def step(sched: DPMSchedule, i: int, sample: torch.Tensor,
     ratio = float(s_t / s_s)
     first = ratio * sample32 - float(a_t * emh1) * x0
     if sched.use_second[i]:
-        d1 = (x0 - prev_x0) / float(sched.r0[i])
+        d1 = (x0 if prev_x0 is None else x0 - prev_x0) / float(sched.r0[i])
         out = first - float(np.float32(0.5) * a_t * emh1) * d1
     else:
         out = first

@@ -293,3 +293,24 @@ def test_generate_sd_takes_no_fresh_noise(sd15_stacks):
                        guidance_scale=7.5, init_noise=noise) for s in (0, 1)]
     assert torch.equal(got[0], got[1])
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want), atol=2e-3)
+
+
+@pytest.mark.parametrize("start", [3, 9])
+def test_dpm_loop_started_past_step_zero_matches_jax(start):
+    """DPM++ over 10 steps started at step `start` (an inpaint strength < 1,
+    a refiner hand-off): the first step reads the previous x0 as zeros, the
+    JAX state's initial value, and so is second order with d1 = x0 / r0
+    (first order at the last step). A loop started past step 0 used to
+    raise a TypeError on the missing previous x0."""
+    from pea_diffusion_tpu.pipelines import sampling as jax_sampling
+    from pea_diffusion_tpu.schedulers import SDXL_SCHEDULE as JAX_SCHEDULE
+    from pea_diffusion_tpu_torch.pipelines import denoise_loop, make_sampler
+    from pea_diffusion_tpu_torch.schedulers import SDXL_SCHEDULE
+
+    outs, noise = _rand(10, *SHAPE, seed=4), _rand(*SHAPE, seed=5)
+    want = jax_t2i.denoise_loop(lambda x, i: jnp.asarray(outs)[i] + 0.3 * x,
+                                jax_sampling.make_sampler("dpm++", JAX_SCHEDULE, 10),
+                                jnp.asarray(noise), start=start)
+    got = denoise_loop(lambda x, i: t(outs[i]) + 0.3 * x,
+                       make_sampler("dpm++", SDXL_SCHEDULE, 10), t(noise), start=start)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
