@@ -118,7 +118,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (no PEA pipeline in the JAX package): its level-0/1 attention modules at
    768² against plain attention, then one UNet forward of the CFG pair at
    768² over 77 random text states ("sd21 unet forward": level 0's 5 heads
-   take B3, level 1 B1);
+   take B3, level 1 B1); then the towers phase (`towers_phase`): each other
+   student family on the SDXL serving stack's UNet and VAE, in turn "mt5
+   serving" (MT5_XL, sdxl_mt5), "mul_clip serving" (XLM_ROBERTA_LARGE,
+   sdxl_mul_clip), "alt_clip serving" (ALT_CLIP_XLMR_L, sdxl_alt_clip) and
+   "mul_zh serving" (XLM-R large and Chinese-CLIP large concatenated,
+   sdxl_concat): the family's tiny fp32 tower (T5_TINY, or BERT_TINY at
+   the XLM-R or AltCLIP settings) on the card against the CPU (phase 4's
+   tolerance); the full-width tower in bf16 and its adapter (fp32 weights)
+   from a seed; two 1024² requests of batch 1 (DDIM 4, CFG 7.5) through
+   StableDiffusionXLPEAPipeline over 52 ids drawn inside the vocab with a
+   padded tail (mul_zh: dict ids of equal length), from launch counts of 0
+   (B1 and B3 as the walk gives them), finite images in [0, 1], the same
+   bits again for the same seed; the prompt-encoding stage time, the
+   tower's parameter count and peak memory, the largest relative gap
+   between the bf16 tower's states and an fp32 copy's on the card (printed,
+   not gated) and a profile (build/chip_smoke_{mt5,mul_clip,alt_clip,
+   mul_zh}_profile.txt); each tower freed before the next;
 6. the SDXL ControlNet path with the opt-in on: the SDXL stack and a
    full-width SDXL ControlNet (random weights, its zero convs filled from
    the seed), the control image the Canny edges of a seeded image, two
@@ -147,7 +163,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    torch.profiler trace of one step (tables in
    build/chip_smoke_train_profile.txt,
    build/chip_smoke_sd15_train_profile.txt and
-   build/chip_smoke_sd15_1024_train_profile.txt).
+   build/chip_smoke_sd15_1024_train_profile.txt). After the SDXL paths,
+   "mul_zh kd step": one kd_loss + backward of the SDXL KD stack with the
+   mul_zh tower and the sdxl_concat adapter swapped in (micro-batch 10,
+   640², the teachers as there, input_ids and input_ids_zh), from launch
+   counts of 0: a finite loss, finite nonzero adapter gradients, and B1,
+   B3, B4 and B5 as the walk gives them for one step.
 
 The last lines are the card, a {"kernels": [...]} line and
 {"ok": true, "device": {...}}. Each row of the kernels line is one kernel at
@@ -254,6 +275,41 @@ REFINER_ADAPTER = dict(in_dim=1024, projector_dims=(1024, 1024, 1280), head_dim=
 # modules and one UNet forward of the CFG pair at 768² over OpenCLIP-H's 77
 # tokens; level 0's 5 heads fail the one-pass gate and take B3.
 SD21_SIZE, SD21_TOKENS = 768, 77
+# The other student towers (`towers_phase`, after the presets phase): each
+# family's tower at full width in bf16 with its adapter preset (fp32
+# weights), from a seed, on the SDXL serving stack's UNet and VAE; two
+# 1024² requests of batch 1, DDIM 4, CFG 7.5 (as SDXL serving), over 52
+# ids drawn inside the tower's vocab with a padded tail (mul_zh: one row of
+# each vocab, the same length). The tiny form of each tower (fp32) is held
+# on the card against the CPU first.
+TOWERS = {
+    "mt5 serving": dict(family="mt5", text=("MT5_XL",), tiny=("T5_TINY",),
+                        adapter="sdxl_mt5", table="chip_smoke_mt5_profile.txt"),
+    "mul_clip serving": dict(family="mul_clip", text=("XLM_ROBERTA_LARGE",),
+                             tiny=("XLMR_TINY",), adapter="sdxl_mul_clip",
+                             table="chip_smoke_mul_clip_profile.txt"),
+    "alt_clip serving": dict(family="alt_clip", text=("ALT_CLIP_XLMR_L",),
+                             tiny=("ALT_CLIP_TINY",), adapter="sdxl_alt_clip",
+                             table="chip_smoke_alt_clip_profile.txt"),
+    "mul_zh serving": dict(family="mul_zh", text=("XLM_ROBERTA_LARGE", "CHINESE_CLIP_LARGE"),
+                           tiny=("XLMR_TINY", "BERT_TINY"), adapter="sdxl_concat",
+                           table="chip_smoke_mul_zh_profile.txt"),
+}
+TOWER_STEPS = 4
+TOWER_PROMPT_LENGTHS = (24, 37)  # tokens before the padded tail, request 0 and 1
+# The tiny towers' extra settings (BERT_TINY's sizes): XLM-R's pad id 1, one
+# token type, RoBERTa positions; AltCLIP's also a 24-d head.
+TINY_TOWER_SETTINGS = {
+    "XLMR_TINY": dict(type_vocab_size=1, pad_token_id=1, layer_norm_eps=1e-5,
+                      max_position_embeddings=514, roberta_position_ids=True),
+    "ALT_CLIP_TINY": dict(type_vocab_size=1, pad_token_id=1, layer_norm_eps=1e-5,
+                          max_position_embeddings=514, roberta_position_ids=True,
+                          project_dim=24),
+}
+# One kd_loss + backward of the SDXL training path's KD stack (micro-batch
+# 10, 640², the teachers as there) with the mul_zh tower and sdxl_concat
+# adapter swapped in and dict ids (`mul_zh_kd_step`, in the training phase).
+MUL_ZH_KD_PATH = "mul_zh kd step"
 # The deployment's config files, as diffusers and transformers write them
 # for SDXL-base, SDXL-Turbo's scheduler and the Chinese-CLIP RoBERTa-large
 # text tower (BERT layout).
@@ -476,16 +532,22 @@ def _check(name, what, outs, refs, rtol):
     return worst_abs, worst_rel
 
 
+def sdxl_t(key):
+    """SDXL training and the mul_zh KD step run the same shapes."""
+    return {"sdxl training": key, MUL_ZH_KD_PATH: key}
+
+
 def forward_cases():
     """(kernel, batch, sq, skv, heads, head_dim, with lse, {path: (route, sq,
     skv)}, what). B3 rows are head-major: batch is B*H, heads 1."""
-    sdxl_t, sd15_s, sd15_t = "sdxl training", "sd15 serving", "sd15 training"
+    sd15_s, sd15_t = "sd15 serving", "sd15 training"
 
     def sdxl_s(key, heads):
-        """SDXL serving, the ControlNet, inpainting and SSD-1B paths and the
-        ensemble's base run the same shapes; the ensemble's keys carry the
-        heads, which tell the base's calls from the refiner's."""
-        paths = ("sdxl serving", CONTROLNET_PATH, INPAINT_9CH, INPAINT_BLEND, SSD_1B_PATH)
+        """SDXL serving, the ControlNet, inpainting, SSD-1B and towers paths
+        and the ensemble's base run the same shapes; the ensemble's keys
+        carry the heads, which tell the base's calls from the refiner's."""
+        paths = ("sdxl serving", CONTROLNET_PATH, INPAINT_9CH, INPAINT_BLEND,
+                 SSD_1B_PATH) + tuple(TOWERS)
         return dict({path: key for path in paths}, **{ENSEMBLE_PATH: key + (heads,)})
 
     cases = [
@@ -495,8 +557,8 @@ def forward_cases():
         ("B1", 2, 1024, 1024, 20, 64, False, sdxl_s(("onepass", 1024, 1024), 20),
          "SDXL serving (ControlNet, inpainting, SSD-1B, ensemble base): self-attention, "
          "level 2"),
-        ("B1", 10, 1600, 1600, 10, 64, False, {sdxl_t: ("onepass", 1600, 1600)},
-         "SDXL training teacher: self-attention, level 1"),
+        ("B1", 10, 1600, 1600, 10, 64, False, sdxl_t(("onepass", 1600, 1600)),
+         "SDXL training teacher (and the mul_zh KD step's): self-attention, level 1"),
         ("B1", 1, 4096, 4096, 10, 64, False, {LCM_PATH: ("onepass", 4096, 4096)},
          "LCM-LoRA 1024², no CFG: self-attention, level 1"),
         ("B1", 1, 1024, 1024, 20, 64, False, {LCM_PATH: ("onepass", 1024, 1024)},
@@ -533,12 +595,12 @@ def forward_cases():
          "LCM-LoRA 1024², no CFG: cross-attention, level 2"),
         ("B3", 10, 1024, 52, 1, 64, False, {TURBO_PATH: ("flash", 1024, 52)},
          "Turbo 512², no CFG: cross-attention, level 1"),
-        ("B3", 20, 1600, 52, 1, 64, True, {sdxl_t: ("flash", 1600, 52)},
-         "SDXL training student: cross-attention, level 1, batch 2"),
-        ("B3", 20, 1600, 77, 1, 64, False, {sdxl_t: ("flash", 1600, 77)},
-         "SDXL training teacher: cross-attention, level 1, batch 2"),
-        ("B3", 20, 1600, 1600, 1, 64, True, {sdxl_t: ("onepass", 1600, 1600)},
-         "SDXL training student: self-attention (head-major), batch 2"),
+        ("B3", 20, 1600, 52, 1, 64, True, sdxl_t(("flash", 1600, 52)),
+         "SDXL training student (and mul_zh KD): cross-attention, level 1, batch 2"),
+        ("B3", 20, 1600, 77, 1, 64, False, sdxl_t(("flash", 1600, 77)),
+         "SDXL training teacher (and mul_zh KD): cross-attention, level 1, batch 2"),
+        ("B3", 20, 1600, 1600, 1, 64, True, sdxl_t(("onepass", 1600, 1600)),
+         "SDXL training student (and mul_zh KD): self-attention (head-major), batch 2"),
         ("B3", 16, 4096, 4096, 1, 40, False, {sd15_s: ("flash", 4096, 4096)},
          "SD1.5 serving: self-attention, level 0"),
         ("B3", 16, 4096, 52, 1, 40, False, {sd15_s: ("flash", 4096, 52)},
@@ -662,12 +724,12 @@ def check_flash_variants(torch, fa, what, q, k, v, out, lse, ref, ref_lse):
 
 def backward_cases():
     """(bh, sq, skv, head_dim, {path: (route, sq, skv)}, what), head-major."""
-    sdxl_t, sd15_t, bh = "sdxl training", "sd15 training", SD15_TRAIN_BH
+    sd15_t, bh = "sd15 training", SD15_TRAIN_BH
     return [
-        (20, 1600, 1600, 64, {sdxl_t: ("onepass", 1600, 1600)},
-         "SDXL training: self-attention, level 1, batch 2"),
-        (20, 1600, 52, 64, {sdxl_t: ("flash", 1600, 52)},
-         "SDXL training: cross-attention, level 1, batch 2"),
+        (20, 1600, 1600, 64, sdxl_t(("onepass", 1600, 1600)),
+         "SDXL training (and mul_zh KD): self-attention, level 1, batch 2"),
+        (20, 1600, 52, 64, sdxl_t(("flash", 1600, 52)),
+         "SDXL training (and mul_zh KD): cross-attention, level 1, batch 2"),
         (20, 6400, 6400, 64, {}, "long sequence: S=6400 (1280² level 1)"),
         (20, 6400, 52, 64, {}, "long sequence: cross-attention, Sq=6400"),
         (20, 1000, 1000, 64, {}, "ragged Sq and Skv"),
@@ -1601,6 +1663,8 @@ def serving_phase(torch, model, kernels, repo):
         log(f"[fewstep] done at {time.time() - t1:.1f}s after the stack's build")
         presets_phase(torch, models, tokenize, kernels, repo)
         log(f"[presets] done at {time.time() - t1:.1f}s after the stack's build")
+        towers_phase(torch, models, kernels, repo)
+        log(f"[towers] done at {time.time() - t1:.1f}s after the stack's build")
 
 
 def serve_path(torch, models, tokenize, path, kernels, repo):
@@ -2193,6 +2257,180 @@ def sd21_checks(torch, kernels):
     torch.cuda.empty_cache()
 
 
+def tower_configs(names):
+    """The configs a TOWERS entry names: one, or mul_zh's (mul, zh) pair;
+    the TINY_TOWER_SETTINGS names are BERT_TINY with those settings."""
+    import dataclasses
+
+    from pea_diffusion_tpu_torch import configs
+
+    cfgs = tuple(dataclasses.replace(configs.BERT_TINY, **TINY_TOWER_SETTINGS[n])
+                 if n in TINY_TOWER_SETTINGS else getattr(configs, n) for n in names)
+    return cfgs if len(cfgs) == 2 else cfgs[0]
+
+
+def tower_ids(cfg, seed, lengths):
+    """[len(lengths), TEXT_TOKENS] int64 ids drawn inside `cfg`'s vocab from
+    `seed`, row i real for lengths[i] tokens and then the pad id, as a
+    tokenizer pads; for mul_zh's (mul, zh) configs a {"mul", "zh"} dict of
+    such rows, the same length."""
+    import numpy as np
+
+    if isinstance(cfg, tuple):
+        return {k: tower_ids(c, seed + i, lengths)
+                for i, (k, c) in enumerate(zip(("mul", "zh"), cfg))}
+    ids = np.random.default_rng(seed).integers(5, cfg.vocab_size, (len(lengths), TEXT_TOKENS))
+    for row, n in enumerate(lengths):
+        ids[row, n:] = cfg.pad_token_id
+    return ids
+
+
+def reference_tiny_tower(torch, family, cfg):
+    """The family's tiny tower in fp32 (torch's default initialisation from
+    seed 0) on the card against the same weights on the CPU."""
+    import copy
+
+    from pea_diffusion_tpu_torch.pipelines.factory import make_text_encoder_fn
+    from pea_diffusion_tpu_torch.pipelines.text2image import as_ids
+
+    torch.manual_seed(0)
+    cpu, cpu_fn = make_text_encoder_fn(family, cfg)
+    _, gpu_fn = make_text_encoder_fn(family, cfg, copy.deepcopy(cpu).cuda())
+    ids = tower_ids(cfg, 3, TOWER_PROMPT_LENGTHS)
+    with torch.inference_mode():
+        want = cpu_fn(as_ids(ids, "cpu"))
+        got = gpu_fn(as_ids(ids, "cuda")).cpu()
+    err = (got - want).abs().max().item()
+    log(f"[reference] tiny {family} tower {tuple(want.shape)}, card vs CPU (fp32): max abs "
+        f"{err:.3g}")
+    if not err < TINY_ATOL:
+        raise AssertionError(f"tiny {family} tower on the card differs from the CPU: {err}")
+
+
+def towers_phase(torch, models, kernels, repo):
+    """Each other student family of TOWERS on the SDXL serving stack's UNet
+    and VAE (`serve_tower`), each tower freed before the next."""
+    t1 = time.time()
+    for path in TOWERS:
+        serve_tower(torch, models, path, kernels, repo)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[towers] phase took {time.time() - t1:.1f}s")
+
+
+def serve_tower(torch, base, path, kernels, repo):
+    """One TOWERS path: the tiny tower on the card against the CPU; the
+    full-width bf16 tower and its adapter (fp32 weights) from a seed on
+    `base`'s UNet and VAE; REQUESTS requests through
+    StableDiffusionXLPEAPipeline (`serve_requests`); the prompt-encoding
+    stage time; the full-width tower's states against an fp32 copy of it on
+    the card (printed, not gated); a profile."""
+    import copy
+
+    from pea_diffusion_tpu_torch import configs
+    from pea_diffusion_tpu_torch.pipelines.factory import make_text_encoder_fn, with_text_tower
+    from pea_diffusion_tpu_torch.pipelines.text2image import (StableDiffusionXLPEAPipeline,
+                                                              as_ids, encode_prompt_sdxl)
+
+    spec = TOWERS[path]
+    family, size = spec["family"], PRESET_SIZE
+    reference_tiny_tower(torch, family, tower_configs(spec["tiny"]))
+    cfg = tower_configs(spec["text"])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    models = with_text_tower(base, family, cfg, configs.ADAPTER_PRESETS[spec["adapter"]],
+                             seed=21)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in models.text_encoder.parameters())
+    log(f"[{path}] the {family} tower at full width in bf16 ({n_params / 1e9:.3f}B "
+        f"parameters) and the {spec['adapter']} adapter built in {time.time() - t0:.1f}s")
+    pipe = StableDiffusionXLPEAPipeline(models, sampler_name="ddim")
+    uncond = tower_ids(cfg, 100, (2,))
+
+    def request(prompt, seed):
+        ids = tower_ids(cfg, 10 + seed, (TOWER_PROMPT_LENGTHS[seed % 2],))
+        return pipe(ids, uncond, height=size, width=size, num_steps=TOWER_STEPS,
+                    guidance_scale=GUIDANCE, seed=seed)
+
+    routes = attention_routes(models.unet, size // 8, TEXT_TOKENS)
+    _, req_s = serve_requests(torch, path, request, size,
+                              [("serving", routes, TOWER_STEPS * REQUESTS)], kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    dev = models.device
+    ids = as_ids(tower_ids(cfg, 10, TOWER_PROMPT_LENGTHS[:1]), dev)
+    un = as_ids(uncond, dev)
+    with torch.inference_mode():
+        enc_ms = event_ms(torch, lambda: encode_prompt_sdxl(models, ids, un))
+        got = models.text_encoder_fn(ids).float()
+        _, fp32_fn = make_text_encoder_fn(family, cfg, copy.deepcopy(models.text_encoder).float())
+        want = fp32_fn(ids)
+    _, gap = errors(got, want)
+    del fp32_fn  # the fp32 copy
+    log(f"[{path} stages] prompt encoding (tower + adapter, the CFG pair) {enc_ms:.3f} ms; "
+        f"tower states {tuple(got.shape)}, bf16 against fp32 of the same weights on the "
+        f"card: max relative gap {gap:.4g} (printed, not gated)")
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"{path}: the tower's states are not finite")
+    idle = profile_run(torch, lambda: request(PROMPTS[0], 0), min(req_s),
+                       repo / "build" / spec["table"], f"{path} profile")
+    log(f"[{path}] requests {req_s} s; idle share {idle:.3f}; {n_params / 1e9:.3f}B tower "
+        f"parameters; peak memory {peak:.2f} GiB")
+
+
+def mul_zh_kd_step(torch, models, kernels):
+    """One kd_loss + backward of the SDXL KD stack `models` with the mul_zh
+    tower (bf16) and the sdxl_concat adapter (fp32, training) swapped in, at
+    the SDXL training path's micro-batch and size with dict ids
+    (input_ids / input_ids_zh), from launch counts of 0: a finite loss,
+    finite nonzero adapter gradients and the launches the walk gives."""
+    from pea_diffusion_tpu_torch import configs
+    from pea_diffusion_tpu_torch.cli.train import demo_full_batches
+    from pea_diffusion_tpu_torch.pipelines.factory import with_text_tower
+    from pea_diffusion_tpu_torch.train.kd import kd_loss
+
+    spec, path = TRAINING["sdxl training"], MUL_ZH_KD_PATH
+    b, size, latent = spec["batch"], spec["size"], spec["size"] // 8
+    cfg = tower_configs(TOWERS["mul_zh serving"]["text"])
+    kd = with_text_tower(models, "mul_zh", cfg, configs.ADAPTER_PRESETS["sdxl_concat"], seed=22)
+    kd.adapter.train()
+    kd.freeze()
+    batch = next(demo_full_batches("cuda", b, size, seed=23))
+    ids = tower_ids(cfg, 24, [14 + 3 * i for i in range(b)])
+    uncond = tower_ids(cfg, 100, [2] * b)
+    for key, rows in (("input_ids", ids["mul"]), ("input_ids_uncond", uncond["mul"]),
+                      ("input_ids_zh", ids["zh"]), ("input_ids_uncond_zh", uncond["zh"])):
+        batch[key] = torch.as_tensor(rows, device="cuda")
+    calls = [("student", attention_routes(kd.unet, latent, TEXT_TOKENS, grad_free=False), 1),
+             ("student, no gradient",
+              attention_routes(kd.unet, latent, TEXT_TOKENS, grad_free=True), 1),
+             ("teacher", attention_routes(kd.unet, latent, TEACHER_TOKENS), 1)]
+    want = path_launches(calls)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    reset_launch_counts()
+    loss, _ = kd_loss(kd, configs.TrainConfig(), batch, gen)
+    loss.backward()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = launch_counts()
+    check_launches(path, launches, want)
+    stamp_launches(kernels, path, calls, launches)
+    grads = [p.grad for p in kd.adapter.parameters()]
+    finite = all(g is not None and bool(g.isfinite().all()) for g in grads)
+    norm = math.sqrt(sum(float(g.float().square().sum()) for g in grads)) if finite else 0.0
+    log(f"[{path}] micro-batch {b}, {size}², mul_zh ids {tuple(batch['input_ids'].shape)} + "
+        f"{tuple(batch['input_ids_zh'].shape)}: loss {loss.item():.6g}; adapter gradient "
+        f"norm {norm:.6g} over {len(grads)} tensors, finite {finite}; {seconds:.4f}s; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (math.isfinite(loss.item()) and finite and norm > 0):
+        raise AssertionError(f"{path}: loss {loss.item()}, adapter gradients finite {finite}, "
+                             f"norm {norm}")
+    del kd, loss, grads
+
+
 def control_image(size):
     """Canny edges of a seeded image of 64-pixel blocks, size x size."""
     import numpy as np
@@ -2355,6 +2593,11 @@ def training_phase(torch, model, kernels, repo):
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[{path}] done at {time.time() - t1:.1f}s after the stack's build")
+    if model == "sdxl":
+        mul_zh_kd_step(torch, models, kernels)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{MUL_ZH_KD_PATH}] done at {time.time() - t1:.1f}s after the stack's build")
 
 
 def main() -> int:

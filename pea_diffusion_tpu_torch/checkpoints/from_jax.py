@@ -134,6 +134,35 @@ def bert_text_state_dict(params: Mapping) -> StateDict:
     return w.sd
 
 
+def mul_zh_state_dict(params: Mapping) -> StateDict:
+    """The mul_zh family's {"mul": params, "zh": params} -> the port's
+    ConcatTextEncoder state dict (mul.* and zh.*)."""
+    return {f"{tower}.{k}": v for tower in ("mul", "zh")
+            for k, v in bert_text_state_dict(params[tower]).items()}
+
+
+def t5_encoder_state_dict(params: Mapping) -> StateDict:
+    """T5Encoder params -> the port's T5Encoder state dict (transformers'
+    T5EncoderModel names; the relative attention bias in block 0 only)."""
+    p, w = params["params"], _Writer()
+    w.embed("shared", p["shared"])
+    w.sd["encoder.final_layer_norm.weight"] = _t(p["final_layer_norm"]["scale"])
+    i = 0
+    while f"block_{i}" in p:
+        pre, blk = f"encoder.block.{i}.layer", p[f"block_{i}"]
+        for n in ("q", "k", "v", "o"):
+            w.lin(f"{pre}.0.SelfAttention.{n}", blk["attn"][n])
+        if "relative_attention_bias" in blk["attn"]:
+            w.embed(f"{pre}.0.SelfAttention.relative_attention_bias",
+                    blk["attn"]["relative_attention_bias"])
+        w.sd[f"{pre}.0.layer_norm.weight"] = _t(blk["ln1"]["scale"])
+        w.sd[f"{pre}.1.layer_norm.weight"] = _t(blk["ln2"]["scale"])
+        for n in ("wi_0", "wi_1", "wo"):
+            w.lin(f"{pre}.1.DenseReluDense.{n}", blk[n])
+        i += 1
+    return w.sd
+
+
 def clip_text_state_dict(params: Mapping) -> StateDict:
     """CLIPTextEncoder params -> the port's CLIPTextEncoder state dict."""
     p, w = params["params"], _Writer()

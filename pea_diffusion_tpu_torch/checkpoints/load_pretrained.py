@@ -3,7 +3,11 @@
 
 - a diffusers model directory (SDXL / SD1.5 / SSD-1B layout: unet/, vae/,
   scheduler/, each with its config and *.safetensors or *.bin weights);
-- a student text-tower directory (transformers layout: Chinese-CLIP);
+- a student text tower of each family: a transformers Chinese-CLIP / BERT
+  directory, open_clip's xlm-roberta-large-ViT-H-14 checkpoint (its text
+  tower), an AltCLIP text model (HF or FlagAI layout), a transformers mT5
+  directory, or the mul_zh pair of an XLM-R checkpoint and a Chinese-CLIP
+  directory;
 - a diffusers ControlNetModel directory;
 - LoRA safetensors fused into the UNet or a CLIP tower at load time.
 
@@ -22,7 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
-from ..configs.text_encoder import BertTextConfig, CLIPTextConfig
+from ..configs import text_encoder as text_configs
+from ..configs.text_encoder import BertTextConfig, CLIPTextConfig, T5Config
 from ..configs.unet import ControlNetConfig, UNetConfig, VAEConfig
 from ..pipelines.factory import load_weights
 from .lora import merge_lora_into_state_dict
@@ -207,15 +212,119 @@ def load_bert_text(directory: str, roberta: Optional[bool] = None, dtype=None,
     return cfg, load_weights(enc, sd, dtype or torch.float32, device, "bert text")
 
 
+def load_open_clip_xlmr(checkpoint_path: str, dtype=None, device="cuda"):
+    """open_clip's `open_clip_pytorch_model.bin` (xlm-roberta-large-ViT-H-14;
+    the checkpoint file or its directory) -> (XLM_ROBERTA_LARGE,
+    BertTextEncoder), the mul_clip student tower: the transformers
+    XLM-RoBERTa model under `text.transformer.*`. The visual tower
+    (`visual.*`), the pooled projection (`text.proj*`) and `logit_scale` are
+    not on the student path (it takes the unprojected token states) and are
+    dropped."""
+    from ..models.bert_text import BertTextEncoder
+
+    prefix = "text.transformer."
+    sd = {k[len(prefix):]: v for k, v in load_state_dict(checkpoint_path).items()
+          if k.startswith(prefix)}
+    if not sd:
+        raise ValueError("not an open_clip XLM-R checkpoint: no text.transformer.* keys")
+    cfg = text_configs.XLM_ROBERTA_LARGE
+    sd = _strip(sd, ("text_model.", "bert.", "roberta."))
+    with torch.device("meta"):
+        enc = BertTextEncoder(cfg)
+    return cfg, load_weights(enc, sd, dtype or torch.float32, device, "xlm-r text")
+
+
+def load_altclip_text(directory: str, dtype=None, device="cuda"):
+    """An AltCLIP text model (HF BAAI/AltCLIP layout, `text_model.roberta.*`
+    + `text_model.pre_LN` + `text_model.transformation`, or a FlagAI
+    AltCLIP-XLMR-L dump under `model.`) -> (BertTextConfig,
+    BertTextEncoder with the pre_LN + transformation head), the alt_clip
+    student. The config is the directory's config.json (its `text_config`
+    where it has one), else ALT_CLIP_XLMR_L."""
+    from ..models.bert_text import BertTextEncoder
+
+    cfg = text_configs.ALT_CLIP_XLMR_L
+    cfg_path = os.path.join(directory, "config.json") if os.path.isdir(directory) else None
+    if cfg_path and os.path.exists(cfg_path):
+        c = _read_json(cfg_path)
+        c = c.get("text_config", c)
+        if "hidden_size" in c:
+            cfg = BertTextConfig(
+                vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
+                num_layers=c["num_hidden_layers"], num_heads=c["num_attention_heads"],
+                intermediate_size=c["intermediate_size"],
+                max_position_embeddings=c["max_position_embeddings"],
+                type_vocab_size=c.get("type_vocab_size", 1),
+                pad_token_id=c.get("pad_token_id", 1),
+                layer_norm_eps=c.get("layer_norm_eps", 1e-5),
+                roberta_position_ids=True,
+                project_dim=c.get("project_dim", 768),
+            )
+    sd = load_state_dict(directory)
+    for prefix in ("text_model.", "model."):
+        if any(k.startswith((prefix + "roberta.", prefix + "pre_LN")) for k in sd):
+            sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+            break
+    if not any(k.startswith("pre_LN") for k in sd):
+        raise ValueError("not an AltCLIP text checkpoint: no pre_LN keys")
+    head = {k: v for k, v in sd.items() if k.startswith(("pre_LN.", "transformation."))}
+    sd = dict(_strip(sd, ("text_model.", "bert.", "roberta.")), **head)
+    with torch.device("meta"):
+        enc = BertTextEncoder(cfg)
+    return cfg, load_weights(enc, sd, dtype or torch.float32, device, "altclip text")
+
+
+def load_t5_encoder(directory: str, dtype=None, device="cuda"):
+    """A transformers mT5 / T5 directory (T5EncoderModel or the whole
+    encoder-decoder) -> (T5Config, T5Encoder). The config reads the sizes and
+    the relative-attention buckets only, as the JAX loader does: the norm eps
+    and the gated-GELU feed-forward keep T5Config's defaults. The tied
+    `encoder.embed_tokens.weight` and every `decoder.*` / `lm_head.*` key are
+    extra keys, ignored."""
+    from ..models.mt5 import T5Encoder
+
+    c = _read_json(os.path.join(directory, "config.json"))
+    cfg = T5Config(
+        vocab_size=c["vocab_size"], d_model=c["d_model"], d_kv=c["d_kv"],
+        d_ff=c["d_ff"], num_layers=c["num_layers"], num_heads=c["num_heads"],
+        relative_attention_num_buckets=c.get("relative_attention_num_buckets", 32),
+        relative_attention_max_distance=c.get("relative_attention_max_distance", 128),
+    )
+    with torch.device("meta"):
+        enc = T5Encoder(cfg)
+    return cfg, load_weights(enc, load_state_dict(directory), dtype or torch.float32, device,
+                             "t5 encoder")
+
+
 def load_student_tower(family: str, directory: str, directory_zh: Optional[str] = None,
                        dtype=None, device="cuda"):
     """The student text tower of a family -> (config, module), shaped for
-    ``pipelines.factory.make_text_encoder_fn(family, config, module)``.
-    chinese_clip is a transformers Chinese-CLIP / BERT directory; the other
-    families' towers are not ported yet."""
+    ``pipelines.factory.make_text_encoder_fn(family, config, module)``:
+
+    - chinese_clip: a transformers Chinese-CLIP / BERT directory;
+    - mul_clip: open_clip's xlm-roberta-large checkpoint (or its directory);
+    - alt_clip: an AltCLIP text directory (HF or FlagAI);
+    - mt5: a transformers mT5 directory;
+    - mul_zh: the mul_clip checkpoint and `directory_zh`, a Chinese-CLIP
+      directory; returns ((mul_cfg, zh_cfg), ConcatTextEncoder).
+    """
+    if family == "mt5":
+        return load_t5_encoder(directory, dtype, device)
+    if family == "mul_clip":
+        return load_open_clip_xlmr(directory, dtype, device)
+    if family == "alt_clip":
+        return load_altclip_text(directory, dtype, device)
+    if family == "mul_zh":
+        from ..models.bert_text import ConcatTextEncoder
+
+        if directory_zh is None:
+            raise ValueError("mul_zh needs a second (Chinese) encoder dir")
+        mul_cfg, mul = load_open_clip_xlmr(directory, dtype, device)
+        zh_cfg, zh = load_bert_text(directory_zh, dtype=dtype, device=device)
+        with torch.device("meta"):
+            enc = ConcatTextEncoder(mul_cfg, zh_cfg)
+        enc.mul, enc.zh = mul, zh
+        return (mul_cfg, zh_cfg), enc.eval()
     if family == "chinese_clip":
         return load_bert_text(directory, dtype=dtype, device=device)
-    if family in ("mt5", "mul_clip", "alt_clip", "mul_zh"):
-        raise NotImplementedError(
-            f"text-encoder family {family!r} is not ported yet (ROADMAP Queue A item 12)")
     raise ValueError(f"unknown text-encoder family: {family}")

@@ -2,10 +2,16 @@
 
 Real mode loads a deployment from disk: --model-dir (a diffusers SDXL or
 SD1.5 directory: unet/, vae/, scheduler/), --text-encoder-dir (the student
-tower, transformers layout), --adapter (a reference `proj` checkpoint),
-optional --lora files fused into the UNet, and the tokenizer of
---tokenizer-dir (default: the text-encoder dir) through transformers'
-AutoTokenizer. The UNet's config decides SDXL or SD1.5. --sampler euler_a
+tower of --family: a transformers Chinese-CLIP / BERT directory for
+chinese_clip, open_clip's xlm-roberta-large checkpoint for mul_clip, an
+AltCLIP text directory for alt_clip, a transformers mT5 directory for mt5;
+for mul_zh the XLM-R checkpoint, with the Chinese-CLIP directory as
+--text-encoder-dir-2), --adapter (a reference `proj` checkpoint, its shape
+given by --adapter-preset, e.g. sdxl_mt5 or sdxl_concat), optional --lora
+files fused into the UNet, and the tokenizer of --tokenizer-dir (default:
+the text-encoder dir; mul_zh also --tokenizer-dir-2, default
+--text-encoder-dir-2, and tokenizes the prompt with both) through
+transformers' AutoTokenizer. The UNet's config decides SDXL or SD1.5. --sampler euler_a
 --steps 4 --guidance 0 with a trailing-spacing scheduler is the SDXL-Turbo
 operating point; --lora LCM_LORA --sampler lcm --steps 4 --guidance 0 is
 LCM-LoRA's.
@@ -28,6 +34,10 @@ Usage:
   python -m pea_diffusion_tpu_torch.cli.generate --model-dir sdxl --text-encoder-dir cn-clip \
       --adapter proj_1000/pytorch_model.bin --lora lcm-lora.safetensors --sampler lcm \
       --steps 4 --guidance 0 -o out.png
+  python -m pea_diffusion_tpu_torch.cli.generate --model-dir sdxl --family mul_zh \
+      --text-encoder-dir xlmr-vit-h --tokenizer-dir xlm-roberta-large \
+      --text-encoder-dir-2 cn-clip --adapter proj_1000/pytorch_model.bin \
+      --adapter-preset sdxl_concat -o out.png
   python -m pea_diffusion_tpu_torch.cli.generate --demo --device cpu -o out.png
   python -m pea_diffusion_tpu_torch.cli.generate --demo-full --sampler ddim --steps 4 -o out.png
   python -m pea_diffusion_tpu_torch.cli.generate --model sd15 --demo-full --sampler ddim --steps 20 -o out.png
@@ -124,8 +134,8 @@ def build_real(args):
     unet_cfg, unet = load_unet(args.model_dir, lora_paths=args.lora or (),
                                lora_scales=args.lora_scale or (), dtype=bf16, device=dev)
     vae_cfg, vae = load_vae(args.model_dir, device=dev)
-    text_cfg, text = load_student_tower(args.family, args.text_encoder_dir, dtype=bf16,
-                                        device=dev)
+    text_cfg, text = load_student_tower(args.family, args.text_encoder_dir,
+                                        args.text_encoder_dir_2, dtype=bf16, device=dev)
     _, text_fn = make_text_encoder_fn(args.family, text_cfg, text)
     with torch.device("meta"):
         adapter = PEAAdapter(ADAPTER_PRESETS[args.adapter_preset], dtype=bf16)
@@ -137,12 +147,16 @@ def build_real(args):
 
     from transformers import AutoTokenizer
 
-    tok = AutoTokenizer.from_pretrained(args.tokenizer_dir or args.text_encoder_dir)
+    def tokenizer(directory):
+        tok = AutoTokenizer.from_pretrained(directory)
+        return lambda texts: tok(texts, padding="max_length", max_length=args.max_length,
+                                 truncation=True, return_tensors="np")["input_ids"]
 
-    def tokenize(texts):
-        return tok(texts, padding="max_length", max_length=args.max_length,
-                   truncation=True, return_tensors="np")["input_ids"]
-
+    tokenize = tokenizer(args.tokenizer_dir or args.text_encoder_dir)
+    if args.family == "mul_zh":  # two tokenizations of the prompt -> dict ids
+        tok_mul = tokenize
+        tok_zh = tokenizer(args.tokenizer_dir_2 or args.text_encoder_dir_2)
+        tokenize = lambda texts: {"mul": tok_mul(texts), "zh": tok_zh(texts)}  # noqa: E731
     return models, tokenize, args.size
 
 
@@ -225,13 +239,18 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     real = ap.add_argument_group("real mode (neither --demo nor --demo-full)")
     real.add_argument("--model-dir", help="diffusers model directory (unet/, vae/, scheduler/)")
-    real.add_argument("--text-encoder-dir", help="the student text tower (transformers)")
+    real.add_argument("--text-encoder-dir", help="the student text tower (see --family)")
+    real.add_argument("--text-encoder-dir-2",
+                      help="mul_zh: the Chinese-CLIP tower (the second encoder)")
     real.add_argument("--tokenizer-dir", help="default: --text-encoder-dir")
+    real.add_argument("--tokenizer-dir-2", help="mul_zh; default: --text-encoder-dir-2")
     real.add_argument("--adapter", help="proj_N/pytorch_model.bin or .safetensors")
     real.add_argument("--adapter-preset", default="sdxl_chinese_clip")
     real.add_argument("--family", default="chinese_clip",
                       choices=["chinese_clip", "mul_clip", "mt5", "alt_clip", "mul_zh"],
-                      help="the student tower's family (only chinese_clip is ported)")
+                      help="the student tower's family: chinese_clip (Chinese-CLIP "
+                           "RoBERTa), mul_clip (open_clip XLM-R), mt5, alt_clip, mul_zh "
+                           "(XLM-R and Chinese-CLIP concatenated)")
     real.add_argument("--lora", nargs="*", help="LoRA safetensors fused into the UNet")
     real.add_argument("--lora-scale", nargs="*", type=float)
     real.add_argument("--max-length", type=int, default=52)
@@ -272,6 +291,8 @@ def main(argv=None):
         for req in ("model_dir", "text_encoder_dir", "adapter"):
             if getattr(args, req) is None:
                 ap.error(f"--{req.replace('_', '-')} is required without --demo/--demo-full")
+        if args.family == "mul_zh" and args.text_encoder_dir_2 is None:
+            ap.error("--family mul_zh needs --text-encoder-dir-2 (the Chinese-CLIP tower)")
     if args.controlnet and not args.control_image:
         ap.error("--controlnet needs --control-image")
     if real_mode and args.control_image and not args.controlnet:
@@ -283,6 +304,8 @@ def main(argv=None):
         ap.error("inpaint mode needs both --inpaint-image and --mask")
     if inpaint and not real_mode and args.model != "sdxl":
         ap.error("inpaint mode runs the SDXL stack (--model sdxl)")
+    if real_mode and args.family == "mul_zh" and (args.control_image or inpaint):
+        ap.error("ControlNet and inpaint modes take one tokenization: not --family mul_zh")
 
     from ..pipelines.text2image import (StableDiffusionPEAPipeline,
                                         StableDiffusionXLPEAPipeline, to_pil)

@@ -1,12 +1,15 @@
-"""BERT-family bidirectional text encoder (port of
+"""BERT-family bidirectional text encoders (port of
 ``pea_diffusion_tpu/models/bert_text.py``): the Chinese-CLIP RoBERTa-wwm-large
-tower of the main path. Post-LN encoder with absolute positions; parameter
-names follow transformers' BertModel. Its attention is over a few dozen
-tokens and runs as plain PyTorch math.
+tower of the main path, open_clip's XLM-R large tower (positions offset past
+the pad token) and AltCLIP's (XLM-R large with the pre_LN + transformation
+head), and the mul_zh concat of an XLM-R and a Chinese-CLIP tower.
+Post-LN encoder with absolute positions; parameter names follow
+transformers' BertModel. Its attention is over a few dozen tokens and runs
+as plain PyTorch math.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -130,3 +133,25 @@ class BertTextEncoder(nn.Module):
             projected = self.transformation(self.pre_LN(x))
         return BertTextOutput(last_hidden_state=x, pooled=x[:, 0],
                               projected=projected)
+
+
+class ConcatTextEncoder(nn.Module):
+    """The mul_zh family: an XLM-R tower (`mul`) and a Chinese-CLIP tower
+    (`zh`) over their own tokenizations of the prompt, their token states
+    concatenated on the feature axis ([B, T, 1024 + 1024] at full width).
+    ids: {"mul": [B, T], "zh": [B, T]}, both padded to the same length."""
+
+    def __init__(self, mul_cfg: BertTextConfig, zh_cfg: BertTextConfig):
+        super().__init__()
+        self.mul = BertTextEncoder(mul_cfg)
+        self.zh = BertTextEncoder(zh_cfg)
+
+    def forward(self, ids: Dict[str, torch.Tensor]) -> torch.Tensor:
+        tm, tz = ids["mul"].shape[1], ids["zh"].shape[1]
+        if tm != tz:
+            raise ValueError(
+                "mul_zh requires both tokenizations padded to the same length "
+                f"(feature-axis concat); got mul T={tm} zh T={tz}: set equal "
+                "max_length for both tokenizers")
+        return torch.cat([self.mul(ids["mul"]).last_hidden_state,
+                          self.zh(ids["zh"]).last_hidden_state], dim=-1)

@@ -17,7 +17,7 @@ import torch
 
 from ..models.controlnet import ControlNet
 from .sampling import make_sampler
-from .text2image import (PEAModels, _ids, _initial_noise, cfg_combine, decode_latents,
+from .text2image import (PEAModels, as_ids, _initial_noise, cfg_combine, decode_latents,
                          denoise_loop, encode_prompt_sdxl, make_add_time_ids)
 
 
@@ -62,7 +62,7 @@ def generate_sdxl_controlnet(
     the initial latents drawn from `generator`."""
     device = models.device
     with torch.inference_mode():
-        ids, uncond_ids = _ids(ids, device), _ids(uncond_ids, device)
+        ids, uncond_ids = as_ids(ids, device), as_ids(uncond_ids, device)
         context, pooled = encode_prompt_sdxl(models, ids, uncond_ids)
         b = ids.shape[0]
         sampler = make_sampler(sampler_name, models.schedule, num_steps)

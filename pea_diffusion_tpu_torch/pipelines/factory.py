@@ -1,5 +1,6 @@
 """Builds a PEA deployment (text tower + adapter + UNet + VAE), one that
-shares its tower and VAE with another UNet (and adapter), a ControlNet for
+shares its tower and VAE with another UNet (and adapter), one that shares its
+UNet and VAE with another student tower and adapter, a ControlNet for
 its UNet, or the KD training stack (the deployment plus the CLIP teacher
 towers: CLIP ViT-L and bigG for SDXL, ViT-L alone for SD1.5), with random
 weights made on the device (port of ``pea_diffusion_tpu/pipelines/factory.py``
@@ -19,25 +20,28 @@ dict) or from a JAX tree (``checkpoints/from_jax.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..configs.adapter import AdapterConfig
-from ..configs.text_encoder import BertTextConfig, CLIPTextConfig
+from ..configs.text_encoder import BertTextConfig, CLIPTextConfig, T5Config
 from ..configs.unet import ControlNetConfig, UNetConfig, VAEConfig
 from ..models.adapter import PEAAdapter
-from ..models.bert_text import BertTextEncoder
+from ..models.bert_text import BertTextEncoder, ConcatTextEncoder
 from ..models.clip_text import CLIPTextEncoder
 from ..models.controlnet import ControlNet
 from ..models.layers import GroupNorm, LayerNormFP32
+from ..models.mt5 import T5Encoder, T5LayerNorm
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
 from ..schedulers import SDXL_SCHEDULE, NoiseScheduleConfig
 from .text2image import PEAModels
 
-_NORMS = (GroupNorm, LayerNormFP32, nn.LayerNorm)
+_NORMS = (GroupNorm, LayerNormFP32, nn.LayerNorm, T5LayerNorm)
+# A student tower's config: one BERT or T5 config, or (mul, zh) for mul_zh.
+TextConfig = Union[BertTextConfig, T5Config, Tuple[BertTextConfig, BertTextConfig]]
 
 
 def resolve_device(device) -> torch.device:
@@ -49,16 +53,30 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def make_text_encoder_fn(family: str, text_cfg: BertTextConfig,
+def make_text_encoder_fn(family: str, text_cfg: TextConfig,
                          module: Optional[nn.Module] = None
-                         ) -> Tuple[nn.Module, Callable[[torch.Tensor], torch.Tensor]]:
+                         ) -> Tuple[nn.Module, Callable[..., torch.Tensor]]:
     """(module, fn(ids) -> token states [B, T, D]) for a student family; a
-    new module unless `module` (a loaded tower) is given."""
-    if family == "chinese_clip":
+    new module unless `module` (a loaded tower) is given:
+
+    - chinese_clip, mul_clip: a BERT tower's last hidden state;
+    - alt_clip: the BERT tower's projected states (pre_LN + transformation);
+    - mt5: the T5 encoder's last hidden state;
+    - mul_zh: text_cfg = (mul_cfg, zh_cfg); ids {"mul": [B, T], "zh":
+      [B, T]}, the two towers' last hidden states concatenated.
+    """
+    if family in ("chinese_clip", "mul_clip", "alt_clip"):
         enc = BertTextEncoder(text_cfg) if module is None else module
+        if family == "alt_clip" and text_cfg.project_dim is not None:
+            return enc, lambda ids: enc(ids).projected
         return enc, lambda ids: enc(ids).last_hidden_state
-    raise NotImplementedError(
-        f"text-encoder family {family!r} is not ported yet (ROADMAP Queue A item 12)")
+    if family == "mt5":
+        enc = T5Encoder(text_cfg) if module is None else module
+        return enc, enc
+    if family == "mul_zh":
+        enc = ConcatTextEncoder(*text_cfg) if module is None else module
+        return enc, enc
+    raise ValueError(f"unknown text-encoder family: {family}")
 
 
 @torch.no_grad()
@@ -96,7 +114,7 @@ def load_weights(module: nn.Module, state_dict, dtype: torch.dtype, device,
     return module.eval().requires_grad_(False)
 
 
-def build_models(*, family: str, text_cfg: BertTextConfig,
+def build_models(*, family: str, text_cfg: TextConfig,
                  adapter_cfg: AdapterConfig, unet_cfg: UNetConfig,
                  vae_cfg: VAEConfig,
                  schedule: NoiseScheduleConfig = SDXL_SCHEDULE,
@@ -152,6 +170,22 @@ def with_unet(models: PEAModels, unet_cfg: UNetConfig,
                                torch.Generator(device=models.device).manual_seed(seed + 1))
     return dataclasses.replace(models, unet=build_unet(unet_cfg, dtype, models.device, seed),
                                adapter=adapter)
+
+
+def with_text_tower(models, family: str, text_cfg: TextConfig, adapter_cfg: AdapterConfig,
+                    dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+    """A deployment (PEAModels, or train.kd.KDModels) sharing `models`' UNet,
+    VAE and teachers, with the student tower of `family` in `dtype` and its
+    adapter (fp32 weights, computing as `models`' adapter does), both from
+    `seed` as ``build_models`` makes them. A KD stack's adapter is left for
+    the caller to put in training mode (``KDModels.freeze``)."""
+    with torch.device("meta"):
+        text, text_fn = make_text_encoder_fn(family, text_cfg)
+        adapter = PEAAdapter(adapter_cfg, dtype=models.adapter.dtype)
+    gen = torch.Generator(device=models.device).manual_seed(seed)
+    return dataclasses.replace(
+        models, text_encoder=_materialize(text, dtype, models.device, gen),
+        text_encoder_fn=text_fn, adapter=_materialize(adapter, torch.float32, models.device, gen))
 
 
 def build_controlnet(unet_cfg: UNetConfig,

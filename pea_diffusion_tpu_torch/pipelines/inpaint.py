@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from ..schedulers import ddpm
 from .sampling import make_sampler
-from .text2image import (PEAModels, _ids, _initial_noise, cfg_combine, decode_latents,
+from .text2image import (PEAModels, as_ids, _initial_noise, cfg_combine, decode_latents,
                          encode_prompt_sdxl, encode_vae_image, make_add_time_ids,
                          timestep_cutoff)
 
@@ -94,7 +94,7 @@ def generate_sdxl_inpaint(
     order. As in the JAX package the loop itself gets no random source."""
     device = models.device
     with torch.inference_mode():
-        ids, uncond_ids = _ids(ids, device), _ids(uncond_ids, device)
+        ids, uncond_ids = as_ids(ids, device), as_ids(uncond_ids, device)
         context, pooled = encode_prompt_sdxl(models, ids, uncond_ids)
         b = ids.shape[0]
         image = torch.as_tensor(image, dtype=torch.float32, device=device)

@@ -32,8 +32,8 @@ class PEAModels:
     """The modules of one PEA deployment, their weights inside them."""
 
     text_encoder: nn.Module
-    # ids [B, T] -> token hidden states [B, T, D]
-    text_encoder_fn: Callable[[torch.Tensor], torch.Tensor]
+    # ids [B, T] (mul_zh: {"mul", "zh"} dict) -> token hidden states [B, T, D]
+    text_encoder_fn: Callable[..., torch.Tensor]
     adapter: PEAAdapter
     unet: UNet2DCondition
     vae: AutoencoderKL
@@ -148,8 +148,7 @@ def steps_at_or_above(sampler: Sampler, schedule: NoiseScheduleConfig, fraction)
     return int(np.sum(sampler.timesteps >= timestep_cutoff(schedule, fraction)))
 
 
-def encode_prompt_sd(models: PEAModels, ids: torch.Tensor,
-                     uncond_ids: torch.Tensor) -> torch.Tensor:
+def encode_prompt_sd(models: PEAModels, ids, uncond_ids) -> torch.Tensor:
     """Adapter-projected cross-attention states [2B, T, 768], CFG-stacked
     [uncond; cond]. The negative prompt also goes through the adapter."""
     seq = models.adapter(models.text_encoder_fn(ids))
@@ -157,8 +156,7 @@ def encode_prompt_sd(models: PEAModels, ids: torch.Tensor,
     return torch.cat([seq_u, seq], dim=0)
 
 
-def encode_prompt_sdxl(models: PEAModels, ids: torch.Tensor,
-                       uncond_ids: torch.Tensor):
+def encode_prompt_sdxl(models: PEAModels, ids, uncond_ids):
     """Adapter-projected (context [2B, T, 2048], pooled [2B, 1280]),
     CFG-stacked [uncond; cond]. The negative prompt also goes through the
     adapter: the PEA plug-in replaces the whole prompt-encoding stage."""
@@ -169,7 +167,19 @@ def encode_prompt_sdxl(models: PEAModels, ids: torch.Tensor,
     return torch.cat([seq_u, seq], dim=0), torch.cat([pooled_u, pooled], dim=0)
 
 
-def _ids(ids, device) -> torch.Tensor:
+def ids_batch_size(ids) -> int:
+    """Leading batch dim of token ids: a [B, T] array, or the mul_zh
+    family's {"mul": [B, T], "zh": [B, T]} dict (two tokenizers)."""
+    if isinstance(ids, dict):
+        return next(iter(ids.values())).shape[0]
+    return ids.shape[0]
+
+
+def as_ids(ids, device):
+    """Token ids (an array or a list) -> int64 on `device`, mapped over
+    the mul_zh family's dict of ids."""
+    if isinstance(ids, dict):
+        return {k: as_ids(v, device) for k, v in ids.items()}
     return torch.as_tensor(np.asarray(ids), dtype=torch.long, device=device)
 
 
@@ -191,9 +201,9 @@ def generate_sd(models: PEAModels, ids, uncond_ids, *,
     takes no fresh noise on this path."""
     device = models.device
     with torch.inference_mode():
-        ids, uncond_ids = _ids(ids, device), _ids(uncond_ids, device)
+        ids, uncond_ids = as_ids(ids, device), as_ids(uncond_ids, device)
         context = encode_prompt_sd(models, ids, uncond_ids)
-        b = ids.shape[0]
+        b = ids_batch_size(ids)
         sampler = make_sampler(sampler_name, models.schedule, num_steps)
         noise = _initial_noise((b, height // 8, width // 8, models.unet.config.in_channels),
                                generator, init_noise, device)
@@ -233,9 +243,9 @@ def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
     if do_cfg is None:
         do_cfg = bool(np.max(np.asarray(guidance_scale)) > 1.0)
     with torch.inference_mode():
-        ids, uncond_ids = _ids(ids, device), _ids(uncond_ids, device)
+        ids, uncond_ids = as_ids(ids, device), as_ids(uncond_ids, device)
         context, pooled = encode_prompt_sdxl(models, ids, uncond_ids)
-        b = ids.shape[0]
+        b = ids_batch_size(ids)
         if not do_cfg:
             context, pooled = context[b:], pooled[b:]
         sampler = make_sampler(sampler_name, models.schedule, num_steps)
@@ -282,9 +292,9 @@ def refine_sdxl(models: PEAModels, ids, uncond_ids, latents, *,
     no fresh noise here."""
     device = models.device
     with torch.inference_mode():
-        ids, uncond_ids = _ids(ids, device), _ids(uncond_ids, device)
+        ids, uncond_ids = as_ids(ids, device), as_ids(uncond_ids, device)
         context, pooled = encode_prompt_sdxl(models, ids, uncond_ids)
-        b = ids.shape[0]
+        b = ids_batch_size(ids)
         sampler = make_sampler(sampler_name, models.schedule, num_steps)
         latents = torch.as_tensor(latents, device=device)
         size = (latents.shape[1] * 8, latents.shape[2] * 8)

@@ -14,8 +14,8 @@ amounts to.
 Random draws come from an explicit ``torch.Generator`` in a fixed order
 (VAE eps, noise, offset noise, timesteps, the CFG-drop uniforms), or are
 injected through ``draws``, so that a test can hand in the JAX package's.
-Not ported: the "dots"/"blocks" remat policies, ``feature_tap_dtype``
-"bfloat16" and the mul_zh dual ids (ROADMAP Queue A items 12-13).
+Not ported: the "dots"/"blocks" remat policies and ``feature_tap_dtype``
+"bfloat16" (ROADMAP Queue A item 13).
 """
 from __future__ import annotations
 
@@ -46,8 +46,9 @@ class KDModels:
     unet: UNet2DCondition
     vae: AutoencoderKL
     text_encoder: nn.Module
-    # ids [B, T] -> token states [B, T, D] of the student tower
-    text_encoder_fn: Callable[[torch.Tensor], torch.Tensor]
+    # ids [B, T] (mul_zh: {"mul", "zh"} dict) -> token states [B, T, D] of
+    # the student tower
+    text_encoder_fn: Callable[..., torch.Tensor]
     # teacher: CLIP-L + bigG penultimate concat + bigG pooled projection
     teacher_clip1: Optional[CLIPTextEncoder] = None
     teacher_clip2: Optional[CLIPTextEncoder] = None
@@ -125,14 +126,12 @@ def kd_loss(models: KDModels, cfg: TrainConfig, batch: Batch,
     """The KD loss of one micro-batch, differentiable in the adapter.
 
     batch: pixel_values [B, H, W, 3] in [-1, 1]; input_ids /
-    input_ids_uncond [B, T]; teacher_ids_1 / _2 and teacher_uncond_ids_1 /
-    _2 [B, 77]; time_ids [B, 6]; zh_or_not [B] (1 = Chinese-native, 0 =
+    input_ids_uncond [B, T] (and for mul_zh, the Chinese tokenizer's
+    input_ids_zh / input_ids_uncond_zh [B, T]); teacher_ids_1 / _2 and
+    teacher_uncond_ids_1 / _2 [B, 77]; time_ids [B, 6]; zh_or_not [B] (1 = Chinese-native, 0 =
     parallel English). draws (optional, filled from `generator` where
     absent): vae_eps [B, h, w, 4], noise [B, h, w, 4] and offset_noise
     [B, 1, 1, 4] fp32, timesteps [B] int64, cfg_uniform [B, 1, 1]."""
-    if "input_ids_zh" in batch:
-        raise NotImplementedError("mul_zh dual ids are not ported yet "
-                                  "(ROADMAP Queue A item 12)")
     draws = {} if draws is None else draws
     unet_dtype = models.unet.conv_in.weight.dtype
     dev = batch["pixel_values"].device
@@ -157,10 +156,15 @@ def kd_loss(models: KDModels, cfg: TrainConfig, batch: Batch,
     noise = noise.to(unet_dtype)
     noisy = ddpm.add_noise(sched, latents, noise, timesteps).to(unet_dtype)
 
-    # 3. student text encoding (frozen)
+    # 3. student text encoding (frozen); mul_zh's two tokenizations travel
+    # as {"mul", "zh"} dicts
+    ids, ids_u = batch["input_ids"], batch["input_ids_uncond"]
+    if "input_ids_zh" in batch:
+        ids = {"mul": ids, "zh": batch["input_ids_zh"]}
+        ids_u = {"mul": ids_u, "zh": batch["input_ids_uncond_zh"]}
     with torch.no_grad():
-        hs = models.text_encoder_fn(batch["input_ids"])
-        hs_u = models.text_encoder_fn(batch["input_ids_uncond"])
+        hs = models.text_encoder_fn(ids)
+        hs_u = models.text_encoder_fn(ids_u)
 
     # 4. the adapter, the only forward that carries a gradient
     is_sdxl = models.unet.config.addition_embed_type == "text_time"

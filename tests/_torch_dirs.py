@@ -2,7 +2,9 @@
 for the tests of the port's loaders: hand-written config.json files for the
 tiny configs, weights through the JAX package's ``save_safetensors`` (or
 ``torch.save`` for a .bin), and a word-piece vocabulary for transformers'
-BertTokenizer."""
+BertTokenizer; the other student towers' files too (open_clip's XLM-R
+checkpoint, AltCLIP text models in the HF and FlagAI layouts, an mT5
+encoder-decoder directory)."""
 import json
 import os
 
@@ -41,6 +43,23 @@ BERT_JSON = {"model_type": "bert", "vocab_size": 1000, "hidden_size": 64,
              "layer_norm_eps": 1e-12}
 CHINESE_CLIP_JSON = {"model_type": "chinese_clip", "text_config": BERT_JSON,
                      "vision_config": {"hidden_size": 32}, "projection_dim": 16}
+# The other student towers around the tiny sizes: XLM-R settings (pad id 1,
+# one token type, 514 positions), AltCLIP's text_config (+ the 24-d head)
+# and an mT5 config as transformers writes it (T5_TINY's sizes; its eps,
+# feed-forward and tying fields are ones the loaders do not read).
+XLMR_SETTINGS = dict(type_vocab_size=1, pad_token_id=1, layer_norm_eps=1e-5,
+                     max_position_embeddings=514, roberta_position_ids=True)
+ALTCLIP_JSON = {"model_type": "altclip", "projection_dim": 16,
+                "text_config": dict(BERT_JSON, model_type="altclip_text_model",
+                                    max_position_embeddings=514, type_vocab_size=1,
+                                    pad_token_id=1, layer_norm_eps=1e-5, project_dim=24),
+                "vision_config": {"hidden_size": 32}}
+MT5_JSON = {"model_type": "mt5", "architectures": ["MT5ForConditionalGeneration"],
+            "vocab_size": 1000, "d_model": 64, "d_kv": 16, "d_ff": 128, "num_layers": 2,
+            "num_decoder_layers": 2, "num_heads": 4, "relative_attention_num_buckets": 32,
+            "relative_attention_max_distance": 128, "layer_norm_epsilon": 1e-6,
+            "feed_forward_proj": "gated-gelu", "tie_word_embeddings": False,
+            "pad_token_id": 0}
 TURBO_SCHEDULER_JSON = {"_class_name": "EulerAncestralDiscreteScheduler",
                         "beta_start": 0.00085, "beta_end": 0.012,
                         "beta_schedule": "scaled_linear", "num_train_timesteps": 1000,
@@ -91,6 +110,7 @@ def write_text_dir(directory, text_sd, vocab_size=1000):
         f.write("\n".join(special + chars) + "\n")
     write_json(os.path.join(directory, "tokenizer_config.json"),
                {"tokenizer_class": "BertTokenizer", "do_lower_case": True})
+    return str(directory)
 
 
 def write_model_dir(root, unet_json, unet_sd, vae_sd, scheduler=None, unet_shards=2,
@@ -119,3 +139,47 @@ def peft_lora(unet_sd, rank=2, seed=0, ends=(".to_q", ".to_v", ".to_out.0")):
         lora[f"unet.{path}.lora_B.weight"] = (
             0.1 * rng.standard_normal((out_f, rank))).astype(np.float32)
     return lora
+
+
+def write_open_clip_xlmr(path, text_sd):
+    """open_clip's xlm-roberta-large-ViT-H-14 checkpoint as one torch .bin:
+    the HF XLM-RoBERTa model under `text.transformer.`, its pooler, the
+    pooled projection, a visual weight and logit_scale."""
+    sd = {f"text.transformer.{k}": v for k, v in numpy_sd(text_sd).items()}
+    sd["text.transformer.pooler.dense.weight"] = np.zeros((64, 64), np.float32)
+    sd["text.proj.0.weight"] = np.zeros((32, 64), np.float32)
+    sd["visual.conv1.weight"] = np.zeros((8, 3, 2, 2), np.float32)
+    sd["logit_scale"] = np.zeros((), np.float32)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    return path
+
+
+def write_altclip(directory, text_sd, layout="hf"):
+    """An AltCLIP text model: "hf" is transformers' AltCLIPModel layout
+    (`text_model.roberta.*`, `text_model.pre_LN`, `text_model.transformation`,
+    a vision weight, config.json with its text_config); "flagai" a FlagAI
+    AltCLIP-XLMR-L dump under `model.` with no config.json."""
+    head = ("pre_LN.", "transformation.")
+    prefix = "text_model." if layout == "hf" else "model."
+    sd = {prefix + (k if k.startswith(head) else f"roberta.{k}"): v
+          for k, v in numpy_sd(text_sd).items()}
+    if layout == "hf":
+        sd["vision_model.embeddings.class_embedding"] = np.zeros(32, np.float32)
+        write_component(directory, ALTCLIP_JSON, sd, name="model")
+    else:
+        os.makedirs(directory, exist_ok=True)
+        save_safetensors(os.path.join(directory, "model.safetensors"), sd)
+    return str(directory)
+
+
+def write_mt5(directory, t5_sd):
+    """A transformers MT5ForConditionalGeneration directory: the encoder's
+    weights, the tied copy `encoder.embed_tokens.weight`, a decoder weight
+    and lm_head (the extra keys an encoder loader ignores)."""
+    sd = numpy_sd(t5_sd)
+    sd["encoder.embed_tokens.weight"] = sd["shared.weight"]
+    sd["decoder.block.0.layer.0.SelfAttention.q.weight"] = np.zeros((64, 64), np.float32)
+    sd["lm_head.weight"] = np.zeros((1000, 64), np.float32)
+    write_component(directory, MT5_JSON, sd, name="model")
+    return str(directory)

@@ -13,6 +13,7 @@ another order); atol 1e-4 through the text tower, VAE and ControlNet and
 another order in each framework).
 """
 import dataclasses
+import functools
 import os
 
 import jax
@@ -29,18 +30,24 @@ from pea_diffusion_tpu.checkpoints import safetensors_io as jax_st
 from pea_diffusion_tpu.configs import unet as jax_unet_cfg
 from pea_diffusion_tpu.configs.text_encoder import BERT_TINY as JAX_BERT_TINY
 from pea_diffusion_tpu.configs.text_encoder import CLIP_TINY as JAX_CLIP_TINY
+from pea_diffusion_tpu.configs.text_encoder import T5_TINY as JAX_T5_TINY
+from pea_diffusion_tpu.configs import text_encoder as jax_text_cfg
 from pea_diffusion_tpu.models.adapter import PEAAdapter as JaxAdapter
 from pea_diffusion_tpu.models.bert_text import BertTextEncoder as JaxBert
 from pea_diffusion_tpu.models.clip_text import CLIPTextEncoder as JaxCLIP
 from pea_diffusion_tpu.models.controlnet import ControlNet as JaxControlNet
+from pea_diffusion_tpu.models.mt5 import T5Encoder as JaxT5
+from pea_diffusion_tpu.pipelines import factory as jax_factory
 from pea_diffusion_tpu.models.unet import UNet2DCondition as JaxUNet
 from pea_diffusion_tpu.models.vae import AutoencoderKL as JaxVAE
 from pea_diffusion_tpu_torch.checkpoints import from_jax, load_pretrained, lora, orbax_io
 from pea_diffusion_tpu_torch.checkpoints import safetensors_io as st
 from pea_diffusion_tpu_torch.cli.generate import main
 from pea_diffusion_tpu_torch.configs import ADAPTER_PRESETS, CLIP_TINY, UNetConfig, VAEConfig
+from pea_diffusion_tpu_torch.configs import text_encoder as port_text_cfg
 from pea_diffusion_tpu_torch.configs import unet as port_unet_cfg
 from pea_diffusion_tpu_torch.models import PEAAdapter
+from pea_diffusion_tpu_torch.pipelines.factory import make_text_encoder_fn
 from pea_diffusion_tpu_torch.schedulers import NoiseScheduleConfig
 
 CPU = dict(device="cpu")
@@ -338,7 +345,7 @@ def test_load_unet_matches_jax(deployment, model, with_lora):
         assert torch.equal(b16.state_dict()[key], unet.state_dict()[key].bfloat16())
 
 
-def test_load_vae_and_bert_text_match_jax(deployment):
+def test_load_vae_and_bert_text_match_jax(deployment, tmp_path):
     jcfg, jparams = jax_lp.load_vae(deployment["sdxl"])
     cfg, vae = load_pretrained.load_vae(deployment["sdxl"], **CPU)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg) and cfg.scaling_factor == 0.13025
@@ -355,8 +362,135 @@ def test_load_vae_and_bert_text_match_jax(deployment):
     ids = deployment["ids"]
     want = JaxBert(jcfg).apply(jparams, ids)
     _close(text(torch.from_numpy(ids).long()).last_hidden_state, want.last_hidden_state)
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        load_pretrained.load_student_tower("mt5", deployment["text"], **CPU)
+    # the mt5 family from a transformers mT5 directory
+    mt5_dir = dirs.write_mt5(str(tmp_path / "mt5"), _tower_sd("mt5"))
+    jcfg, jparams = jax_lp.load_student_tower("mt5", mt5_dir)
+    cfg, text = load_pretrained.load_student_tower("mt5", mt5_dir, **CPU)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg) == dataclasses.asdict(JAX_T5_TINY)
+    _close(text(torch.from_numpy(ids).long()), JaxT5(jcfg).apply(jparams, ids))
+
+
+# --- the other student towers -----------------------------------------------
+
+JAX_XLMR_TINY = dataclasses.replace(JAX_BERT_TINY, **dirs.XLMR_SETTINGS)
+JAX_ALTCLIP_TINY = dataclasses.replace(JAX_XLMR_TINY, project_dim=24)
+
+
+def _tower_sd(kind, seed=7):
+    """A tiny tower's port state dict from seeded JAX params: "xlmr",
+    "altclip" (the 24-d head), "bert" or "mt5"."""
+    if kind == "mt5":
+        ids = np.zeros((1, 8), np.int32)
+        return from_jax.t5_encoder_state_dict(host_params(JaxT5(JAX_T5_TINY), ids, seed=seed))
+    cfg = {"xlmr": JAX_XLMR_TINY, "altclip": JAX_ALTCLIP_TINY, "bert": JAX_BERT_TINY}[kind]
+    return from_jax.bert_text_state_dict(host_params(JaxBert(cfg), np.zeros((1, 8), np.int32),
+                                                     seed=seed))
+
+
+@pytest.fixture
+def tiny_tower_presets(monkeypatch):
+    """The JAX and port loaders take open_clip's tower as XLM_ROBERTA_LARGE
+    and an AltCLIP file without config.json as ALT_CLIP_XLMR_L: both set to
+    the tiny towers for the test, in both packages."""
+    for pkg in (jax_text_cfg, port_text_cfg):
+        monkeypatch.setattr(pkg, "XLM_ROBERTA_LARGE", dataclasses.replace(
+            pkg.BERT_TINY, **dirs.XLMR_SETTINGS))
+        monkeypatch.setattr(pkg, "ALT_CLIP_XLMR_L", dataclasses.replace(
+            pkg.BERT_TINY, project_dim=24, **dirs.XLMR_SETTINGS))
+
+
+def _tower_files(family, root):
+    """(directory, directory_zh) of `family`'s checkpoint files under root."""
+    if family == "chinese_clip":
+        return dirs.write_text_dir(str(root / "zh"), _tower_sd("bert")), None
+    if family == "mul_clip":
+        return dirs.write_open_clip_xlmr(str(root / "xlmr" / "open_clip_pytorch_model.bin"),
+                                         _tower_sd("xlmr")), None
+    if family == "alt_clip":
+        return dirs.write_altclip(str(root / "altclip"), _tower_sd("altclip")), None
+    if family == "mt5":
+        return dirs.write_mt5(str(root / "mt5"), _tower_sd("mt5")), None
+    mul, _ = _tower_files("mul_clip", root)
+    zh, _ = _tower_files("chinese_clip", root)
+    return os.path.dirname(mul), zh
+
+
+def _ids_for(family, cfg):
+    rng = np.random.default_rng(2)
+    if family == "mul_zh":
+        return {k: _ids_for("mul_clip" if k == "mul" else "chinese_clip", c)
+                for k, c in zip(("mul", "zh"), cfg)}
+    ids = rng.integers(5, 1000, (2, 10)).astype(np.int32)
+    ids[1, 6:] = cfg.pad_token_id  # a padded tail
+    return ids
+
+
+@pytest.mark.parametrize("family", ["chinese_clip", "mul_clip", "alt_clip", "mt5", "mul_zh"])
+def test_load_student_tower_every_family_matches_jax(tmp_path, tiny_tower_presets, family,
+                                                     capsys):
+    """Each family's checkpoint files through the JAX and the port's
+    load_student_tower: equal configs, and the family's encoder function
+    (make_text_encoder_fn on the loaded tower) giving JAX's token states."""
+    directory, directory_zh = _tower_files(family, tmp_path)
+    jcfg, jparams = jax_lp.load_student_tower(family, directory, directory_zh)
+    cfg, module = load_pretrained.load_student_tower(family, directory, directory_zh, **CPU)
+    if family == "mul_zh":
+        assert [dataclasses.asdict(c) for c in cfg] == [dataclasses.asdict(c) for c in jcfg]
+        assert {k.split(".")[0] for k in module.state_dict()} == {"mul", "zh"}
+    else:
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    ids = _ids_for(family, cfg)
+    _, jfn = jax_factory.make_text_encoder_fn(family, jcfg)
+    _, fn = make_text_encoder_fn(family, cfg, module)
+    got = fn({k: torch.from_numpy(v).long() for k, v in ids.items()} if family == "mul_zh"
+             else torch.from_numpy(ids).long())
+    _close(got, jfn(jparams, ids))
+    if family == "mt5":  # the tied embedding, a decoder weight and lm_head
+        assert "3 extra keys ignored" in capsys.readouterr().out
+
+
+def test_load_open_clip_xlmr_and_altclip_layouts_match_jax(tmp_path, tiny_tower_presets):
+    """open_clip's checkpoint by its file and by its directory; AltCLIP in
+    the HF layout (config from its text_config) and a FlagAI dump without a
+    config (ALT_CLIP_XLMR_L), against the JAX loaders."""
+    ids = _ids_for("mul_clip", port_text_cfg.XLM_ROBERTA_LARGE)
+    path = dirs.write_open_clip_xlmr(str(tmp_path / "oc" / "open_clip_pytorch_model.bin"),
+                                     _tower_sd("xlmr"))
+    for where in (path, os.path.dirname(path)):
+        jcfg, jparams = jax_lp.load_open_clip_xlmr(where)
+        cfg, enc = load_pretrained.load_open_clip_xlmr(where, **CPU)
+        assert cfg == port_text_cfg.XLM_ROBERTA_LARGE
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        _close(enc(torch.from_numpy(ids).long()).last_hidden_state,
+               JaxBert(jcfg).apply(jparams, ids).last_hidden_state)
+    for layout in ("hf", "flagai"):
+        d = dirs.write_altclip(str(tmp_path / layout), _tower_sd("altclip", seed=9), layout)
+        jcfg, jparams = jax_lp.load_altclip_text(d)
+        cfg, enc = load_pretrained.load_altclip_text(d, **CPU)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg) and cfg.project_dim == 24
+        _close(enc(torch.from_numpy(ids).long()).projected,
+               JaxBert(jcfg).apply(jparams, ids).projected)
+
+
+def test_the_wrong_tower_layouts_raise(tmp_path, tiny_tower_presets):
+    """A checkpoint with no text.transformer.* keys is not open_clip's
+    XLM-R, a BERT directory without pre_LN is not AltCLIP, mul_zh needs
+    its Chinese directory: each raises ValueError in both packages, as does
+    an unknown family."""
+    zh = dirs.write_text_dir(str(tmp_path / "zh"), _tower_sd("bert"))
+    for jax_fn, port_fn, match in (
+            (jax_lp.load_open_clip_xlmr, load_pretrained.load_open_clip_xlmr,
+             "text.transformer"),
+            (jax_lp.load_altclip_text, load_pretrained.load_altclip_text, "pre_LN")):
+        for fn in (jax_fn, functools.partial(port_fn, **CPU)):
+            with pytest.raises(ValueError, match=match):
+                fn(zh)
+    for fn in (jax_lp.load_student_tower, functools.partial(load_pretrained.load_student_tower,
+                                                            **CPU)):
+        with pytest.raises(ValueError, match="second"):
+            fn("mul_zh", zh)
+        with pytest.raises(ValueError, match="unknown"):
+            fn("wukong", zh)
 
 
 def test_load_clip_text_fuses_the_text_encoder_2_half(tmp_path):
@@ -545,6 +679,38 @@ def test_cli_real_mode_serves_a_directory_with_a_lora(deployment, tmp_path, caps
     text = capsys.readouterr().out
     assert Image.open(out).size == (16, 16)
     assert "[lora] fused" in text and f"wrote {out}" in text
+
+
+@pytest.mark.parametrize("family", ["mul_clip", "alt_clip", "mt5", "mul_zh"])
+def test_cli_real_mode_serves_every_tower_family(deployment, tmp_path, capsys, monkeypatch,
+                                                 tiny_tower_presets, family):
+    """--family with its tower's files (mul_zh: --text-encoder-dir-2 the
+    Chinese-CLIP directory, the prompt tokenized twice into dict ids); the
+    tokenizer is the Chinese-CLIP directory's vocab.txt (--tokenizer-dir),
+    whose ids fall inside each tiny vocab."""
+    from PIL import Image
+
+    directory, directory_zh = _tower_files(family, tmp_path)
+    width = {"alt_clip": 24, "mul_zh": 128}.get(family, 64)
+    monkeypatch.setitem(ADAPTER_PRESETS, "tiny", dataclasses.replace(TINY_ADAPTER, in_dim=width))
+    d = orbax_io.export_adapter(PEAAdapter(ADAPTER_PRESETS["tiny"]), str(tmp_path), 1)
+    out = tmp_path / "out.png"
+    args = ["--model-dir", deployment["sdxl"], "--family", family, "--text-encoder-dir",
+            directory, "--tokenizer-dir", deployment["text"], "--adapter",
+            os.path.join(d, "pytorch_model.bin"), "--adapter-preset", "tiny", "--sampler",
+            "ddim", "--steps", "2", "--size", "64", "--max-length", "8", "--device", "cpu",
+            "--prompt", "一丁", "-o", str(out)]
+    if family == "mul_zh":
+        args += ["--text-encoder-dir-2", directory_zh]
+    main(args)
+    assert Image.open(out).size == (16, 16) and f"wrote {out}" in capsys.readouterr().out
+
+
+def test_cli_mul_zh_needs_the_chinese_tower(deployment, capsys):
+    with pytest.raises(SystemExit):
+        main(["--model-dir", deployment["sdxl"], "--family", "mul_zh", "--text-encoder-dir",
+              deployment["text"], "--adapter", "a.bin", "--device", "cpu"])
+    assert "--text-encoder-dir-2" in capsys.readouterr().err
 
 
 def test_smoke_deployment_configs_are_the_serving_stack_and_its_rows_cover_the_walk(tmp_path):
