@@ -168,7 +168,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    mul_zh tower and the sdxl_concat adapter swapped in (micro-batch 10,
    640², the teachers as there, input_ids and input_ids_zh), from launch
    counts of 0: a finite loss, finite nonzero adapter gradients, and B1,
-   B3, B4 and B5 as the walk gives them for one step.
+   B3, B4 and B5 as the walk gives them for one step. Then training from
+   webdataset shards (`shards_phase`) on the same stack: 4 shards written
+   under build/chip_smoke_shards/ from seed 0 (10 JPEGs in each of the
+   buckets 640x640, 768x512, 448x896 and 832x448, Chinese-native and
+   parallel captions in each, and 8 samples the quality filters drop), the
+   loader's host samples/s at 1 and 4 decode threads, then one pass of
+   make_train_iterator (micro-batch 10, 4 decode threads, the native C++
+   reader) through the card's prefetcher: KDTrainer.warmup of each bucket
+   ("sdxl shards warmup") and KDTrainer.fit of one step a bucket ("sdxl
+   shards training", the last step traced by its profiler window), each
+   from launch counts of 0 and as the walk at the bucket's (h, w) latents
+   gives them (level-1 self-attention at S = 1600, 1536, 1568, 1456); every
+   batch single-bucket with its shape and time ids and both zh_or_not
+   values, the filtered samples absent, the native reader the only one,
+   finite losses, a moved adapter, bit-identical frozen tensors, the trace
+   file; warmup and step seconds per bucket, samples/s, peak memory beside
+   the 640²-only path's, and the traced step's device busy time and idle
+   share. Then on the 640² batch with the same draws, kd_loss + adapter
+   gradient twice each (the second timed) of the remat policies "full",
+   "blocks" (B3 with lse three times a student call) and "dots" (peak
+   memory, time, the gradient's max difference from "full" below 1e-2 of
+   its max) and of bfloat16 feature taps (printed, not gated).
 
 The last lines are the card, a {"kernels": [...]} line and
 {"ok": true, "device": {...}}. Each row of the kernels line is one kernel at
@@ -310,6 +331,22 @@ TINY_TOWER_SETTINGS = {
 # 10, 640², the teachers as there) with the mul_zh tower and sdxl_concat
 # adapter swapped in and dict ids (`mul_zh_kd_step`, in the training phase).
 MUL_ZH_KD_PATH = "mul_zh kd step"
+# Training from webdataset shards (`shards_phase`, in the SDXL training
+# phase, on its stack): 4 shards written under build/ from seed 0, 10 JPEGs
+# in each of four aspect buckets ({bucket id: the source image's w x h, each
+# 1.25x its bucket's sides}) and SHARDS_FILTERED samples the quality filters
+# drop; one pass of make_train_iterator at micro-batch 10 through the card's
+# prefetcher: the warmup of those buckets, then one fit step a bucket, the
+# last step profiled (its trace is written when fit returns, after the
+# timed steps). Level-1 self-attention runs at S = 1600, 1536, 1568
+# and 1456 (level 2 at 364-400, plain).
+SHARDS_PATH, SHARDS_WARMUP = "sdxl shards training", "sdxl shards warmup"
+SHARD_BUCKETS = {4: (800, 800), 6: (960, 640), 0: (560, 1120), 7: (1040, 560)}
+SHARDS_FILTERED = 8
+SHARDS_BATCH, SHARDS_WORKERS = 10, 4
+SHARDS_PROFILE_STEP = len(SHARD_BUCKETS) - 1
+LOADER_EPOCHS = 3           # passes over the shards per loader timing
+REMAT_GRAD_RTOL = 1e-2      # adapter gradient, a remat policy vs "full" (of max |full|)
 # The deployment's config files, as diffusers and transformers write them
 # for SDXL-base, SDXL-Turbo's scheduler and the Chinese-CLIP RoBERTa-large
 # text tower (BERT layout).
@@ -515,6 +552,12 @@ PER_CALL = {
                 "B4": {"onepass": 1, "flash": 1}, "B5": {"onepass": 1, "flash": 1}},
     "student, no gradient": {"B1": {"onepass": 2}, "B3": {"flash": 2}},
     "teacher": {"B1": {"onepass": 1}, "B3": {"flash": 1}},
+    # the "blocks" remat policy (shards phase A/B): every attention call sits
+    # in a transformer block segment nested in a unit segment, so its
+    # forward runs three times (forward, the unit's recompute, the block's)
+    "student, blocks": {"B3": {"onepass": 3, "flash": 3},
+                        "B3 with lse": {"onepass": 3, "flash": 3},
+                        "B4": {"onepass": 1, "flash": 1}, "B5": {"onepass": 1, "flash": 1}},
 }
 COUNTERS = ("B1", "B3", "B3 with lse", "B4", "B5", "B6", "B6-b")
 
@@ -532,9 +575,28 @@ def _check(name, what, outs, refs, rtol):
     return worst_abs, worst_rel
 
 
+def shards_t(key):
+    """The shards path's warmup and fit steps run the same shapes."""
+    return {SHARDS_PATH: key, SHARDS_WARMUP: key}
+
+
 def sdxl_t(key):
-    """SDXL training and the mul_zh KD step run the same shapes."""
-    return {"sdxl training": key, MUL_ZH_KD_PATH: key}
+    """SDXL training, the mul_zh KD step and the shards path's 640² bucket
+    run the same shapes."""
+    return dict({"sdxl training": key, MUL_ZH_KD_PATH: key}, **shards_t(key))
+
+
+def shard_bucket_shapes():
+    """(bucket id, (w, h), level-1 sequence) of each bucket of the shards
+    path other than 640², whose shapes are SDXL training's."""
+    from pea_diffusion_tpu_torch.data.buckets import BUCKETS
+
+    out = []
+    for b in SHARD_BUCKETS:
+        w, h = BUCKETS[b]
+        if (w, h) != (640, 640):
+            out.append((b, (w, h), (h // 16) * (w // 16)))
+    return out
 
 
 def forward_cases():
@@ -610,6 +672,18 @@ def forward_cases():
         ("B3", 16, 1024, 52, 1, 80, False, {sd15_s: ("flash", 1024, 52)},
          "SD1.5 serving: cross-attention, level 1"),
     ]
+    for _, (w, h), s in shard_bucket_shapes():
+        what = f"SDXL shards training, bucket {w}x{h}"
+        cases += [
+            ("B1", 10, s, s, 10, 64, False, shards_t(("onepass", s, s)),
+             f"{what} teacher: self-attention, level 1"),
+            ("B3", 100, s, TEXT_TOKENS, 1, 64, True, shards_t(("flash", s, TEXT_TOKENS)),
+             f"{what} student: cross-attention, level 1"),
+            ("B3", 100, s, TEACHER_TOKENS, 1, 64, False, shards_t(("flash", s, TEACHER_TOKENS)),
+             f"{what} teacher: cross-attention, level 1"),
+            ("B3", 100, s, s, 1, 64, True, shards_t(("onepass", s, s)),
+             f"{what} student: self-attention (head-major)"),
+        ]
     sd15_1k_s, sd15_1k_t, bh_1k = "sd15 1024 serving", "sd15 1024 training", SD15_1024_SERVING_BH
     for level, d, s in ((0, 40, 16384), (1, 80, 4096), (2, 160, 1024)):
         cases += [
@@ -747,7 +821,12 @@ def backward_cases():
          f"SD1.5 1024² training: {'self' if kv == s else 'cross'}-attention, level {level}")
         for level, d, s in ((0, 40, 16384), (1, 80, 4096), (2, 160, 1024))
         for kv in (s, TEXT_TOKENS)
-    ] + [(16, 1000, 1000, d, {}, f"ragged Sq and Skv, head_dim {d}") for d in (40, 80, 160)]
+    ] + [(16, 1000, 1000, d, {}, f"ragged Sq and Skv, head_dim {d}") for d in (40, 80, 160)] + [
+        (100, s, kv, 64, shards_t((route, s, kv)),
+         f"SDXL shards training, bucket {w}x{h}: {'self' if kv == s else 'cross'}-attention, "
+         "level 1")
+        for _, (w, h), s in shard_bucket_shapes()
+        for route, kv in (("onepass", s), ("flash", TEXT_TOKENS))]
 
 
 def run_backward_cases(torch, F, randn, flush):
@@ -1143,10 +1222,11 @@ def sweep_phase(torch, F):
     return entries
 
 
-def attention_calls(unet, latent: int, skv: int, device_type="cuda", grad_free=None,
+def attention_calls(unet, latent, skv: int, device_type="cuda", grad_free=None,
                     heads=False):
     """(route, sq, skv, head_dim) of each attention call of one UNet forward
-    at a latent side `latent`, in the order the forward runs them, from the
+    at a latent side `latent` (an int, or (height, width) for an aspect
+    bucket's latents), in the order the forward runs them, from the
     dispatch each attention module takes at its level's sequence length;
     with `heads`, the call's head count after the head dim.
     With `grad_free` False or True, only the calls whose inputs do or do not
@@ -1161,8 +1241,9 @@ def attention_calls(unet, latent: int, skv: int, device_type="cuda", grad_free=N
     levels = ([(blk, i) for i, blk in enumerate(unet.down_blocks)] + [(unet.mid_block, n - 1)]
               + [(blk, n - 1 - i) for i, blk in enumerate(getattr(unet, "up_blocks", []))])
     conditioned = getattr(unet.config, "unet", unet.config).addition_embed_type == "text_time"
+    lh, lw = (latent, latent) if isinstance(latent, int) else latent
     for block, level in levels:
-        sq = (latent >> level) ** 2
+        sq = (lh >> level) * (lw >> level)
         for tr in getattr(block, "attentions", []):
             for tb in tr.transformer_blocks:
                 for attn, kv in ((tb.attn1, sq), (tb.attn2, skv)):
@@ -1174,7 +1255,7 @@ def attention_calls(unet, latent: int, skv: int, device_type="cuda", grad_free=N
                     yield (route, sq, kv, attn.head_dim) + ((attn.num_heads,) if heads else ())
 
 
-def attention_routes(unet, latent: int, skv: int, device_type="cuda", grad_free=None,
+def attention_routes(unet, latent, skv: int, device_type="cuda", grad_free=None,
                      heads=False):
     """{(route, sq, skv): calls} of one UNet forward (see `attention_calls`);
     with `heads`, keyed (route, sq, skv, heads)."""
@@ -1184,7 +1265,7 @@ def attention_routes(unet, latent: int, skv: int, device_type="cuda", grad_free=
         unet, latent, skv, device_type, grad_free, heads))
 
 
-def routes_by_head_dim(unet, latent: int, skv: int):
+def routes_by_head_dim(unet, latent, skv: int):
     """{(route, head_dim): calls} of one UNet forward, for the log."""
     from collections import Counter
 
@@ -1575,7 +1656,7 @@ def training_path(torch, models, repo, kernels, path):
     """KDTrainer.fit for TRAIN_STEPS steps at the path's micro-batch and
     image side (synthetic batches from cli/train.py's demo_full_batches,
     seeded as its build_demo_full seeds them), from launch counts of 0;
-    stamps the launches on the kernel rows."""
+    stamps the launches on the kernel rows. Returns the peak memory, GiB."""
     import shutil
 
     from pea_diffusion_tpu_torch.cli.train import demo_full_batches
@@ -1638,6 +1719,7 @@ def training_path(torch, models, repo, kernels, path):
     gen = torch.Generator(device="cuda").manual_seed(99)
     profile_run(torch, lambda: trainer.step_fn(trainer.state, batch, gen), step_s,
                 repo / "build" / spec["table"], f"{tag} profile")
+    return peak
 
 
 def serving_phase(torch, model, kernels, repo):
@@ -2431,6 +2513,312 @@ def mul_zh_kd_step(torch, models, kernels):
     del kd, loss, grads
 
 
+def write_shards(root):
+    """4 webdataset shards of SHARD_BUCKETS' images, seed 0: 10 JPEGs a
+    bucket (sine gratings under seeded noise, so that decode does real
+    work), captions Chinese-native (caption_ori) and parallel (caption_zh +
+    caption_en) in turns within each bucket, and per shard one image under
+    the 640² area filter and one at watermark 0.9, their captions unique.
+    Returns the shards' url and {filtered caption}."""
+    import io
+    import tarfile
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    words = list("猫狗山湖花树云雪河桥城鸟马船灯月")
+    root.mkdir(parents=True, exist_ok=True)
+    sizes, n_good = list(SHARD_BUCKETS.values()), 10 * len(SHARD_BUCKETS)
+    per_shard = n_good // 4
+    filtered = set()
+
+    def jpeg(w, h):
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        f = rng.uniform(0.01, 0.05, 3)
+        img = np.stack([127 + 100 * np.sin(f[c] * xx + (c + 1) * f[c] * yy) for c in range(3)], -1)
+        img += rng.normal(0, 12, img.shape)
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(buf, "JPEG", quality=90)
+        return buf.getvalue()
+
+    for shard in range(4):
+        samples = []
+        for j in range(per_shard):
+            g = shard * per_shard + j
+            w, h = sizes[g % len(sizes)]
+            zh = "".join(rng.choice(words, 6))
+            meta = ({"caption_ori": zh, "caption_en": f"picture {g}"} if (g // 4) % 2 == 0
+                    else {"caption_zh": zh, "caption_en": f"picture {g}",
+                          "watermark": 0.1, "aesthetic_score": 7.0})
+            samples.append((f"{shard:02d}{g:04d}", (w, h), meta))
+        for k, (size, meta) in enumerate((
+                ((560, 560), {"caption_ori": f"过滤小图{shard}", "watermark": 0.1}),
+                ((800, 800), {"caption_zh": f"过滤水印{shard}", "caption_en": f"filtered {shard}",
+                              "watermark": 0.9, "aesthetic_score": 7.0}))):
+            filtered.add(meta.get("caption_ori") or meta["caption_zh"])
+            samples.append((f"{shard:02d}x{k}", size, meta))
+        with tarfile.open(root / f"{shard:05d}.tar", "w") as tf:
+            for key, (w, h), meta in samples:
+                for name, data in ((f"{key}.jpg", jpeg(w, h)),
+                                   (f"{key}.json", json.dumps(meta).encode())):
+                    info = tarfile.TarInfo(name)
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+    assert len(filtered) == SHARDS_FILTERED
+    return str(root / "{00000..00003}.tar"), filtered
+
+
+def shard_tokenizers():
+    """Seeded character tokenizers: the student's 52 ids in the Chinese-CLIP
+    vocab, each CLIP teacher's 77 in its own (the smoke reads no tokenizer
+    files)."""
+    from pea_diffusion_tpu_torch.cli.generate import make_tokenizer
+    from pea_diffusion_tpu_torch.configs import CHINESE_CLIP_LARGE, CLIP_BIG_G, CLIP_VIT_L
+
+    return (make_tokenizer(CHINESE_CLIP_LARGE.vocab_size, TEXT_TOKENS),
+            [make_tokenizer(c.vocab_size - 1, TEACHER_TOKENS) for c in (CLIP_VIT_L, CLIP_BIG_G)])
+
+
+def loader_rate(url, workers):
+    """Host samples/s of make_train_iterator over LOADER_EPOCHS passes of
+    the shards at `workers` decode threads (read, decode, filter, crop,
+    batch and tokenize; no device)."""
+    from pea_diffusion_tpu_torch.configs import DataConfig
+    from pea_diffusion_tpu_torch.data.pipeline import make_train_iterator
+
+    tokenize, teacher = shard_tokenizers()
+    cfg = DataConfig(urls=(url,), batch_size=SHARDS_BATCH, num_workers=workers)
+    t = time.time()
+    n = sum(len(b["prompts"]) for b in make_train_iterator(cfg, tokenize, teacher,
+                                                          epochs=LOADER_EPOCHS))
+    return n, n / (time.time() - t)
+
+
+def trace_busy_ms(path):
+    """Device busy time of a Chrome trace: the union of its kernel and
+    memcpy/memset intervals, in ms."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def shard_calls(models, bucket, role="student"):
+    """The attention calls of one KD step's UNet forwards at `bucket`'s
+    latents: [(role, routes, 1)] for the student and the teacher."""
+    from pea_diffusion_tpu_torch.data.buckets import BUCKETS
+
+    w, h = BUCKETS[bucket]
+    latent = (h // 8, w // 8)
+    return [(role, attention_routes(models.unet, latent, TEXT_TOKENS, grad_free=False), 1),
+            ("student, no gradient",
+             attention_routes(models.unet, latent, TEXT_TOKENS, grad_free=True), 1),
+            ("teacher", attention_routes(models.unet, latent, TEACHER_TOKENS), 1)]
+
+
+def shards_phase(torch, models, kernels, repo, single_peak):
+    """Training from webdataset shards on the SDXL KD stack `models`
+    (micro-batch 10): the shards (`write_shards`), the loader's host
+    samples/s at 1 and SHARDS_WORKERS decode threads, then one pass of
+    make_train_iterator through the card's prefetcher, KDTrainer.warmup of
+    each bucket (path SHARDS_WARMUP) and KDTrainer.fit of one step a bucket
+    (SHARDS_PATH, the last step profiled): the native reader fed the
+    stream, every batch single-bucket with its shape and time ids, the
+    filtered samples absent, finite losses, a moved adapter, bit-identical
+    frozen tensors, a trace file, B1/B3/B4/B5 launches per bucket as the
+    walk gives them. Then the remat A/B ("full", "blocks", "dots") and the
+    tap-dtype A/B on the 640² batch with the same draws. `single_peak` is
+    the 640²-only training path's peak memory (GiB), for the log."""
+    import shutil
+
+    from pea_diffusion_tpu_torch.configs import DataConfig, TrainConfig
+    from pea_diffusion_tpu_torch.data import wds_reader
+    from pea_diffusion_tpu_torch.data.buckets import BUCKETS, scaled_size_to_cover
+    from pea_diffusion_tpu_torch.data.pipeline import make_train_iterator, prefetch_to_device
+    from pea_diffusion_tpu_torch.train.trainer import KDTrainer
+
+    t_phase = time.time()
+    url, filtered = write_shards(repo / "build" / "chip_smoke_shards")
+    log(f"[{SHARDS_PATH}] wrote 4 shards ({10 * len(SHARD_BUCKETS)} images in buckets "
+        f"{sorted(SHARD_BUCKETS)} + {SHARDS_FILTERED} to filter) in {time.time() - t_phase:.2f}s")
+    wds_reader.sample_stream.samples = {"native": 0, "python": 0}
+    for workers in (1, SHARDS_WORKERS):
+        n, rate = loader_rate(url, workers)
+        log(f"[{SHARDS_PATH}] loader, {workers} decode thread(s): {n} samples in "
+            f"{LOADER_EPOCHS} passes, {rate:.4f} samples/s on the host")
+    reads = dict(wds_reader.sample_stream.samples)
+    if reads["native"] == 0 or reads["python"] != 0:
+        raise AssertionError(f"{SHARDS_PATH}: the native reader did not feed the stream: {reads}")
+
+    out = repo / "build" / "chip_smoke_shards_run"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = TrainConfig(warmup_steps=0, warmup_ratio=0.0, output_dir=str(out), log_every_n_steps=1,
+                      batch_size_per_device=SHARDS_BATCH)  # no checkpoint inside the timed steps
+    trainer = KDTrainer(models, cfg, profile_window=(SHARDS_PROFILE_STEP, SHARDS_PROFILE_STEP + 1))
+    frozen = checksums(torch, models.frozen_modules())
+    adapter = {k: v.clone() for k, v in models.adapter.state_dict().items()}
+    tokenize, teacher = shard_tokenizers()
+    wds_reader.sample_stream.samples = {"native": 0, "python": 0}
+    data_cfg = DataConfig(urls=(url,), batch_size=SHARDS_BATCH, num_workers=SHARDS_WORKERS)
+    batches = prefetch_to_device(make_train_iterator(data_cfg, tokenize, teacher, epochs=1), "cuda")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm_s, warm_launches = {}, {}
+    for b in SHARD_BUCKETS:
+        reset_launch_counts()
+        t = time.time()
+        trainer.warmup(SHARDS_BATCH, TEXT_TOKENS, TEACHER_TOKENS, buckets=[b])
+        warm_s[b] = time.time() - t
+        warm_launches[b] = launch_counts()
+        check_launches(f"{SHARDS_WARMUP} bucket {b}", warm_launches[b],
+                       path_launches(shard_calls(models, b)))
+    stamp_launches(kernels, SHARDS_WARMUP,
+                   [c for b in SHARD_BUCKETS for c in shard_calls(models, b)],
+                   {k: sum(v[k] for v in warm_launches.values()) for k in COUNTERS})
+
+    steps, kept = [], {}
+
+    def observed(it):
+        it = iter(it)
+        while True:
+            t0 = time.time()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            t1 = time.time()
+            b = int(batch["bucket_id"])
+            w, h = BUCKETS[b]
+            px = batch["pixel_values"]
+            if not (px.is_cuda and tuple(px.shape) == (SHARDS_BATCH, h, w, 3)):
+                raise AssertionError(f"{SHARDS_PATH}: bucket {b} batch {tuple(px.shape)} "
+                                     f"on {px.device}")
+            ow, oh = SHARD_BUCKETS[b]
+            nw, nh = scaled_size_to_cover((ow, oh), (w, h))  # the crop's frame
+            tid = batch["time_ids"].cpu()
+            want = torch.tensor([oh, ow, h, w], dtype=torch.float32)
+            if not (torch.equal(tid[:, [0, 1, 4, 5]], want.expand(SHARDS_BATCH, 4))
+                    and bool((tid[:, 2] <= nh - h).all()) and bool((tid[:, 3] <= nw - w).all())):
+                raise AssertionError(f"{SHARDS_PATH}: bucket {b} time ids {tid.tolist()}")
+            zh = sorted(set(batch["zh_or_not"].tolist()))
+            if zh != [0.0, 1.0] or filtered & set(batch["prompts"]):
+                raise AssertionError(f"{SHARDS_PATH}: bucket {b} zh_or_not {zh}, prompts "
+                                     f"{batch['prompts']}")
+            if (w, h) == (640, 640):
+                kept["batch"] = batch
+            reset_launch_counts()
+            yield batch
+            torch.cuda.synchronize()
+            steps.append(dict(bucket=b, wait_s=t1 - t0, step_s=time.time() - t1,
+                              launches=launch_counts()))
+
+    trainer.fit(observed(batches), max_steps=len(SHARD_BUCKETS))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reads = dict(wds_reader.sample_stream.samples)
+
+    if sorted(s["bucket"] for s in steps) != sorted(SHARD_BUCKETS):
+        raise AssertionError(f"{SHARDS_PATH}: buckets {[s['bucket'] for s in steps]}, want one "
+                             f"batch each of {sorted(SHARD_BUCKETS)}")
+    if reads["native"] != 10 * len(SHARD_BUCKETS) + SHARDS_FILTERED or reads["python"]:
+        raise AssertionError(f"{SHARDS_PATH}: raw samples by reader {reads}")
+    for s in steps:
+        check_launches(f"{SHARDS_PATH} bucket {s['bucket']}", s["launches"],
+                       path_launches(shard_calls(models, s["bucket"])))
+    stamp_launches(kernels, SHARDS_PATH,
+                   [c for s in steps for c in shard_calls(models, s["bucket"])],
+                   {k: sum(s["launches"][k] for s in steps) for k in COUNTERS})
+    recs = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in recs]
+    if len(recs) != len(SHARD_BUCKETS) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{SHARDS_PATH}: losses {losses}")
+    if all(torch.equal(v, models.adapter.state_dict()[k]) for k, v in adapter.items()):
+        raise AssertionError(f"{SHARDS_PATH}: the adapter did not change")
+    if checksums(torch, models.frozen_modules()) != frozen:
+        raise AssertionError(f"{SHARDS_PATH}: a frozen tensor changed")
+    trace = Path(trainer.profiler.path)
+    if not trace.is_file():
+        raise AssertionError(f"{SHARDS_PATH}: no trace at {trace}")
+    busy_ms, n_kernels = trace_busy_ms(trace)
+    prof = steps[SHARDS_PROFILE_STEP]
+    timed = [s for i, s in enumerate(steps) if i != SHARDS_PROFILE_STEP]
+    rate = SHARDS_BATCH * len(timed) / sum(s["step_s"] for s in timed)
+    def wxh(b):
+        return "x".join(map(str, BUCKETS[b]))
+
+    log(f"[{SHARDS_PATH}] warmup s: " + ", ".join(
+        f"bucket {b} ({wxh(b)}) {warm_s[b]:.4f}" for b in warm_s))
+    log(f"[{SHARDS_PATH}] steps in order (bucket, step s, data wait s): "
+        + "; ".join(f"{s['bucket']} ({wxh(s['bucket'])}) {s['step_s']:.4f} {s['wait_s']:.4f}"
+                    for s in steps)
+        + f"; losses {losses}; {rate:.4f} samples/s over the unprofiled steps; peak memory "
+        f"{peak:.2f} GiB over warmup and fit (640² alone, sdxl training: {single_peak:.2f} "
+        f"GiB); raw samples by reader {reads}; adapter moved, {len(frozen)} frozen tensors "
+        "bit-identical")
+    log(f"[{SHARDS_PATH} profile] step {SHARDS_PROFILE_STEP + 1} (bucket {prof['bucket']}): "
+        f"device busy {busy_ms:.1f} ms in {n_kernels} kernels of {prof['step_s'] * 1e3:.1f} ms "
+        f"wall under the profiler; idle {max(0.0, 1 - busy_ms / (prof['step_s'] * 1e3)):.3f}; "
+        f"trace {trace.name}")
+    remat_ab(torch, models, kept.pop("batch"))
+    log(f"[{SHARDS_PATH}] phase done in {time.time() - t_phase:.1f}s")
+
+
+def remat_ab(torch, models, batch):
+    """kd_loss + adapter gradient of each remat policy, "full", "blocks"
+    and "dots", then of bfloat16 feature taps, on the 640² `batch` (bucket
+    4) with the same draws, twice each; of the second run the peak memory,
+    step time, launches (B3 with lse three times a student call under
+    "blocks", twice otherwise), and the
+    gradient's max difference from "full" over max |full| (gated at
+    REMAT_GRAD_RTOL for the policies; printed for the taps)."""
+    import dataclasses
+
+    from pea_diffusion_tpu_torch.configs import TrainConfig
+    from pea_diffusion_tpu_torch.train.kd import kd_loss
+
+    params = list(models.adapter.parameters())
+    if tuple(batch["pixel_values"].shape[1:3]) != (640, 640):
+        raise AssertionError(f"remat A/B: batch {tuple(batch['pixel_values'].shape)}")
+    draws, runs = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for name, kw in (("full", {}), ("blocks", dict(remat_policy="blocks")),
+                     ("dots", dict(remat_policy="dots")),
+                     ("bfloat16 taps", dict(feature_tap_dtype="bfloat16"))):
+        m = dataclasses.replace(models, **kw)
+        for _ in range(2):  # the second run timed, on the allocator the first left
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t = time.time()
+            loss, _ = kd_loss(m, TrainConfig(), batch, gen, draws)
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            seconds = time.time() - t
+        flat = torch.cat([g.flatten() for g in grads])
+        calls = shard_calls(models, 4, "student, blocks" if name == "blocks" else "student")
+        check_launches(f"{SHARDS_PATH} remat {name}", launch_counts(), path_launches(calls))
+        runs[name] = dict(loss=loss.item(), grad=flat, s=seconds,
+                          peak=torch.cuda.max_memory_allocated() / 2**30)
+        del loss, grads
+    full = runs["full"]["grad"]
+    scale = full.abs().max().item()
+    for name, r in runs.items():
+        rel = (r["grad"] - full).abs().max().item() / scale
+        log(f"[{SHARDS_PATH} remat] {name}: loss {r['loss']:.6g}, step (kd_loss + adapter "
+            f"gradient) {r['s']:.4f} s, peak memory {r['peak']:.2f} GiB, adapter gradient max "
+            f"diff from full {rel:.3g} of max |full| ({scale:.4g})")
+        if name in ("blocks", "dots") and not rel < REMAT_GRAD_RTOL:
+            raise AssertionError(f"remat {name}: adapter gradient {rel} of max |full|")
+    del runs
+
+
 def control_image(size):
     """Canny edges of a seeded image of 64-pixel blocks, size x size."""
     import numpy as np
@@ -2584,12 +2972,13 @@ def training_phase(torch, model, kernels, repo):
     reference_kd_step(torch, models, model)
     if model == "sdxl":
         reference_kd_step(torch, models, model, compare="groupnorm")
+    peaks = {}
     for path in paths:
         spec = TRAINING[path]
         if "check_head_dim" in spec:
             reference_kd_step(torch, models, model, size=spec["size"],
                               head_dim=spec["check_head_dim"])
-        training_path(torch, models, repo, kernels, path)
+        peaks[path] = training_path(torch, models, repo, kernels, path)
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[{path}] done at {time.time() - t1:.1f}s after the stack's build")
@@ -2598,6 +2987,10 @@ def training_phase(torch, model, kernels, repo):
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[{MUL_ZH_KD_PATH}] done at {time.time() - t1:.1f}s after the stack's build")
+        shards_phase(torch, models, kernels, repo, peaks["sdxl training"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[{SHARDS_PATH}] done at {time.time() - t1:.1f}s after the stack's build")
 
 
 def main() -> int:

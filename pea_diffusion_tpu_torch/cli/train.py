@@ -14,14 +14,27 @@ real shapes and kernels, meaningless data.
   micro-batch 40 and 512x512 by default (the reference's train_sd_zh.py
   operating point).
 --resume-adapter starts from a reference-format adapter checkpoint
-(``proj_N/pytorch_model.bin`` or its safetensors sibling). Training from
-real checkpoints waits for the webdataset data pipeline (ROADMAP Queue A
-item 14).
+(``proj_N/pytorch_model.bin`` or its safetensors sibling).
+
+Real mode (neither demo flag; SDXL, as in the JAX package) trains the
+adapter of --adapter-preset on webdataset shards (--urls, brace ranges,
+`::`-joined groups) through the data pipeline (data/pipeline.py, the
+aspect buckets, --num-workers decode threads) and the card's prefetcher,
+from a diffusers SDXL directory (--model-dir: unet/, vae/, text_encoder/,
+text_encoder_2/ and the CLIP tokenizers in tokenizer/, tokenizer_2/), the
+student tower of --family (--text-encoder-dir, for mul_zh also
+--text-encoder-dir-2; tokenizers from --tokenizer-dir(-2), by default the
+tower directories, through transformers), optional --lora files fused into
+the UNet and the CLIP teachers. --profile START STOP traces steps
+[START, STOP) under <output>/trace.
 
 Usage:
   python -m pea_diffusion_tpu_torch.cli.train --demo --device cpu --steps 2 --output run
   python -m pea_diffusion_tpu_torch.cli.train --demo-full --steps 3 --output run
   python -m pea_diffusion_tpu_torch.cli.train --model sd15 --demo-full --steps 3 --output run
+  python -m pea_diffusion_tpu_torch.cli.train --model-dir sdxl --text-encoder-dir cn-clip \
+      --urls "/data/laion_zh/{00000..00999}.tar::/data/wukong/{00000..00499}.tar" \
+      --batch-size 10 --output runs/sdxl_zh
 """
 from __future__ import annotations
 
@@ -147,6 +160,66 @@ def demo_full_batches(device, batch_size: int, size: int, seed: int, model: str 
         yield batch
 
 
+def build_real(args):
+    """The KD stack of the real mode (see the module's docstring) on
+    --device, and ``make_batches(start_step)``: the card-prefetched batch
+    stream of the shards, re-seeded by the resumed step."""
+    from transformers import AutoTokenizer, CLIPTokenizer
+
+    from ..checkpoints.load_pretrained import (load_clip_text, load_student_tower, load_unet,
+                                               load_vae)
+    from ..configs.adapter import ADAPTER_PRESETS
+    from ..configs.train import DataConfig
+    from ..data.pipeline import make_train_iterator, prefetch_to_device
+    from ..models.adapter import PEAAdapter
+    from ..pipelines.factory import make_text_encoder_fn, resolve_device
+    from ..schedulers import SDXL_SCHEDULE
+    from ..train.kd import KDModels
+
+    dev, bf16 = resolve_device(args.device), torch.bfloat16
+    loras, scales = args.lora or (), args.lora_scale or ()
+    _, unet = load_unet(args.model_dir, lora_paths=loras, lora_scales=scales, dtype=bf16,
+                        device=dev)
+    vae_cfg, vae = load_vae(args.model_dir, device=dev)
+    text_cfg, text = load_student_tower(args.family, args.text_encoder_dir,
+                                        args.text_encoder_dir_2, dtype=bf16, device=dev)
+    _, text_fn = make_text_encoder_fn(args.family, text_cfg, text)
+    teachers = [load_clip_text(f"{args.model_dir}/{name}", with_projection=proj,
+                               lora_paths=loras, lora_scales=scales, component=name,
+                               dtype=bf16, device=dev)[1]
+                for name, proj in (("text_encoder", False), ("text_encoder_2", True))]
+    torch.manual_seed(0)  # the module's own initialisation, as the JAX CLI's init
+    with torch.device(dev):
+        adapter = PEAAdapter(ADAPTER_PRESETS[args.adapter_preset])
+    models = KDModels(adapter=adapter.train(), unet=unet, vae=vae, text_encoder=text,
+                      text_encoder_fn=text_fn, teacher_clip1=teachers[0],
+                      teacher_clip2=teachers[1], schedule=SDXL_SCHEDULE,
+                      vae_scaling=vae_cfg.scaling_factor).freeze()
+
+    def tokenizer(tok, length):
+        return lambda texts: tok(texts, padding="max_length", max_length=length,
+                                 truncation=True, return_tensors="np")["input_ids"]
+
+    tokenize = tokenizer(AutoTokenizer.from_pretrained(
+        args.tokenizer_dir or args.text_encoder_dir), args.max_length)
+    teacher_tokenize = [tokenizer(CLIPTokenizer.from_pretrained(f"{args.model_dir}/{d}"), 77)
+                        for d in ("tokenizer", "tokenizer_2")]
+    tokenize_zh = None
+    if args.family == "mul_zh":  # the Chinese tokenizer's ids beside XLM-R's
+        tokenize_zh = tokenizer(AutoTokenizer.from_pretrained(
+            args.tokenizer_dir_2 or args.text_encoder_dir_2), args.max_length)
+    data_cfg = DataConfig(urls=tuple(args.urls), batch_size=args.batch_size,
+                          num_workers=args.num_workers)
+
+    def make_batches(start_step: int = 0):
+        # made after the trainer's resume: start_step re-seeds the stream so
+        # that a resumed run does not replay the consumed prefix
+        return prefetch_to_device(make_train_iterator(
+            data_cfg, tokenize, teacher_tokenize, tokenize_zh, start_step=start_step), dev)
+
+    return models, make_batches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     mode = ap.add_mutually_exclusive_group()
@@ -169,17 +242,47 @@ def main(argv=None):
     ap.add_argument("--no-hybrid", action="store_true")
     ap.add_argument("--resume-adapter", metavar="PATH",
                     help="start from this reference-format adapter checkpoint")
+    ap.add_argument("--profile", nargs=2, type=int, metavar=("START", "STOP"),
+                    help="trace steps [START, STOP) under <output>/trace")
+    real = ap.add_argument_group("real mode (neither --demo nor --demo-full; SDXL)")
+    real.add_argument("--model-dir", help="diffusers SDXL directory (unet/, vae/, "
+                                          "text_encoder(_2)/, tokenizer(_2)/)")
+    real.add_argument("--text-encoder-dir", help="the student tower (see --family)")
+    real.add_argument("--text-encoder-dir-2",
+                      help="mul_zh: the Chinese-CLIP tower (the second encoder)")
+    real.add_argument("--tokenizer-dir", help="default: --text-encoder-dir")
+    real.add_argument("--tokenizer-dir-2", help="mul_zh; default: --text-encoder-dir-2")
+    real.add_argument("--family", default="chinese_clip",
+                      choices=["chinese_clip", "mul_clip", "mt5", "alt_clip", "mul_zh"])
+    real.add_argument("--adapter-preset", default="sdxl_chinese_clip")
+    real.add_argument("--lora", nargs="*",
+                      help="LoRA safetensors fused into the UNet and the CLIP teachers")
+    real.add_argument("--lora-scale", nargs="*", type=float)
+    real.add_argument("--urls", nargs="+", default=[], help="webdataset shard urls")
+    real.add_argument("--num-workers", type=int, default=2)
+    real.add_argument("--max-length", type=int, default=52)
     args = ap.parse_args(argv)
 
-    if not (args.demo or args.demo_full):
-        raise NotImplementedError(
-            "training from real checkpoints waits for the webdataset data pipeline "
-            "(ROADMAP Queue A item 14); run --demo or --demo-full")
+    real_mode = not (args.demo or args.demo_full)
+    if real_mode:
+        if args.model != "sdxl":
+            ap.error("the real mode trains SDXL (--model sdxl); --model sd15 runs "
+                     "with --demo or --demo-full")
+        for req in ("model_dir", "text_encoder_dir"):
+            if getattr(args, req) is None:
+                ap.error(f"--{req.replace('_', '-')} required without --demo")
+        if args.family == "mul_zh" and args.text_encoder_dir_2 is None:
+            ap.error("--family mul_zh needs --text-encoder-dir-2 (the Chinese-CLIP tower)")
+        if not args.urls:
+            ap.error("--urls required without --demo")
 
     from ..configs.train import TrainConfig
     from ..train.trainer import KDTrainer
 
-    if args.demo:
+    if real_mode:
+        batch = args.batch_size or DEMO_FULL_DEFAULTS["sdxl"][0]
+        models, make_batches = build_real(args)
+    elif args.demo:
         batch = args.batch_size or 2
         models, make_batches = build_demo(args.device, batch, model=args.model)
     else:
@@ -199,10 +302,10 @@ def main(argv=None):
     if args.demo:
         cfg = dataclasses.replace(cfg, every_n_steps=max(args.steps or 5, 1),
                                   log_every_n_steps=1)
-    else:  # no warmup, so that the first update already moves the adapter:
-        # warmup_steps=0 alone falls back to warmup_ratio * total_steps
+    elif args.demo_full:  # no warmup, so that the first update already moves the
+        # adapter: warmup_steps=0 alone falls back to warmup_ratio * total_steps
         cfg = dataclasses.replace(cfg, warmup_steps=0, warmup_ratio=0.0)
-    trainer = KDTrainer(models, cfg)
+    trainer = KDTrainer(models, cfg, profile_window=tuple(args.profile) if args.profile else None)
     resumed = trainer.resume()
     state = trainer.fit(make_batches(resumed), max_steps=args.steps)
     print(f"done at step {state.step}")

@@ -1,11 +1,12 @@
-"""Training configuration (the port's own copy of the JAX package's
-``configs/train.py::TrainConfig``). Defaults reproduce the reference
-operating point. The JAX package's mesh field is left out: the port trains
-on one device (DDP/FSDP are ROADMAP Queue A item 17)."""
+"""Training and data configuration (the port's own copy of the JAX
+package's ``configs/train.py``: ``TrainConfig`` and ``DataConfig``).
+Defaults reproduce the reference operating point. The JAX package's mesh
+field is left out: the port trains on one device (DDP/FSDP are ROADMAP
+Queue A item 17)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,3 +48,27 @@ class TrainConfig:
     load_ckpt_path: Optional[str] = None
     load_ckpt_step: Optional[int] = None
     log_every_n_steps: int = 100
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    # webdataset-format shard urls, `::`-separated groups with brace ranges
+    urls: Tuple[str, ...] = ()
+    # decode + preprocess thread-pool width (data/pipeline.py::parallel_map)
+    num_workers: int = 2
+    batch_size: int = 10
+    resolution: int = 512
+    center_crop: bool = False
+    # True: 9-bucket aspect batching (SDXL); False: fixed square `resolution`
+    # (SD1.5)
+    bucketing: bool = True
+    shuffle_shards: bool = True
+    resample_shards: bool = False
+    train_split: float = 1.0
+    val_split: float = 0.0
+    test_split: float = 0.0
+    shuffle_buffer: int = 1000
+    # quality filters (data/captions.py::passes_quality)
+    min_area: int = 640 * 640
+    min_aesthetic: float = 6.0
+    max_watermark: float = 0.5

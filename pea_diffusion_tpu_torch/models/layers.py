@@ -276,12 +276,15 @@ class Transformer2D(nn.Module):
             for _ in range(depth)])
         self.proj_out = proj()
 
-    def forward(self, x, context):
+    def forward(self, x, context, segment=None):
+        """`segment` (the KD step's "blocks" remat, see models/unet.py's
+        ``checkpoint_segment``) runs each transformer block as its own
+        recompute segment; None runs them plainly."""
         b, c, h, w = x.shape
         residual = x
         x = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         x = _project(self.proj_in, x)
         for block in self.transformer_blocks:
-            x = block(x, context)
+            x = block(x, context) if segment is None else segment(block, x, context)
         x = _project(self.proj_out, x)
         return x.reshape(b, h, w, c).permute(0, 3, 1, 2) + residual

@@ -6,14 +6,23 @@ runs NCHW inside.
 {d0..dN, m, u0..uN} (NHWC) for the KD feature loss, and
 `down_block_additional_residuals` / `mid_block_additional_residual` add
 ControlNet residuals (NHWC) to every down skip and the mid output.
+
+`remat_segments=True` (the KD step's "blocks" remat policy) runs each unit
+the JAX package names "unet_seg" (each down unit: a resnet and its
+attention; the mid block; each up unit: the skip concat, a resnet and its
+attention; each transformer block inside a Transformer2D) as its own
+non-reentrant ``torch.utils.checkpoint`` region, the transformer blocks
+nested inside their unit's; otherwise the same ops run plainly.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import functools
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.unet import UNetConfig
 from .layers import (Downsample2D, GroupNorm, ResnetBlock2D, TimestepEmbedding,
@@ -122,19 +131,48 @@ def embed_time(model: nn.Module, cfg: UNetConfig, timesteps: torch.Tensor, batch
     return temb
 
 
+Segment = Optional[Callable[..., torch.Tensor]]
+
+
+def checkpoint_segment(fn, *args):
+    """`fn(*args)` as one recompute segment (non-reentrant checkpoint)."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _run(segment: Segment, fn, *args):
+    return fn(*args) if segment is None else segment(fn, *args)
+
+
+def _down_unit(resnet, attn, h, temb, context, segment: Segment = None):
+    h = resnet(h, temb)
+    return h if attn is None else attn(h, context, segment)
+
+
+def _up_unit(resnet, attn, h, skip, temb, context, segment: Segment = None):
+    h = resnet(torch.cat([h, skip.to(h.dtype)], dim=1), temb)
+    return h if attn is None else attn(h, context, segment)
+
+
+def _mid(mid: UNetBlock, h, temb, context, segment: Segment = None):
+    h = mid.resnets[0](h, temb)
+    if mid.attention(0) is not None:
+        h = mid.attention(0)(h, context, segment)
+    return mid.resnets[1](h, temb)
+
+
 def run_down_blocks(blocks: nn.ModuleList, h: torch.Tensor, temb: torch.Tensor,
                     context: torch.Tensor,
-                    features: Optional[Dict[str, torch.Tensor]] = None):
+                    features: Optional[Dict[str, torch.Tensor]] = None,
+                    segment: Segment = None):
     """The down path from conv_in's output `h`: the last hidden state and the
     stack of skips (conv_in's output, every resnet or attention output, every
-    downsample). `features` collects each block's output (NHWC) as d0..dN."""
+    downsample). `features` collects each block's output (NHWC) as d0..dN;
+    `segment` runs each unit as a recompute segment."""
     res_stack = [h]
     for i, block in enumerate(blocks):
         for j, resnet in enumerate(block.resnets):
-            h = resnet(h, temb)
-            attn = block.attention(j)
-            if attn is not None:
-                h = attn(h, context)
+            unit = functools.partial(_down_unit, resnet, block.attention(j), segment=segment)
+            h = _run(segment, unit, h, temb, context)
             res_stack.append(h)
         if hasattr(block, "downsamplers"):
             h = block.downsamplers[0](h)
@@ -145,11 +183,8 @@ def run_down_blocks(blocks: nn.ModuleList, h: torch.Tensor, temb: torch.Tensor,
 
 
 def run_mid_block(mid: UNetBlock, h: torch.Tensor, temb: torch.Tensor,
-                  context: torch.Tensor) -> torch.Tensor:
-    h = mid.resnets[0](h, temb)
-    if mid.attention(0) is not None:
-        h = mid.attention(0)(h, context)
-    return mid.resnets[1](h, temb)
+                  context: torch.Tensor, segment: Segment = None) -> torch.Tensor:
+    return _run(segment, functools.partial(_mid, mid, segment=segment), h, temb, context)
 
 
 class UNet2DCondition(nn.Module):
@@ -191,7 +226,7 @@ class UNet2DCondition(nn.Module):
                 added_cond: Optional[Dict[str, torch.Tensor]] = None,
                 down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None,
                 mid_block_additional_residual: Optional[torch.Tensor] = None,
-                capture_features: bool = False):
+                capture_features: bool = False, remat_segments: bool = False):
         """sample [B, H, W, C_in] NHWC, timesteps [B] or scalar,
         encoder_hidden_states [B, T, cross_attention_dim], added_cond (SDXL)
         {"text_embeds": [B, P], "time_ids": [B, 6]} -> [B, H, W, C_out]."""
@@ -199,9 +234,10 @@ class UNet2DCondition(nn.Module):
         temb = embed_time(self, self.config, timesteps, sample.shape[0], added_cond, dtype)
         context = encoder_hidden_states.to(dtype)
         features: Optional[Dict[str, torch.Tensor]] = {} if capture_features else None
+        segment = checkpoint_segment if remat_segments else None
 
         h, res_stack = run_down_blocks(self.down_blocks, self.conv_in(_nchw(sample.to(dtype))),
-                                       temb, context, features)
+                                       temb, context, features, segment)
         if down_block_additional_residuals is not None:
             if len(down_block_additional_residuals) != len(res_stack):
                 raise ValueError(
@@ -210,7 +246,7 @@ class UNet2DCondition(nn.Module):
             res_stack = [r + _nchw(c).to(r.dtype) for r, c in
                          zip(res_stack, down_block_additional_residuals)]
 
-        h = run_mid_block(self.mid_block, h, temb, context)
+        h = run_mid_block(self.mid_block, h, temb, context, segment)
         if mid_block_additional_residual is not None:
             h = h + _nchw(mid_block_additional_residual).to(h.dtype)
         if capture_features:
@@ -218,11 +254,8 @@ class UNet2DCondition(nn.Module):
 
         for i, block in enumerate(self.up_blocks):
             for j, resnet in enumerate(block.resnets):
-                skip = res_stack.pop()
-                h = resnet(torch.cat([h, skip.to(h.dtype)], dim=1), temb)
-                attn = block.attention(j)
-                if attn is not None:
-                    h = attn(h, context)
+                unit = functools.partial(_up_unit, resnet, block.attention(j), segment=segment)
+                h = _run(segment, unit, h, res_stack.pop(), temb, context)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
             if capture_features:

@@ -6,16 +6,29 @@ As in the JAX package: one frozen UNet serves the student and the teacher
 forward; the feature taps are the UNet's ``capture_features`` outputs; only
 the adapter is trained (it alone has ``requires_grad``; the towers, UNet and
 VAE are frozen); non-finite per-sample loss terms are dropped; the student
-UNet forward is recomputed in the backward (remat "full",
-``torch.utils.checkpoint`` without reentrancy). The teacher runs under
-``torch.no_grad()``, which is what the JAX package's stop_gradient on it
-amounts to.
+UNet forward is recomputed in the backward under `remat_policy` (each policy a
+non-reentrant ``torch.utils.checkpoint``):
+
+- "full": one checkpoint over the whole student forward;
+- "dots": selective checkpointing that saves the outputs of the matrix
+  products without batch dimensions (``aten.mm``, ``aten.addmm``: the
+  Linear layers) and recomputes everything else (``bmm``, convolutions,
+  norms, elementwise ops and the attention kernels, whose autograd
+  Functions launch through ctypes and run again in the recompute), as
+  ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` saves only
+  ``dot_general`` without batch dimensions;
+- "blocks": the UNet's own segments (``UNet2DCondition(...,
+  remat_segments=True)``), one checkpoint per unit the JAX package names
+  "unet_seg", so that the backward recomputes one unit at a time.
+
+The teacher runs under ``torch.no_grad()``, which is what the JAX package's
+stop_gradient on it amounts to. ``feature_tap_dtype`` is the type of the
+feature-KD terms' elementwise difference ("float32", or "bfloat16", the
+JAX package's memory lever); their per-sample means reduce in fp32.
 
 Random draws come from an explicit ``torch.Generator`` in a fixed order
 (VAE eps, noise, offset noise, timesteps, the CFG-drop uniforms), or are
 injected through ``draws``, so that a test can hand in the JAX package's.
-Not ported: the "dots"/"blocks" remat policies and ``feature_tap_dtype``
-"bfloat16" (ROADMAP Queue A item 13).
 """
 from __future__ import annotations
 
@@ -24,7 +37,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.train import TrainConfig
 from ..models.adapter import PEAAdapter
@@ -55,8 +69,13 @@ class KDModels:
     schedule: NoiseScheduleConfig = NoiseScheduleConfig()
     vae_scaling: float = 0.13025
     remat: bool = True
+    # how the student forward is recomputed: "full", "dots" or "blocks"
+    remat_policy: str = "full"
     # fp32 VAE encode in chunks of this many samples (None: the whole batch)
     vae_encode_chunk: Optional[int] = 2
+    # type of the feature-KD terms' elementwise difference: "float32" or
+    # "bfloat16"
+    feature_tap_dtype: str = "float32"
 
     def frozen_modules(self) -> Dict[str, nn.Module]:
         mods = {"text_encoder": self.text_encoder, "unet": self.unet, "vae": self.vae,
@@ -89,11 +108,50 @@ def teacher_encode_prompt(models: KDModels, ids1: torch.Tensor,
     return seq, o2.projected
 
 
-def _masked_mse(a: torch.Tensor, b: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Per-sample fp32 MSE, non-finite samples dropped, weighted batch mean."""
-    per = ((a.float() - b.float()) ** 2).mean(dim=tuple(range(1, a.ndim)))
+def _masked_mse(a: torch.Tensor, b: torch.Tensor, weight: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Per-sample MSE with the elementwise difference in `dtype` and the
+    per-sample mean in fp32, non-finite samples dropped, weighted batch
+    mean."""
+    d = (a.to(dtype) - b.to(dtype)) ** 2
+    per = d.float().mean(dim=tuple(range(1, d.ndim)))
     per = torch.where(torch.isfinite(per), per, torch.zeros_like(per))
     return (per * weight).mean()
+
+
+# The matrix products without batch dimensions: what the "dots" policy saves.
+DOTS_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The "dots" remat policy: save ``DOTS_SAVED_OPS``' outputs, recompute
+    every other op."""
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT_POLICIES = ("full", "dots", "blocks")
+
+
+def student_forward(models: KDModels, *args):
+    """The student UNet forward with feature taps, recomputed in the
+    backward as ``models.remat`` and ``models.remat_policy`` say."""
+    unet = models.unet
+    policy = models.remat_policy
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r}: one of {REMAT_POLICIES}")
+    if not models.remat:
+        return unet(*args, capture_features=True)
+    if policy == "blocks":
+        return unet(*args, capture_features=True, remat_segments=True)
+
+    def fwd(*a):
+        return unet(*a, capture_features=True)
+
+    if policy == "dots":
+        return checkpoint(fwd, *args, use_reentrant=False,
+                          context_fn=lambda: create_selective_checkpoint_contexts(dots_policy))
+    return checkpoint(fwd, *args, use_reentrant=False)
 
 
 def _draw(draws: Dict[str, torch.Tensor], key: str, make: Callable[[], torch.Tensor]):
@@ -180,14 +238,7 @@ def kd_loss(models: KDModels, cfg: TrainConfig, batch: Batch,
     added = {"text_embeds": pooled, "time_ids": batch["time_ids"]} if is_sdxl else None
 
     # 6. student UNet forward with feature taps, recomputed in the backward
-    def unet_fwd(x, t, ctx, add):
-        return models.unet(x, t, ctx, add, capture_features=True)
-
-    if models.remat:
-        noise_pred, feats_s = checkpoint(unet_fwd, noisy, timesteps, seq, added,
-                                         use_reentrant=False)
-    else:
-        noise_pred, feats_s = unet_fwd(noisy, timesteps, seq, added)
+    noise_pred, feats_s = student_forward(models, noisy, timesteps, seq, added)
 
     zh = batch["zh_or_not"].float()
     w_denoise = zh if (cfg.kd and cfg.hybrid_training) else torch.ones_like(zh)
@@ -205,11 +256,13 @@ def kd_loss(models: KDModels, cfg: TrainConfig, batch: Batch,
             t_seq = torch.where(drop, tu_seq, t_seq)  # the student's mask
             t_added = ({"text_embeds": t_pooled, "time_ids": batch["time_ids"]}
                        if is_sdxl else None)
-            teacher_pred, feats_t = unet_fwd(noisy, timesteps, t_seq, t_added)
+            teacher_pred, feats_t = models.unet(noisy, timesteps, t_seq, t_added,
+                                                capture_features=True)
 
         w_kd = (1.0 - zh) if cfg.hybrid_training else torch.ones_like(zh)
         loss_teacher = _masked_mse(noise_pred, teacher_pred, w_kd)
-        loss_features = sum(_masked_mse(feats_s[k], feats_t[k], w_kd)
+        tap_dtype = getattr(torch, models.feature_tap_dtype)
+        loss_features = sum(_masked_mse(feats_s[k], feats_t[k], w_kd, tap_dtype)
                             for k in sorted(feats_s))
         loss = loss + loss_teacher + cfg.feature_loss_weight * loss_features
         metrics["train_loss_logits"] = loss_teacher

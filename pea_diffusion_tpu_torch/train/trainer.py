@@ -7,25 +7,31 @@ The train state (step, adapter, optimizer) goes through ``torch.save`` to
 ``<output_dir>/checkpoints/step_<N>.pt`` (the newest ``save_top_k`` kept);
 the adapter also goes to ``<output_dir>/proj_<N>/pytorch_model.bin`` (and
 its ``model.safetensors`` sibling) under the reference's names, through
-``checkpoints/orbax_io.export_adapter``. DDP/FSDP and the
-per-bucket warmup are not ported (ROADMAP Queue A items 14 and 17).
+``checkpoints/orbax_io.export_adapter``. ``warmup`` runs the step once per
+aspect bucket before ``fit`` (the JAX package compiles there; here the
+kernels build, the convolutions meet their shapes and the allocator grows
+to its peak), and a ``profile_window`` (start, stop) traces those steps
+with ``torch.profiler`` under ``<output_dir>/trace``. DDP/FSDP are not
+ported (ROADMAP Queue A item 17).
 """
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..checkpoints.orbax_io import export_adapter
 from ..configs.train import TrainConfig
-from ..utils.metrics import MetricLogger
-from .kd import KDModels, KDState, make_train_step
+from ..data.buckets import BUCKETS
+from ..utils.metrics import MetricLogger, ProfilerWindow
+from .kd import KDModels, KDState, kd_loss, make_train_step
 
 ARRAY_KEYS = (
     "pixel_values", "input_ids", "input_ids_uncond",
+    "input_ids_zh", "input_ids_uncond_zh",  # mul_zh second tower
     "teacher_ids_1", "teacher_ids_2",
     "teacher_uncond_ids_1", "teacher_uncond_ids_2",
     "time_ids", "zh_or_not",
@@ -42,7 +48,8 @@ def _batch_to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tenso
 
 
 class KDTrainer:
-    def __init__(self, models: KDModels, cfg: TrainConfig):
+    def __init__(self, models: KDModels, cfg: TrainConfig,
+                 profile_window: Optional[Tuple[int, int]] = None):
         self.models, self.cfg = models, cfg
         init_fn, self.step_fn = make_train_step(models, cfg)
         self.state: KDState = init_fn()
@@ -52,6 +59,9 @@ class KDTrainer:
         # rows of the last batch fed to fit(): consumed_samples follows the
         # step counter, as the reference restores it
         self._batch_rows: Optional[int] = None
+        self.profiler = (ProfilerWindow(os.path.join(cfg.output_dir, "trace"),
+                                        *profile_window, device=models.device)
+                         if profile_window else None)
 
     def _checkpoints(self):
         if not os.path.isdir(self.ckpt_dir):
@@ -87,6 +97,8 @@ class KDTrainer:
             step = self.host_step
             if step >= limit:
                 break
+            if self.profiler:
+                self.profiler.step(step)
             gen = torch.Generator(device=dev).manual_seed(cfg.seed * 1_000_003 + step)
             batch = _batch_to_device(batch, dev)
             self._batch_rows = batch["pixel_values"].shape[0]
@@ -100,7 +112,49 @@ class KDTrainer:
                     f"{k}={v:.5g}" for k, v in rec.items() if k not in ("step", "time")))
             if new_step % cfg.every_n_steps == 0:
                 self.checkpoint(new_step)
+        if self.profiler:
+            self.profiler.close()
         return self.state
+
+    def warmup(self, batch_size: int, text_len: int, teacher_len: int = 77,
+               buckets: Optional[Sequence[int]] = None, text_len_zh: Optional[int] = None):
+        """One student and teacher forward and backward of the KD loss per
+        aspect bucket (all nine by default) at a micro-batch of the step, on
+        zeros, so that the kernels build, the convolutions meet their shapes
+        and the allocator grows before `fit`. The gradient goes through
+        ``torch.autograd.grad``: the adapter, its ``.grad``, the optimizer
+        state, ``host_step`` and the metric log stay as they were."""
+        m, dev = self.models, self.models.device
+        rows = batch_size // max(1, self.cfg.grad_accum_steps)
+        buckets = range(len(BUCKETS)) if buckets is None else buckets
+        params = [p for p in m.adapter.parameters() if p.requires_grad]
+
+        def zeros(*shape, dtype=torch.long):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        for b in buckets:
+            w, h = BUCKETS[b]
+            batch = {
+                "pixel_values": zeros(rows, h, w, 3, dtype=torch.float32),
+                "input_ids": zeros(rows, text_len),
+                "input_ids_uncond": zeros(rows, text_len),
+                "teacher_ids_1": zeros(rows, teacher_len),
+                "teacher_uncond_ids_1": zeros(rows, teacher_len),
+                "zh_or_not": zeros(rows, dtype=torch.float32),
+            }
+            if text_len_zh is not None:  # mul_zh dual tokenization
+                batch["input_ids_zh"] = zeros(rows, text_len_zh)
+                batch["input_ids_uncond_zh"] = zeros(rows, text_len_zh)
+            if m.teacher_clip2 is not None:
+                batch["teacher_ids_2"] = zeros(rows, teacher_len)
+                batch["teacher_uncond_ids_2"] = zeros(rows, teacher_len)
+                batch["time_ids"] = zeros(rows, 6, dtype=torch.float32)
+            gen = torch.Generator(device=dev).manual_seed(b)
+            loss, _ = kd_loss(m, self.cfg, batch, gen)
+            torch.autograd.grad(loss, params, allow_unused=True)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            print(f"warmup: bucket {b} ({w}x{h}) ready")
 
     def checkpoint(self, step: int):
         os.makedirs(self.ckpt_dir, exist_ok=True)

@@ -40,3 +40,12 @@ def test_guard_catches_the_jax_package_but_not_the_port():
                      "def f():\n    import flax.linen\n")
     assert [m for m in _imported_modules(tree) if _forbidden(m)] == [
         "jax.numpy", "pea_diffusion_tpu.ops", "flax.linen"]
+
+
+@pytest.mark.parametrize("module", ["data/__init__.py", "data/buckets.py", "data/captions.py",
+                                    "data/multiplexer.py", "data/native_reader.py",
+                                    "data/pipeline.py", "data/wds_reader.py",
+                                    "utils/metrics.py", "train/trainer.py", "train/kd.py",
+                                    "cli/train.py"])
+def test_the_guard_covers_the_data_and_training_modules(module):
+    assert REPO / "pea_diffusion_tpu_torch" / module in SOURCES

@@ -13,7 +13,8 @@ must match the plain route's within 2e-2 too. The GroupNorm kernels (B6,
 B6-b) are held, in each variant (three_pass, persistent), to 8e-3 of their
 fp32 plain version in bf16, fp16 and fp32, contiguous and channels-last,
 and must give the same bits on a second run. A LoRA fused on the card
-gives the bits it gives on the CPU.
+gives the bits it gives on the CPU. The data pipeline's prefetcher copies
+pinned host batches to the card on a side stream, in order, values intact.
 
 This file imports neither JAX nor the JAX package, so it runs where the
 card is, without the repository's conftest:
@@ -614,3 +615,38 @@ def test_lora_merge_on_card_gives_the_cpu_bits(dtype):
                 assert err.max().item() <= 1e-6 * want.abs().max().item()
             else:  # at most one bf16 step
                 assert bool((err <= 2.0 ** (torch.frexp(want.float())[1] - 8)).all())
+
+
+@pytest.mark.gpu
+def test_prefetcher_copies_pinned_batches_on_a_side_stream_on_card():
+    """The data pipeline's prefetcher on the card: each batch arrives on the
+    card with the host tensors' values while the consumer's stream is busy
+    with work on the previous batch, in order, lists passed through, and
+    the producer's exception raised in the consumer."""
+    dev = _card()
+    from pea_diffusion_tpu_torch.data.pipeline import prefetch_to_device
+
+    gen = torch.Generator().manual_seed(0)
+    src = [{"pixel_values": torch.randn((4, 256, 256, 3), generator=gen),
+            "input_ids": torch.randint(0, 1000, (4, 52), generator=gen),
+            "prompts": [f"p{i}"] * 4} for i in range(6)]
+    seen = []
+    for i, batch in enumerate(prefetch_to_device(iter(src), "cuda", depth=2)):
+        assert batch["pixel_values"].device.type == dev.type
+        assert batch["prompts"] == src[i]["prompts"]
+        x = batch["pixel_values"]
+        for _ in range(20):  # keep the consumer's stream busy while copies continue
+            x = x * 1.0001
+        seen.append((x.sum().item(), batch["pixel_values"].cpu(), batch["input_ids"].cpu()))
+    assert len(seen) == len(src)
+    for (_, px, ids), s in zip(seen, src):
+        assert torch.equal(px, s["pixel_values"]) and torch.equal(ids, s["input_ids"])
+
+    def failing():
+        yield src[0]
+        raise OSError("shard unreadable")
+
+    it = iter(prefetch_to_device(failing(), "cuda"))
+    next(it)
+    with pytest.raises(OSError, match="shard unreadable"):
+        next(it)

@@ -517,5 +517,6 @@ def test_cli_train_demo_on_cpu(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "done at step 2" in text
     assert os.path.exists(os.path.join(out, "proj_2", "pytorch_model.bin"))
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
+    with pytest.raises(SystemExit):  # the real mode needs its directories
         train_cli.main(["--output", out])
+    assert "--model-dir required without --demo" in capsys.readouterr().err
