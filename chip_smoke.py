@@ -134,7 +134,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
    tower's parameter count and peak memory, the largest relative gap
    between the bf16 tower's states and an fp32 copy's on the card (printed,
    not gated) and a profile (build/chip_smoke_{mt5,mul_clip,alt_clip,
-   mul_zh}_profile.txt); each tower freed before the next;
+   mul_zh}_profile.txt); each tower freed before the next; then batched
+   serving (`batched_serve_phase`, "sdxl batched serving"): the port's HTTP
+   server (cli/serve.py, make_server) on 127.0.0.1 over its BatchingEngine
+   (up to 8 requests a call, a 150 ms window, DPM++ 30 steps, 1024²) on the
+   SDXL serving stack, loaded by the port's client (tools/bench_serve.py:
+   one serial warm-up request, a burst of 8, then 24 timed requests from 8
+   clients at mixed guidance) from launch counts of 0: every response a
+   1024x1024 RGB PNG, fewer engine calls than requests, and B1 and B3 at
+   (engine calls) x 30 x 70 each, split by CFG batch (2, 4, 8 or 16: a
+   group pads to a power of two) as the walk gives them; requests/s,
+   p50/p95 latency, the engine's counters and peak memory; the call with the
+   most co-batched requests again through StableDiffusionXLPEAPipeline with
+   its ids, noise and guidance, each of its requests' PNGs bit-equal to
+   that run's to_pil image, and those inputs at 4 steps under the profiler
+   (device busy and idle share; build/chip_smoke_batched_profile.txt);
+   one of its requests alone, its
+   difference from the co-batched image and from the call's other
+   requests printed (not gated), and again through the pipeline at 4
+   steps and, with GroupNorm pinned to its grouped form, at 4 and 30; then
+   evaluation (`evaluate_phase`) on the served PNGs: the Chinese-CLIP dual
+   tower (ViT-H/14 and RoBERTa-large with their projections, fp32, from a
+   seed) written as a Chinese-CLIP directory under build/ and loaded back
+   through cli/evaluate.py's load_dual_tower, CLIP-score of the 24 timed
+   images against the ids their prompts were served from, CLIP-FID against
+   the warm-up and solo images, FID(A, A) in [0, 1e-6), two images' vision
+   features and the 24 prompts' text features on the card against the CPU
+   (below 1e-4 of max |cpu|) and the two images' cosines with their prompts
+   (below 1e-4 apart), load seconds and the tower's ms per 32-image chunk (the directory deleted at
+   the end);
 6. the SDXL ControlNet path with the opt-in on: the SDXL stack and a
    full-width SDXL ControlNet (random weights, its zero convs filled from
    the seed), the control image the Canny edges of a seeded image, two
@@ -331,6 +359,40 @@ TINY_TOWER_SETTINGS = {
 # 10, 640², the teachers as there) with the mul_zh tower and sdxl_concat
 # adapter swapped in and dict ids (`mul_zh_kd_step`, in the training phase).
 MUL_ZH_KD_PATH = "mul_zh kd step"
+# Batched serving (`batched_serve_phase`, after the towers phase, on the
+# SDXL serving stack): the port's HTTP server (cli/serve.py) on 127.0.0.1,
+# its BatchingEngine co-batching up to 8 requests in a 150 ms window, DPM++
+# at 1024², driven by the port's load client (tools/bench_serve.py): 8
+# clients, 24 timed requests of 30 steps (the serve CLI's and the reference
+# client's default) with mixed guidance, after one serial warm-up request
+# and one burst of 8. A group of n requests pads to a power of two, so the
+# UNet runs the CFG pair at batch 2, 4, 8 or 16. The profiled call runs the
+# largest co-batched group's inputs at 4 steps (SDXL serving's profile is of
+# DDIM 4): the profiler's tables of a 30-step call took 149.6 s on the chip
+# machine's host.
+BATCHED_PATH = "sdxl batched serving"
+BATCHED = dict(clients=8, requests=24, steps=30, warmup=1, max_batch=8, window_ms=150,
+               sampler="dpm++", table="chip_smoke_batched_profile.txt", profile_steps=4)
+BATCHED_PADDED = (2, 4, 8)  # padded groups with their own kernel rows (1: SDXL serving's)
+# Evaluation (`evaluate_phase`, after batched serving, on its PNGs): the
+# Chinese-CLIP dual tower at full width (ViT-H/14 and RoBERTa-large with
+# their 1024-d projections) in fp32 from a seed, written as a Chinese-CLIP
+# directory and loaded back through the evaluate CLI's loader; two images'
+# vision features and every prompt's text features on the card against the
+# same weights on the CPU within EVAL_RTOL of max |cpu| (TF32 off: fp32 sums
+# in another order over 32 and 24 layers), the two images' cosines with
+# their prompts (CLIP-score before its clamp at 0) within COSINE_ATOL, and
+# FID(A, A) below FID_SELF_TOL (fp64 on the host; eps = 1e-6 on both
+# covariances leaves rounding only).
+EVAL_SEED = 31
+EVAL_RTOL = 1e-4
+COSINE_ATOL = 1e-4
+FID_SELF_TOL = 1e-6
+CLIP_VISION_CONFIG = {
+    "hidden_size": 1280, "image_size": 224, "patch_size": 14, "num_hidden_layers": 32,
+    "num_attention_heads": 16, "intermediate_size": 5120, "hidden_act": "quick_gelu",
+    "layer_norm_eps": 1e-5,
+}
 # Training from webdataset shards (`shards_phase`, in the SDXL training
 # phase, on its stack): 4 shards written under build/ from seed 0, 10 JPEGs
 # in each of four aspect buckets ({bucket id: the source image's w x h, each
@@ -610,7 +672,8 @@ def forward_cases():
         carry the heads, which tell the base's calls from the refiner's."""
         paths = ("sdxl serving", CONTROLNET_PATH, INPAINT_9CH, INPAINT_BLEND,
                  SSD_1B_PATH) + tuple(TOWERS)
-        return dict({path: key for path in paths}, **{ENSEMBLE_PATH: key + (heads,)})
+        return dict({path: key for path in paths}, **{ENSEMBLE_PATH: key + (heads,),
+                                                      BATCHED_PATH: key + (2,)})
 
     cases = [
         ("B1", 2, 4096, 4096, 10, 64, False, sdxl_s(("onepass", 4096, 4096), 10),
@@ -672,6 +735,19 @@ def forward_cases():
         ("B3", 16, 1024, 52, 1, 80, False, {sd15_s: ("flash", 1024, 52)},
          "SD1.5 serving: cross-attention, level 1"),
     ]
+    for padded in BATCHED_PADDED:
+        b = 2 * padded
+        what = f"SDXL batched serving, {padded} requests a call (CFG batch {b})"
+        cases += [
+            ("B1", b, 4096, 4096, 10, 64, False, {BATCHED_PATH: ("onepass", 4096, 4096, b)},
+             f"{what}: self-attention, level 1"),
+            ("B1", b, 1024, 1024, 20, 64, False, {BATCHED_PATH: ("onepass", 1024, 1024, b)},
+             f"{what}: self-attention, level 2"),
+            ("B3", 10 * b, 4096, TEXT_TOKENS, 1, 64, False,
+             {BATCHED_PATH: ("flash", 4096, TEXT_TOKENS, b)}, f"{what}: cross-attention, level 1"),
+            ("B3", 20 * b, 1024, TEXT_TOKENS, 1, 64, False,
+             {BATCHED_PATH: ("flash", 1024, TEXT_TOKENS, b)}, f"{what}: cross-attention, level 2"),
+        ]
     for _, (w, h), s in shard_bucket_shapes():
         what = f"SDXL shards training, bucket {w}x{h}"
         cases += [
@@ -727,8 +803,9 @@ def run_forward_cases(torch, F, randn, flush):
         if kern == "B1":
             q, k, v = randn(b, sq, feat), randn(b, skv, feat), randn(b, skv, feat)
             run = lambda: onepass_attention.onepass_forward(q, k, v, h, d)  # noqa: E731
-            plain = lambda: onepass_attention.onepass_forward_ref(  # noqa: E731
-                q.float(), k.float(), v.float(), h, d)
+            plain = lambda: chunked(  # noqa: E731
+                torch, lambda *t: onepass_attention.onepass_forward_ref(
+                    *(x.float() for x in t), h, d), h * sq * skv, PLAIN_SCORES, q, k, v)
             views = [t.view(b, -1, h, d).transpose(1, 2) for t in (q, k, v)]
         else:
             q, k, v = randn(b, sq, d), randn(b, skv, d), randn(b, skv, d)
@@ -1747,6 +1824,10 @@ def serving_phase(torch, model, kernels, repo):
         log(f"[presets] done at {time.time() - t1:.1f}s after the stack's build")
         towers_phase(torch, models, kernels, repo)
         log(f"[towers] done at {time.time() - t1:.1f}s after the stack's build")
+        pngs = batched_serve_phase(torch, models, tokenize, kernels, repo)
+        log(f"[batched] done at {time.time() - t1:.1f}s after the stack's build")
+        evaluate_phase(torch, tokenize, pngs, repo)
+        log(f"[evaluate] done at {time.time() - t1:.1f}s after the stack's build")
 
 
 def serve_path(torch, models, tokenize, path, kernels, repo):
@@ -2458,6 +2539,374 @@ def serve_tower(torch, base, path, kernels, repo):
                        repo / "build" / spec["table"], f"{path} profile")
     log(f"[{path}] requests {req_s} s; idle share {idle:.3f}; {n_params / 1e9:.3f}B tower "
         f"parameters; peak memory {peak:.2f} GiB")
+
+
+class RecordingPipe:
+    """The serving pipeline, each call's inputs and host seconds (up to the
+    card's end of the call) recorded, for the batched serving phase."""
+
+    def __init__(self, torch, pipe):
+        self.torch, self.pipe, self.models = torch, pipe, pipe.models
+        self.calls = []
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.time()
+        out = self.pipe(*args, **kwargs)
+        self.torch.cuda.synchronize()
+        self.calls.append(dict(args=args, kwargs=kwargs, seconds=time.time() - t0))
+        return out
+
+
+def batched_calls(routes, batch_hist, steps):
+    """The attention calls of the engine's pipeline calls: [("serving",
+    {(route, sq, skv, CFG batch): calls per UNet forward}, forwards)] for
+    each group size n of `batch_hist` ({str(n): calls}), padded to a power
+    of two."""
+    calls = {}
+    for n, count in batch_hist.items():
+        b = 2 * (1 << (int(n) - 1).bit_length())
+        calls[b] = calls.get(b, 0) + steps * count
+    return [("serving", {key + (b,): v for key, v in routes.items()}, forwards)
+            for b, forwards in sorted(calls.items())]
+
+
+def decode_png(data):
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(data))
+    return img, np.asarray(img.convert("RGB"))
+
+
+def batched_serve_phase(torch, models, tokenize, kernels, repo):
+    """The port's HTTP server and BatchingEngine over the SDXL serving stack,
+    loaded by the port's client (BATCHED), from launch counts of 0: every
+    response a 1024x1024 RGB PNG, fewer engine calls than requests, B1 and
+    B3 as the walk gives them at each call's padded batch (70 each a UNet
+    forward); requests/s, latency, the engine's counters, peak memory. Then
+    the co-batched call with the most requests again through the pipeline
+    with the same ids, noise and guidance: each of its requests' PNGs must
+    hold that run's to_pil image bit for bit (and each row of every call,
+    found by its request's noise, must carry that request's ids and
+    guidance); the same inputs at
+    `profile_steps` under the profiler; and one of the requests alone, its
+    difference from the co-batched image printed. Returns
+    ({request index: PNG bytes} of the timed load, the same of the warm-up
+    requests and the solo one, {index: prompt})."""
+    import threading
+
+    import numpy as np
+
+    from pea_diffusion_tpu_torch.cli.serve import BatchingEngine, make_server
+    from pea_diffusion_tpu_torch.pipelines.text2image import StableDiffusionXLPEAPipeline, to_pil
+    from pea_diffusion_tpu_torch.tools import bench_serve
+
+    spec, size, path = BATCHED, PRESET_SIZE, BATCHED_PATH
+    pipe = RecordingPipe(torch, StableDiffusionXLPEAPipeline(models, spec["sampler"]))
+    engine = BatchingEngine(pipe, tokenize, size, max_batch=spec["max_batch"],
+                            window_ms=spec["window_ms"])
+    srv = make_server(engine, 0, spec["steps"], host="127.0.0.1")
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        if not bench_serve.wait_healthy("127.0.0.1", port, timeout_s=60):
+            raise AssertionError(f"{path}: the server never answered /healthz")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.time()
+        load = bench_serve.run("127.0.0.1", port, clients=spec["clients"],
+                               requests=spec["requests"], steps=spec["steps"],
+                               mixed_guidance=True, warmup=spec["warmup"], timeout_s=900,
+                               keep_images=True)
+        served = launch_counts()
+        load_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stats = engine.stats_snapshot()
+        cob = load["cobatch"]
+        log(f"[{path}] {load['requests']} timed requests in {load['wall_s']:.4f} s: "
+            f"{load['requests_per_s']:.4f} requests/s, p50 {load['p50_s']:.4f} s, p95 "
+            f"{load['p95_s']:.4f} s, max {load['max_s']:.4f} s; timed load: engine calls "
+            f"{cob.get('device_calls')} for {cob.get('requests_batched')} requests "
+            f"({cob.get('vector_cfg_calls')} with a guidance vector); whole run "
+            f"({load_s:.1f} s, warm-up included): {stats}; peak memory {peak:.2f} GiB")
+        if load["errors"]:
+            raise AssertionError(f"{path}: {len(load['errors'])} failed requests, first: "
+                                 f"{load['errors'][0]}")
+        n_timed, first = spec["requests"], spec["warmup"] + spec["clients"]
+        if load["requests"] != n_timed or len(load["images"]) != first + n_timed:
+            raise AssertionError(f"{path}: {load['requests']} timed requests answered, "
+                                 f"{len(load['images'])} PNGs")
+        if not (0 < cob["device_calls"] < cob["requests_batched"]
+                and stats["device_calls"] < stats["requests_batched"]):
+            raise AssertionError(f"{path}: no co-batching: {cob}, {stats}")
+        pixels = {}
+        for i, data in load["images"].items():
+            img, pixels[i] = decode_png(data)
+            if img.size != (size, size) or img.mode != "RGB":
+                raise AssertionError(f"{path}: request {i} gave a {img.mode} {img.size} PNG")
+        routes = attention_routes(models.unet, size // 8, TEXT_TOKENS)
+        calls = batched_calls(routes, stats["batch_hist"], spec["steps"])
+        per_kernel = stats["device_calls"] * spec["steps"] * sum(routes.values()) // 2
+        log(f"[{path}] UNet forwards by CFG batch "
+            f"{ {next(iter(r))[3]: n for _, r, n in calls} }; B1 and B3 want {per_kernel} "
+            f"each ({stats['device_calls']} calls x {spec['steps']} steps x "
+            f"{sum(routes.values()) // 2})")
+        check_launches(path, served, path_launches(calls))
+        if not served["B1"] == served["B3"] == per_kernel:
+            raise AssertionError(f"{path}: B1 {served['B1']}, B3 {served['B3']}, want "
+                                 f"{per_kernel} each")
+        stamp_launches(kernels, path, calls, served)
+
+        noise = {i: engine._noise(i, 1)[0] for i in range(first, first + n_timed)}
+        groups = []
+        for call in pipe.calls:
+            rows = call["kwargs"]["init_noise"]
+            match = {j: i for j in range(len(rows)) for i, n in noise.items()
+                     if np.array_equal(rows[j], n)}
+            groups.append((len(match), call, match))
+        for _, c, m in groups:  # each row carries its own request's ids and guidance
+            ids = np.asarray(c["args"][0])
+            gs = np.broadcast_to(np.asarray(c["kwargs"]["guidance_scale"], np.float32),
+                                 (len(c["kwargs"]["init_noise"]),))
+            for j, i in m.items():
+                body = bench_serve.request_body(i, spec["steps"], True)
+                if not (np.array_equal(ids[j], tokenize([body["prompt"]])[0])
+                        and gs[j] == np.float32(body["guidance"])):
+                    raise AssertionError(f"{path}: row {j} of an engine call has request "
+                                         f"{i}'s noise but not its ids or guidance")
+        n, call, match = max(groups, key=lambda g: g[0])
+        if n < 2:
+            raise AssertionError(f"{path}: no engine call co-batched timed requests")
+        t0 = time.time()
+        again = to_pil(pipe.pipe(*call["args"], **call["kwargs"]))
+        same = all(np.array_equal(np.asarray(again[j]), pixels[i]) for j, i in match.items())
+        log(f"[{path}] requests {sorted(match.values())} again through the pipeline in "
+            f"{time.time() - t0:.4f} s (the engine's call {call['seconds']:.4f} s): served PNGs "
+            f"equal the pipeline's images bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"{path}: a served PNG differs from its pipeline image")
+        short = dict(call["kwargs"], num_steps=spec["profile_steps"])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pipe.pipe(*call["args"], **short)
+        torch.cuda.synchronize()
+        short_s = time.time() - t0
+        profile_run(torch, lambda: pipe.pipe(*call["args"], **short), short_s,
+                    repo / "build" / spec["table"],
+                    f"{path} profile (the call's {n} requests, CFG batch "
+                    f"{2 * len(call['kwargs']['init_noise'])}, {spec['profile_steps']} steps)")
+
+        solo_i = min(match.values())
+        status, body = post_generate(port, bench_serve.request_body(solo_i, spec["steps"], True))
+        if status != 200:
+            raise AssertionError(f"{path}: the solo request gave {status}: {body[:200]!r}")
+        _, solo = decode_png(body)
+        diff = np.abs(solo.astype(np.int16) - pixels[solo_i].astype(np.int16))
+        rest = min(np.abs(solo.astype(np.int16) - pixels[i].astype(np.int16)).mean()
+                   for i in match.values() if i != solo_i)
+        log(f"[{path}] request {solo_i} alone against co-batched: max {int(diff.max())} "
+            f"mean {diff.mean():.4f} uint8 levels (printed, not gated); against the call's "
+            f"other requests: mean at least {rest:.4f}")
+        j_solo = next(j for j, i in match.items() if i == solo_i)
+        batch_invariance(torch, pipe.pipe, call, pipe.calls[-1], j_solo, spec, path)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(60)
+        engine.close(60)
+    timed = {i: d for i, d in load["images"].items() if i >= first}
+    others = {i: d for i, d in load["images"].items() if i < first}
+    others[f"solo {solo_i}"] = body
+    prompts = {i: bench_serve.request_body(i, spec["steps"], True)["prompt"] for i in timed}
+    return timed, others, prompts
+
+
+def batch_invariance(torch, pipe, group, solo, row, spec, path):
+    """Solo against co-batched again through the pipeline, the engine's
+    recorded inputs of the co-batched call `group` (the request at `row`)
+    and of the solo call: at `profile_steps` with GroupNorm's form left to
+    the batch (grouped up to 2 rows, sums from 3; the served steps are the
+    HTTP reading), then at both step counts with the form pinned to the
+    grouped one (PEA_GN_GROUPED=1), so that the form's share of the
+    difference and its growth over the steps show. Printed, not gated."""
+    import os
+
+    import numpy as np
+
+    from pea_diffusion_tpu_torch.pipelines.text2image import to_pil
+
+    def image(call, steps, j):
+        out = pipe(*call["args"], **dict(call["kwargs"], num_steps=steps))
+        return np.asarray(to_pil(out[j:j + 1])[0]).astype(np.int16)
+
+    before = os.environ.get("PEA_GN_GROUPED")
+    try:
+        for pin, steps in ((None, spec["profile_steps"]), ("1", spec["profile_steps"]),
+                           ("1", spec["steps"])):
+            if pin is None:
+                os.environ.pop("PEA_GN_GROUPED", None)
+            else:
+                os.environ["PEA_GN_GROUPED"] = pin
+            diff = np.abs(image(group, steps, row) - image(solo, steps, 0))
+            log(f"[{path}] solo against co-batched through the pipeline, {steps} steps, "
+                f"GroupNorm {'pinned grouped' if pin else 'by batch'}: max "
+                f"{int(diff.max())} mean {diff.mean():.4f} uint8 levels")
+    finally:
+        if before is None:
+            os.environ.pop("PEA_GN_GROUPED", None)
+        else:
+            os.environ["PEA_GN_GROUPED"] = before
+
+
+def post_generate(port, req):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        c.request("POST", "/generate", json.dumps(req))
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def write_clip_dir(torch, root, device="cuda"):
+    """The Chinese-CLIP dual tower at full width in fp32 from EVAL_SEED, on
+    the card, written under `root` as a transformers ChineseCLIPModel
+    directory: config.json (text_config, vision_config, projection_dim)
+    and model.safetensors (text_model.*, vision_model.*, text_projection,
+    visual_projection). Returns the bytes written."""
+    from pea_diffusion_tpu_torch.checkpoints.safetensors_io import save_safetensors
+    from pea_diffusion_tpu_torch.configs.text_encoder import CHINESE_CLIP_LARGE
+    from pea_diffusion_tpu_torch.models.bert_text import BertTextEncoder
+    from pea_diffusion_tpu_torch.models.clip_vision import CHINESE_CLIP_VIT_H, CLIPVisionEncoder
+    from pea_diffusion_tpu_torch.pipelines.factory import _materialize
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(EVAL_SEED)
+    with torch.device("meta"):
+        text, vision = BertTextEncoder(CHINESE_CLIP_LARGE), CLIPVisionEncoder(CHINESE_CLIP_VIT_H)
+    text = _materialize(text, torch.float32, dev, gen)
+    vision = _materialize(vision, torch.float32, dev, gen)
+    proj = CHINESE_CLIP_VIT_H.projection_dim
+    sd = {f"text_model.{k}": v for k, v in text.state_dict().items()}
+    for k, v in vision.state_dict().items():
+        sd[k if k.startswith("visual_projection.") else f"vision_model.{k}"] = v
+    sd["text_projection.weight"] = torch.empty(proj, CHINESE_CLIP_LARGE.hidden_size,
+                                               device=dev).normal_(0.0, 0.02, generator=gen)
+    root.mkdir(parents=True)
+    (root / "config.json").write_text(json.dumps({
+        "model_type": "chinese_clip", "projection_dim": proj,
+        "text_config": CHINESE_CLIP_TEXT_CONFIG, "vision_config": CLIP_VISION_CONFIG}))
+    save_safetensors(str(root / "model.safetensors"), sd)
+    return sum(f.stat().st_size for f in root.iterdir())
+
+
+def evaluate_phase(torch, tokenize, pngs, repo, device="cuda"):
+    """The evaluate CLI's path on the batched serving phase's PNGs: the
+    dual tower written (`write_clip_dir`) and loaded back with
+    `cli.evaluate.load_dual_tower`; CLIP-score of the timed images against
+    the ids their prompts were served from; CLIP-FID of the timed images
+    against the warm-up and solo ones, and of the timed set against
+    itself; the same directory loaded on the CPU: two images' vision
+    features, every prompt's text features and the two images' cosines
+    with their prompts on the card against it; load seconds and the vision
+    tower's ms per 32-image chunk."""
+    import shutil
+
+    import numpy as np
+
+    from pea_diffusion_tpu_torch.cli.evaluate import clip_score, load_dual_tower
+    from pea_diffusion_tpu_torch.models.clip_vision import preprocess_clip_image
+    from pea_diffusion_tpu_torch.utils.fid import fid_from_features
+
+    timed, others, prompts = pngs
+    root = repo / "build" / "chip_smoke_eval"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        paths = {}
+        (root / "images").mkdir(parents=True)
+        for name, data in list(timed.items()) + list(others.items()):
+            paths[name] = root / "images" / f"{name}.png".replace(" ", "_")
+            paths[name].write_bytes(data)
+        t0 = time.time()
+        nbytes = write_clip_dir(torch, root / "cn-clip", device)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        write_s = time.time() - t0
+        t0 = time.time()
+        towers = load_dual_tower(str(root / "cn-clip"), device)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        n_params = sum(p.numel() for m in (towers.text, towers.vision) for p in m.parameters())
+        log(f"[evaluate] dual tower ({n_params / 1e9:.3f}B parameters, fp32) written in "
+            f"{write_s:.1f} s ({nbytes / 2**30:.2f} GiB), loaded in {load_s:.4f} s")
+
+        order = sorted(timed)
+        a_paths = [str(paths[i]) for i in order]
+        b_paths = [str(paths[k]) for k in others]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        feats_a = towers.image_features(a_paths)
+        torch.cuda.synchronize()
+        feat_s = time.time() - t0
+        feats_b = towers.image_features(b_paths)
+        ids = tokenize([prompts[i] for i in order])
+        text = towers.text_features(ids)
+        scores = clip_score(text, feats_a).cpu().numpy()
+        cos = torch.nn.functional.cosine_similarity(text, feats_a).cpu().numpy()
+        fa, fb = feats_a.cpu().numpy(), feats_b.cpu().numpy()
+        fid_ab, fid_aa = fid_from_features(fa, fb), fid_from_features(fa, fa)
+        log(f"[evaluate] CLIP-score over {len(scores)} images: mean {scores.mean():.6f} "
+            f"(min {scores.min():.6f}, max {scores.max():.6f}; cosines before the clamp at 0 "
+            f"{cos.min():.6f} to {cos.max():.6f}: random towers); CLIP-FID {fid_ab:.6f} "
+            f"({len(fa)} co-batched against {len(fb)} warm-up and solo images); FID(A, A) "
+            f"{fid_aa:.3e} (want < {FID_SELF_TOL}); features of {len(a_paths)} images "
+            f"{feat_s:.4f} s with decode and preprocessing")
+        if not (np.isfinite(scores).all() and (scores >= 0).all() and (scores <= 1).all()):
+            raise AssertionError(f"evaluate: CLIP-scores {scores}")
+        if not (np.isfinite(fid_ab) and fid_ab >= 0 and 0 <= fid_aa < FID_SELF_TOL):
+            raise AssertionError(f"evaluate: CLIP-FID {fid_ab}, FID(A, A) {fid_aa}")
+        if tuple(fa.shape) != (len(a_paths), towers.vision.config.projection_dim):
+            raise AssertionError(f"evaluate: features {fa.shape}")
+
+        size = towers.vision.config.image_size
+        imgs = np.stack([decode_png(timed[i])[1] for i in order[:32]])
+        pix = torch.from_numpy(preprocess_clip_image(imgs, size).astype(np.float32))
+        pix32 = torch.cat([pix, torch.zeros((32 - len(pix),) + tuple(pix.shape[1:]))]).to(device)
+        with torch.inference_mode():
+            chunk_ms = event_ms(torch, lambda: towers.vision(pix32))
+        log(f"[evaluate] vision tower {chunk_ms:.3f} ms per 32-image chunk (CUDA events)")
+
+        cpu = load_dual_tower(str(root / "cn-clip"), "cpu")
+        with torch.inference_mode():
+            got = towers.vision(pix[:2].to(device))
+            want = cpu.vision(pix[:2])
+        text_cpu = cpu.text_features(ids)
+        rels = {}
+        for name in ("projected", "pooled", "last_hidden_state"):
+            _, rels[name] = errors(getattr(got, name).cpu(), getattr(want, name))
+        _, rels["text_features"] = errors(text.cpu(), text_cpu)
+        cos_cpu = torch.nn.functional.cosine_similarity(text_cpu[:2], want.projected).numpy()
+        cos_err = float(np.abs(cos[:2] - cos_cpu).max())
+        log(f"[evaluate] card against CPU (fp32, TF32 off): relative max error of 2 images' "
+            f"vision features and {len(order)} prompts' text features {rels} (want < "
+            f"{EVAL_RTOL}); the 2 images' cosines with their prompts {cos[:2].tolist()} "
+            f"against {cos_cpu.tolist()}: max abs error {cos_err:.3e} (want < {COSINE_ATOL})")
+        if not all(r < EVAL_RTOL for r in rels.values()):
+            raise AssertionError(f"evaluate: card features differ from the CPU's: {rels}")
+        if not cos_err < COSINE_ATOL:
+            raise AssertionError(f"evaluate: card cosines {cos[:2]} against the CPU's {cos_cpu}")
+        del towers, cpu, feats_a, feats_b, text
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def mul_zh_kd_step(torch, models, kernels):

@@ -184,6 +184,30 @@ def clip_text_state_dict(params: Mapping) -> StateDict:
     return w.sd
 
 
+def clip_vision_state_dict(params: Mapping) -> StateDict:
+    """CLIPVisionEncoder params -> the port's CLIPVisionEncoder state dict
+    (transformers' names without ``vision_model.``; ``pre_layrnorm``)."""
+    p, w = params["params"], _Writer()
+    w.conv("embeddings.patch_embedding", p["patch_embedding"])
+    w.sd["embeddings.class_embedding"] = _t(p["class_embedding"])
+    w.sd["embeddings.position_embedding.weight"] = _t(p["position_embedding"])
+    w.norm("pre_layrnorm", p["pre_layernorm"])
+    w.norm("post_layernorm", p["post_layernorm"])
+    i = 0
+    while f"layers_{i}" in p:
+        pre, layer = f"encoder.layers.{i}", p[f"layers_{i}"]
+        w.norm(f"{pre}.layer_norm1", layer["ln1"])
+        w.norm(f"{pre}.layer_norm2", layer["ln2"])
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            w.lin(f"{pre}.self_attn.{n}", layer[n])
+        w.lin(f"{pre}.mlp.fc1", layer["fc1"])
+        w.lin(f"{pre}.mlp.fc2", layer["fc2"])
+        i += 1
+    if "visual_projection" in p:
+        w.sd["visual_projection.weight"] = _t(np.asarray(p["visual_projection"], np.float32).T)
+    return w.sd
+
+
 def _time_embeddings(w: _Writer, p: Mapping):
     w.lin("time_embedding.linear_1", p["time_embedding"]["linear_1"])
     w.lin("time_embedding.linear_2", p["time_embedding"]["linear_2"])

@@ -9,6 +9,8 @@
   directory, or the mul_zh pair of an XLM-R checkpoint and a Chinese-CLIP
   directory;
 - a diffusers ControlNetModel directory;
+- a CLIP vision tower (transformers Chinese-CLIP / CLIP directory) for
+  evaluation;
 - LoRA safetensors fused into the UNet or a CLIP tower at load time.
 
 The port's modules carry the diffusers/transformers parameter names, so a
@@ -179,6 +181,41 @@ def load_clip_text(directory: str, with_projection: bool = False, lora_paths=(),
     return cfg, load_weights(enc, sd, dtype or torch.float32, device, "clip text")
 
 
+def load_clip_vision(directory: str, dtype=None, device="cuda", sd=None):
+    """A transformers ChineseCLIPModel / CLIPModel /
+    CLIPVisionModelWithProjection directory -> (CLIPVisionConfig,
+    CLIPVisionEncoder): the `vision_model.` prefix stripped,
+    `visual_projection.weight` kept, `pre_layernorm` read as the module's
+    `pre_layrnorm`. The config comes from `vision_config` (or the top level)
+    with the keys and defaults of the JAX evaluate CLI, which reads neither
+    `hidden_act` nor `layer_norm_eps` (so quick_gelu and eps 1e-5), and
+    `projection_dim` from the top level (default 1024). `sd`: the
+    directory's state dict, if the caller has read it already."""
+    from ..models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+
+    c = _read_json(os.path.join(directory, "config.json"))
+    vc = c.get("vision_config", c)
+    cfg = CLIPVisionConfig(
+        image_size=vc.get("image_size", 224),
+        patch_size=vc.get("patch_size", 14),
+        hidden_size=vc.get("hidden_size", 1280),
+        num_layers=vc.get("num_hidden_layers", 32),
+        num_heads=vc.get("num_attention_heads", 16),
+        intermediate_size=vc.get("intermediate_size", 5120),
+        projection_dim=c.get("projection_dim", 1024),
+    )
+    sd = load_state_dict(directory) if sd is None else sd
+    proj = sd.get("visual_projection.weight")
+    sd = _strip(sd, ("vision_model.",))
+    if proj is not None:
+        sd["visual_projection.weight"] = proj
+    sd = {("pre_layrnorm" + k[len("pre_layernorm"):] if k.startswith("pre_layernorm.") else k): v
+          for k, v in sd.items()}
+    with torch.device("meta"):
+        enc = CLIPVisionEncoder(cfg)
+    return cfg, load_weights(enc, sd, dtype or torch.float32, device, "clip vision")
+
+
 def bert_text_config(c: dict, roberta: Optional[bool] = None) -> BertTextConfig:
     """A transformers Bert / XLM-R config dict (or a ChineseCLIPConfig, whose
     `text_config` is read) -> BertTextConfig; RoBERTa positions when the
@@ -199,14 +236,16 @@ def bert_text_config(c: dict, roberta: Optional[bool] = None) -> BertTextConfig:
 
 
 def load_bert_text(directory: str, roberta: Optional[bool] = None, dtype=None,
-                   device="cuda"):
+                   device="cuda", sd=None):
     """A transformers Bert / XLM-R / Chinese-CLIP text directory ->
     (BertTextConfig, BertTextEncoder), the `text_model.`, `bert.` or
-    `roberta.` prefix stripped."""
+    `roberta.` prefix stripped. `sd`: the directory's state dict, if the
+    caller has read it already."""
     from ..models.bert_text import BertTextEncoder
 
     cfg = bert_text_config(_read_json(os.path.join(directory, "config.json")), roberta)
-    sd = _strip(load_state_dict(directory), ("text_model.", "bert.", "roberta."))
+    sd = load_state_dict(directory) if sd is None else sd
+    sd = _strip(sd, ("text_model.", "bert.", "roberta."))
     with torch.device("meta"):
         enc = BertTextEncoder(cfg)
     return cfg, load_weights(enc, sd, dtype or torch.float32, device, "bert text")

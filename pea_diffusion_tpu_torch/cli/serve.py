@@ -1,0 +1,320 @@
+"""Serving daemon of the PyTorch port (port of
+``pea_diffusion_tpu/cli/serve.py``): an HTTP server in the standard library
+that co-batches concurrent requests.
+
+POST /generate {"prompt", "negative_prompt", "steps", "guidance",
+"guidance_rescale", "seed"} answers a PNG; GET /healthz answers status,
+requests served, uptime and the engine's co-batching counters. An error is
+a 400 with a JSON body {"error": ...}; any other path a 404.
+
+Requests that arrive within --batch-window-ms of each other (up to
+--max-batch) run as one pipeline call: grouped by `steps`, padded to a power
+of two, with per-request guidance as a [B] vector when the group's values
+differ. Each request's initial latents come from its own seed
+(numpy's RandomState, the JAX engine's draws bit for bit), so co-batching
+does not change a request's noise. Its image can still move by rounding:
+the UNet's GroupNorm picks its form by batch size (grouped up to 2 rows,
+per-channel sums from 3; PEA_GN_GROUPED=1/0 pins one) and the GEMMs' shapes
+change with the batch.
+
+  python -m pea_diffusion_tpu_torch.cli.serve --demo --device cpu --port 8471
+  curl -X POST localhost:8471/generate -d '{"prompt": "一只猫"}' > out.png
+  python -m pea_diffusion_tpu_torch.cli.serve --demo-full --max-batch 8
+"""
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import queue
+import threading
+import time
+import traceback
+from http.server import BaseHTTPRequestHandler, HTTPServer
+from socketserver import ThreadingMixIn
+
+import numpy as np
+import torch
+
+
+class BatchingEngine:
+    """Collects concurrent requests into one padded pipeline call.
+
+    submit() blocks the calling handler thread until its image is ready. One
+    worker thread owns the pipeline and runs every operation on the card
+    (under inference mode, on the pipeline's device). Only `steps` splits a
+    drain cycle into separate calls; guidance and rescale are per-request [B]
+    operands (``pipelines/text2image.py::cfg_combine``), so mixed-CFG
+    requests share one call. A uniform group passes scalars."""
+
+    def __init__(self, pipe, tokenize, size, max_batch=8, window_ms=150,
+                 latent_factor=8):
+        self.pipe, self.tokenize, self.size = pipe, tokenize, size
+        self.max_batch, self.window = max_batch, window_ms / 1000.0
+        self.latent = size // latent_factor
+        # /healthz "engine": pipeline calls against requests show co-batching
+        self.stats = {"device_calls": 0, "requests_batched": 0,
+                      "vector_cfg_calls": 0, "batch_hist": {}}
+        self._lock = threading.Lock()
+        # the worker runs on the pipeline's card (a bare "cuda": the caller's)
+        device = torch.device(getattr(getattr(pipe, "models", None), "device", "cpu"))
+        self._cuda_index = None
+        if device.type == "cuda":
+            self._cuda_index = (torch.cuda.current_device() if device.index is None
+                                else device.index)
+        self.q: "queue.Queue" = queue.Queue()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def submit(self, prompt, negative, steps, guidance, rescale, seed):
+        done, slot = threading.Event(), {}
+        self.q.put(((steps, guidance, rescale),
+                    (prompt, negative, int(seed)), done, slot))
+        done.wait()
+        if "error" in slot:
+            raise RuntimeError(slot["error"])
+        return slot["img"]
+
+    def stats_snapshot(self) -> dict:
+        """A copy of `stats`, taken while the worker cannot change it."""
+        with self._lock:
+            return json.loads(json.dumps(self.stats))
+
+    def close(self, timeout=None):
+        """Stops the worker after the requests queued before this call."""
+        self.q.put(None)
+        self._thread.join(timeout)
+
+    def _noise(self, seed, n):
+        rs = np.random.RandomState(seed & 0x7FFFFFFF)
+        return rs.standard_normal((n, self.latent, self.latent, 4)).astype(np.float32)
+
+    def _worker(self):
+        from ..pipelines.text2image import to_pil
+
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
+        with torch.inference_mode():
+            while self._drain(to_pil):
+                pass
+
+    def _drain(self, to_pil) -> bool:
+        """One drain cycle: the first request, then whatever arrives within
+        the window (up to max_batch), run group by group. False on close."""
+        first = self.q.get()
+        if first is None:
+            return False
+        batch = [first]
+        deadline = time.time() + self.window
+        stop = False
+        while len(batch) < self.max_batch:
+            left = deadline - time.time()
+            if left <= 0:
+                break
+            try:
+                item = self.q.get(timeout=left)
+            except queue.Empty:
+                break
+            if item is None:
+                stop = True
+                break
+            batch.append(item)
+        groups: dict = {}
+        for item in batch:
+            groups.setdefault(item[0][0], []).append(item)  # by steps
+        for steps, items in groups.items():
+            try:
+                n = len(items)
+                padded = 1 << (n - 1).bit_length()  # a power of two
+                prompts = [it[1][0] for it in items]
+                negatives = [it[1][1] for it in items]
+                prompts += [prompts[0]] * (padded - n)
+                negatives += [negatives[0]] * (padded - n)
+                rows = [self._noise(it[1][2], 1) for it in items]
+                if padded > n:
+                    rows.append(self._noise(0, padded - n))
+                noise = np.concatenate(rows)
+                # pad rows reuse row 0's CFG, so do_cfg is unaffected
+                gs = [it[0][1] for it in items] + [items[0][0][1]] * (padded - n)
+                rs = [it[0][2] for it in items] + [items[0][0][2]] * (padded - n)
+                guidance = gs[0] if len(set(gs)) == 1 else np.asarray(gs, np.float32)
+                rescale = rs[0] if len(set(rs)) == 1 else np.asarray(rs, np.float32)
+                imgs = to_pil(self.pipe(
+                    self.tokenize(prompts), self.tokenize(negatives),
+                    height=self.size, width=self.size, num_steps=steps,
+                    guidance_scale=guidance, guidance_rescale=rescale,
+                    init_noise=noise))
+                with self._lock:
+                    st = self.stats
+                    st["device_calls"] += 1
+                    st["requests_batched"] += n
+                    st["vector_cfg_calls"] += int(not isinstance(guidance, float))
+                    st["batch_hist"][str(n)] = st["batch_hist"].get(str(n), 0) + 1
+                for it, img in zip(items, imgs):
+                    it[3]["img"] = img
+            except Exception as e:  # the worker keeps serving; every submitter hears
+                traceback.print_exc()
+                for it in items:
+                    it[3]["error"] = f"{type(e).__name__}: {e}"
+            finally:
+                for it in items:
+                    it[2].set()
+        return not stop
+
+
+class _ThreadingHTTPServer(ThreadingMixIn, HTTPServer):
+    daemon_threads = True
+
+
+def make_server(engine: BatchingEngine, port: int, default_steps: int,
+                host: str = "0.0.0.0") -> HTTPServer:
+    """The HTTP front end over `engine`, bound to (host, port) (port 0: any
+    free port, read back from ``server_address``). Each connection gets a
+    thread that blocks in ``engine.submit`` while the engine co-batches;
+    run it with ``serve_forever()`` and stop it with ``shutdown()`` and
+    ``server_close()``."""
+    stats = {"requests": 0, "started": time.time()}
+    lock = threading.Lock()
+
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code, ctype, body):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path != "/healthz":
+                self.send_error(404)
+                return
+            with lock:
+                served = stats["requests"]
+            self._send(200, "application/json", json.dumps({
+                "status": "ok", "requests": served,
+                "uptime_s": round(time.time() - stats["started"], 1),
+                "engine": engine.stats_snapshot(),
+            }).encode())
+
+        def do_POST(self):
+            if self.path != "/generate":
+                self.send_error(404)
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                prompt = req.get("prompt", "")
+                if not prompt:
+                    raise ValueError("missing 'prompt'")
+                img = engine.submit(
+                    prompt, req.get("negative_prompt", ""),
+                    int(req.get("steps", default_steps)),
+                    float(req.get("guidance", 7.5)),
+                    float(req.get("guidance_rescale", 0.0)),
+                    int(req.get("seed", 0)))
+                buf = io.BytesIO()
+                img.save(buf, "PNG")
+                with lock:
+                    stats["requests"] += 1
+                self._send(200, "image/png", buf.getvalue())
+            except Exception as e:  # a structured error; the server keeps serving
+                self._send(400, "application/json", json.dumps({"error": str(e)}).encode())
+
+        def log_message(self, fmt, *a):
+            print(f"[serve] {fmt % a}", flush=True)
+
+    return _ThreadingHTTPServer((host, port), Handler)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--port", type=int, default=8471)
+    ap.add_argument("--demo", action="store_true", help="tiny random-weight stack")
+    ap.add_argument("--demo-full", action="store_true",
+                    help="full-size SDXL stack with random weights: the real serving "
+                         "shapes, steps and latency without checkpoints, for load "
+                         "benchmarks (tools/bench_serve.py)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--model-dir")
+    ap.add_argument("--text-encoder-dir")
+    ap.add_argument("--adapter")
+    ap.add_argument("--adapter-preset", default="sdxl_chinese_clip")
+    ap.add_argument("--family", default="chinese_clip",
+                    choices=["chinese_clip", "mul_clip", "mt5", "alt_clip"],
+                    help="the student tower's family (mul_zh, two towers: cli.generate)")
+    ap.add_argument("--sampler", default="dpm++",
+                    choices=["dpm++", "ddim", "euler", "euler_a", "lcm"])
+    ap.add_argument("--size", type=int, default=1024)
+    ap.add_argument("--max-length", type=int, default=52)
+    ap.add_argument("--default-steps", type=int, default=30)
+    ap.add_argument("--aot-cache", metavar="DIR",
+                    help="AOT program cache (not ported yet: ROADMAP Queue A item 8 [A19])")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="co-batch up to N concurrent requests into one call "
+                         "(1 = no batching)")
+    ap.add_argument("--quant", default="none",
+                    help="int8 PTQ of the UNet (not ported yet: ROADMAP Queue A item 10 "
+                         "[A18]); only 'none'")
+    ap.add_argument("--calib-prompt",
+                    help="calibration prompt for --quant int8 (not ported yet: ROADMAP "
+                         "Queue A item 10 [A18])")
+    ap.add_argument("--calib-ranges", metavar="PATH",
+                    help="JSON calibration-ranges cache for --quant int8 (not ported "
+                         "yet: ROADMAP Queue A item 10 [A18])")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (not ported yet: ROADMAP Queue A item 9 "
+                         "[A17]); only 1")
+    ap.add_argument("--batch-window-ms", type=int, default=150,
+                    help="how long the batcher waits to fill a batch")
+    args = ap.parse_args(argv)
+    if args.aot_cache:
+        ap.error("--aot-cache: the AOT program cache (utils/startup.py) is not ported "
+                 "yet (ROADMAP Queue A item 8 [A19])")
+    if args.tp > 1:
+        ap.error("--tp > 1: tensor parallelism (parallel/tp.py) is not ported yet "
+                 "(ROADMAP Queue A item 9 [A17])")
+    if args.quant != "none":
+        ap.error(f"--quant {args.quant}: int8 PTQ (quant/int8.py) is not ported yet "
+                 "(ROADMAP Queue A item 10 [A18])")
+    for flag in ("calib_prompt", "calib_ranges"):
+        if getattr(args, flag) is not None:
+            ap.error(f"--{flag.replace('_', '-')}: int8 PTQ calibration (quant/int8.py) "
+                     "is not ported yet (ROADMAP Queue A item 10 [A18])")
+    real_mode = not (args.demo or args.demo_full)
+    if real_mode:
+        for req in ("model_dir", "text_encoder_dir", "adapter"):
+            if getattr(args, req) is None:
+                ap.error(f"--{req.replace('_', '-')} required without --demo/--demo-full")
+
+    from ..pipelines.text2image import StableDiffusionXLPEAPipeline
+    from .generate import build_demo, build_demo_full, build_real
+
+    if args.demo_full:
+        models, tokenize, size = build_demo_full(args.device)
+        size, default_steps = min(size, args.size), args.default_steps
+    elif args.demo:
+        models, tokenize, size = build_demo(args.device)
+        default_steps = 6
+    else:
+        # what build_real reads beyond these flags: no LoRA, one tower, the
+        # text-encoder directory's tokenizer
+        args.lora = args.lora_scale = args.text_encoder_dir_2 = None
+        args.tokenizer_dir = args.tokenizer_dir_2 = None
+        models, tokenize, size = build_real(args)
+        default_steps = args.default_steps
+
+    pipe = StableDiffusionXLPEAPipeline(models, args.sampler)
+    engine = BatchingEngine(pipe, tokenize, size, max_batch=max(1, args.max_batch),
+                            window_ms=args.batch_window_ms)
+    srv = make_server(engine, args.port, default_steps)
+    print(f"serving on :{args.port} (size={size}, sampler={args.sampler}, "
+          f"max_batch={args.max_batch}, device={models.device})", flush=True)
+    try:
+        srv.serve_forever()
+    finally:
+        srv.server_close()
+        engine.close(timeout=60)
+
+
+if __name__ == "__main__":
+    main()

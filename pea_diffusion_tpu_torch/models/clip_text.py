@@ -30,6 +30,11 @@ class CLIPTextOutput(NamedTuple):
     projected: Optional[torch.Tensor]        # [B, P] pooled @ text_projection
 
 
+def quick_gelu(x):
+    """CLIP's sigmoid approximation of GELU, x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 class CLIPAttention(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
@@ -55,6 +60,9 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMLP(nn.Module):
+    """fc1 -> quick_gelu or exact GELU (`cfg.hidden_act`) -> fc2; the text
+    and the vision towers share it."""
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.act = cfg.hidden_act
@@ -63,7 +71,7 @@ class CLIPMLP(nn.Module):
 
     def forward(self, x):
         h = self.fc1(x)
-        h = h * torch.sigmoid(1.702 * h) if self.act == "quick_gelu" else F.gelu(h)
+        h = quick_gelu(h) if self.act == "quick_gelu" else F.gelu(h)
         return self.fc2(h)
 
 

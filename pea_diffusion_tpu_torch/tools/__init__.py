@@ -1,1 +1,2 @@
-"""Checks of the port that run on a CUDA card (not on the serving path)."""
+"""Tools of the port: checks that run on a CUDA card, and the serving load
+client (bench_serve.py)."""

@@ -15,6 +15,8 @@ fp32 plain version in bf16, fp16 and fp32, contiguous and channels-last,
 and must give the same bits on a second run. A LoRA fused on the card
 gives the bits it gives on the CPU. The data pipeline's prefetcher copies
 pinned host batches to the card on a side stream, in order, values intact.
+The serving engine co-batches two requests into one call of the tiny stack
+on the card, within 1 uint8 level of the same engine on the CPU.
 
 This file imports neither JAX nor the JAX package, so it runs where the
 card is, without the repository's conftest:
@@ -650,3 +652,52 @@ def test_prefetcher_copies_pinned_batches_on_a_side_stream_on_card():
     next(it)
     with pytest.raises(OSError, match="shard unreadable"):
         next(it)
+
+
+@pytest.mark.gpu
+def test_serving_engine_cobatches_on_card():
+    """The serving engine (cli/serve.py) on the card: two concurrent requests
+    with different guidance run as one call of the tiny fp32 SDXL stack
+    (DDIM, 2 steps; its worker thread owns every CUDA op), and each image
+    is within 1 uint8 level of the same engine's on the CPU at the same
+    weights (TF32 off)."""
+    import threading
+
+    import numpy as np
+
+    from pea_diffusion_tpu_torch.cli.generate import build_demo
+    from pea_diffusion_tpu_torch.cli.serve import BatchingEngine
+    from pea_diffusion_tpu_torch.pipelines import StableDiffusionXLPEAPipeline
+
+    _card()
+    cpu, tokenize, _ = build_demo("cpu")
+    gpu, _, _ = build_demo("cuda")
+    for name in ("text_encoder", "adapter", "unet", "vae"):
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    reqs = [("一只猫", "", 2, 7.5, 0.0, 3), ("雪山下的湖泊", "模糊", 2, 5.0, 0.0, 4)]
+    images = {}
+    try:
+        for dev, models in (("cpu", cpu), ("cuda", gpu)):
+            engine = BatchingEngine(StableDiffusionXLPEAPipeline(models, "ddim"), tokenize, 64,
+                                    max_batch=2, window_ms=60_000)
+            out = [None, None]
+
+            def call(i):
+                out[i] = engine.submit(*reqs[i])
+
+            threads = [threading.Thread(target=call, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+                assert not t.is_alive()
+            engine.close(60)
+            assert engine.stats["device_calls"] == 1 and engine.stats["batch_hist"] == {"2": 1}
+            images[dev] = [np.asarray(img, np.int16) for img in out]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    for got, want in zip(images["cuda"], images["cpu"]):
+        assert got.shape == (16, 16, 3)
+        assert np.abs(got - want).max() <= 1
