@@ -96,8 +96,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
    1024², guidance 0) and "turbo serving" (the plain loaded UNet, Euler-a
    4 steps on the directory's trailing schedule, 512², guidance 0); the
    same seed must give the same bits and another seed other bits; a profile
-   of one request each (build/chip_smoke_{lcm,turbo}_profile.txt). The
-   directory is deleted at the end. Then the inpainting, ensemble and
+   of one request each (build/chip_smoke_{lcm,turbo}_profile.txt). Before
+   the directory is deleted, the start-up path (`startup_phase`):
+   tools/bench_startup.py in three fresh processes over it, sharing one new
+   --aot-cache directory under build/: a cold kernel-library build while
+   the weights stream to the card (device_put_streamed beside the
+   pipeline's prefetch), then warm with the weights streamed, then warm
+   with the weights placed first; each must build or find the library as
+   its name says, resolve the one-pass and flash launchers, and give a
+   finite [1, 1024, 1024, 3] image; each logs its phases (import, CUDA
+   context, weight load from the page cache, placement and prefetch, first
+   and second image). Then int8 serving (`int8_phase`) on the SDXL stack:
+   quantize_for_serving at scope int8 (the resnet 3x3s) calibrated on a
+   prompt, its ranges written to a file, two 1024² DDIM-4 requests at CFG
+   7.5 from launch counts of 0 ("sdxl int8 serving": B1 and B3 as the walk
+   gives them, same seed same bits, a profile with the device's idle share,
+   build/chip_smoke_int8_profile.txt), the ranges file loaded again giving
+   the same bits, the UNet's eps int8 against bf16 (relative L2) and the
+   worst five convs' SQNR (printed); the widest scope
+   int8:resnet,shortcut,sampler,vae through generate_sdxl with
+   split_decode and decode_chunk 2 ("sdxl int8 widest serving", the same
+   checks, and a 3-latent decode at once against in chunks, printed); and
+   at each conv shape of the path (SDXL's resnet maps 2x320x128²,
+   2x640x64², 2x1280x32² at stride 1 and 2, the VAE decoder's 512x128²,
+   256x512², 128x1024²) the int8 product against its float64 plain version
+   (int32 sums equal) and the int8 conv, the product alone and the bf16
+   cuDNN conv it replaces timed with CUDA events (not gated). Then the
+   inpainting, ensemble and
    preset paths (`presets_phase`) on the SDXL stack's tower, adapter and
    VAE, each extra UNet built in bf16 from a seed and freed before the
    next, each path two requests of batch 1 at 1024² (DDIM, CFG 7.5) from
@@ -374,6 +399,33 @@ BATCHED_PATH = "sdxl batched serving"
 BATCHED = dict(clients=8, requests=24, steps=30, warmup=1, max_batch=8, window_ms=150,
                sampler="dpm++", table="chip_smoke_batched_profile.txt", profile_steps=4)
 BATCHED_PADDED = (2, 4, 8)  # padded groups with their own kernel rows (1: SDXL serving's)
+# Int8 serving (`int8_phase`, after the few-step phase, on the SDXL serving
+# stack): quant/int8.py's quantize_for_serving at scope "int8" (the resnet
+# 3x3s), calibrated on PROMPTS[0] and written to a ranges file, then
+# REQUESTS 1024² DDIM-4 requests at CFG 7.5 ("sdxl int8 serving"); the
+# same ranges file loaded again must give the same bits; then the widest
+# scope with the VAE decoder ("sdxl int8 widest serving", generate_sdxl
+# with split_decode and decode_chunk 2). The int8 product is held against
+# its float64 plain version (exact int32 sums) and timed against the bf16
+# cuDNN conv it replaces at each conv shape of the path: (batch, channels,
+# side, stride), SDXL's resnet maps in the CFG pair and the VAE decoder's
+# at batch 1.
+INT8_PATH, INT8_WIDE_PATH = "sdxl int8 serving", "sdxl int8 widest serving"
+INT8_WIDE = "int8:resnet,shortcut,sampler,vae"
+INT8_DECODE_CHUNK = 2
+INT8_CONV_SHAPES = ((2, 320, 128, 1), (2, 640, 64, 1), (2, 1280, 32, 1),
+                    (2, 320, 128, 2), (2, 640, 64, 2), (2, 1280, 32, 2),
+                    (1, 512, 128, 1), (1, 256, 512, 1), (1, 128, 1024, 1))
+INT8_TABLE = "chip_smoke_int8_profile.txt"
+H100_INT8_OPS = 1979e12    # dense int8 tensor-core peak (SXM data sheet)
+# Start-up (`startup_phase`, inside the few-step phase while its deployment
+# is on disk): tools/bench_startup.py in fresh processes over that
+# directory, one kernel-library cache for all three: a cold build with the
+# weights streamed meanwhile, then warm with the weights streamed, then warm
+# with the weights placed first.
+STARTUP_RUNS = (("cold, overlapped", "cold", ()), ("warm, overlapped", "warm", ()),
+                ("warm, serial", "warm", ("--serial",)))
+STARTUP_TIMEOUT = 240      # seconds a start-up process may take
 # Evaluation (`evaluate_phase`, after batched serving, on its PNGs): the
 # Chinese-CLIP dual tower at full width (ViT-H/14 and RoBERTa-large with
 # their 1024-d projections) in fp32 from a seed, written as a Chinese-CLIP
@@ -671,7 +723,7 @@ def forward_cases():
         and the ensemble's base run the same shapes; the ensemble's keys
         carry the heads, which tell the base's calls from the refiner's."""
         paths = ("sdxl serving", CONTROLNET_PATH, INPAINT_9CH, INPAINT_BLEND,
-                 SSD_1B_PATH) + tuple(TOWERS)
+                 SSD_1B_PATH, INT8_PATH, INT8_WIDE_PATH) + tuple(TOWERS)
         return dict({path: key for path in paths}, **{ENSEMBLE_PATH: key + (heads,),
                                                       BATCHED_PATH: key + (2,)})
 
@@ -1820,6 +1872,8 @@ def serving_phase(torch, model, kernels, repo):
         fused_gn_ab(torch, models, pipe, tokenize, PROMPTS[0], repo)
         fewstep_phase(torch, models, tokenize, kernels, repo)
         log(f"[fewstep] done at {time.time() - t1:.1f}s after the stack's build")
+        int8_phase(torch, models, tokenize, kernels, repo)
+        log(f"[int8] done at {time.time() - t1:.1f}s after the stack's build")
         presets_phase(torch, models, tokenize, kernels, repo)
         log(f"[presets] done at {time.time() - t1:.1f}s after the stack's build")
         towers_phase(torch, models, kernels, repo)
@@ -2120,6 +2174,10 @@ def fewstep_phase(torch, models, tokenize, kernels, repo):
         for path, spec in FEWSTEP.items():
             unet = loaded["unet with the LoRA fused" if spec["lora"] else "unet"][1]
             serve_fewstep(torch, PEAModels(unet=unet, **common), tokenize, path, kernels, repo)
+        del loaded, common
+        gc.collect()
+        torch.cuda.empty_cache()
+        startup_phase(root, repo)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2155,6 +2213,201 @@ def serve_fewstep(torch, models, tokenize, path, kernels, repo):
     idle = profile_run(torch, lambda: request(PROMPTS[0], 7), min(req_s),
                        repo / "build" / spec["table"], f"{path} profile")
     log(f"[{path}] requests {req_s} s; idle share {idle:.3f}")
+
+
+def startup_phase(root, repo):
+    """tools/bench_startup.py in a fresh process for each of STARTUP_RUNS,
+    over the deployment under `root` (its files were just written, so the
+    weights are read from the page cache), into one new kernel-library
+    cache: each run must build or find the library as its name says and
+    give a finite image. Logs each run's JSON line."""
+    import os
+    import shutil
+    import tempfile
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_aot_", dir=repo / "build")
+    try:
+        for name, library, extra in STARTUP_RUNS:
+            cmd = [sys.executable, "-m", "pea_diffusion_tpu_torch.tools.bench_startup",
+                   "--model-dir", str(root), "--aot-cache", cache, *extra]
+            t0 = time.time()
+            proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                                  timeout=STARTUP_TIMEOUT,
+                                  env=dict(os.environ, PYTHONPATH=str(repo)))
+            wall = time.time() - t0
+            for line in proc.stderr.strip().splitlines()[-12:]:
+                log(f"[startup {name}] {line}")
+            if proc.returncode != 0:
+                raise AssertionError(f"startup {name}: exit code {proc.returncode}")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            log(f"[startup {name}] process wall {wall:.3f}s; {json.dumps(res)}")
+            detail = res["detail"]
+            size = SERVING["sdxl serving"]["size"]
+            if (detail["kernel_library"] != library or not detail["image_ok"]
+                    or detail["image_shape"] != [1, size, size, 3]):
+                raise AssertionError(f"startup {name}: library {detail['kernel_library']} "
+                                     f"(want {library}), image {detail['image_shape']} finite "
+                                     f"in [0, 1]: {detail['image_ok']}")
+            if not {"pea_onepass_attention_fwd", "pea_flash_attention_fwd"} <= set(
+                    detail["launchers"]):
+                raise AssertionError(f"startup {name}: prefetch resolved {detail['launchers']}")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def int8_conv_checks(torch, F):
+    """Each INT8_CONV_SHAPES conv on the card: the int8 product against its
+    float64 plain version (the int32 sums must be equal), then CUDA-event
+    times of the whole int8 conv (quantize, product, dequantize and bias:
+    QConvInt8's forward), of the product alone and of the bf16 cuDNN conv it
+    replaces (channels-last, as the models run it), beside the int8
+    product's bound."""
+    from pea_diffusion_tpu_torch.quant.int8 import (QConvInt8, int8_conv, int8_conv_plain,
+                                                    quantize_weight)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for b, c, side, stride in INT8_CONV_SHAPES:
+        x = torch.randn(b, c, side, side, generator=gen, device=dev).bfloat16()
+        x = x.contiguous(memory_format=torch.channels_last)
+        w = (torch.randn(c, c, 3, 3, generator=gen, device=dev) * 0.02).bfloat16()
+        bias = torch.zeros(c, device=dev, dtype=torch.bfloat16)
+        conv = QConvInt8(c, c, 3, stride).to(dev)
+        kq, w_scale = quantize_weight(w)
+        with torch.no_grad():
+            conv.kernel_q.copy_(kq)
+            conv.w_scale.copy_(w_scale)
+            conv.x_scale.fill_(x.float().abs().max().item() / 127.0)
+        xq = torch.randint(-127, 128, x.shape, generator=gen, device=dev,
+                           dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            got = int8_conv(xq, kq, (stride, stride))
+            want = int8_conv_plain(xq, kq, (stride, stride))
+            exact = torch.equal(got.double(), want)
+            del want
+            int8_ms = event_ms(torch, lambda: conv(x))
+            mm_ms = event_ms(torch, lambda: int8_conv(xq, kq, (stride, stride)))
+            bf16_ms = event_ms(torch, lambda: F.conv2d(x, w, bias, stride=stride, padding=1))
+        ho = -(-side // stride)
+        ops = 2 * b * ho * ho * c * c * 9
+        nbytes = x.numel() + kq.numel() + 4 * b * ho * ho * c
+        bound_ms = max(ops / H100_INT8_OPS, nbytes / H100_BYTES_PER_S) * 1e3
+        log(f"[int8 conv] {b}x{c}x{side}² stride {stride}: int32 sums equal to the float64 "
+            f"plain version: {exact}; int8 conv {int8_ms:.4f} ms (product alone "
+            f"{mm_ms:.4f} ms), bf16 cuDNN conv {bf16_ms:.4f} ms, bf16 / int8 "
+            f"{bf16_ms / int8_ms:.3f}; the product's bound {bound_ms:.4f} ms")
+        if not exact:
+            raise AssertionError(f"int8 conv {b}x{c}x{side}² stride {stride}: the int32 sums "
+                                 "differ from the float64 plain version")
+        del x, xq, got, conv
+        torch.cuda.empty_cache()
+
+
+def int8_phase(torch, models, tokenize, kernels, repo):
+    """Int8 serving on the SDXL serving stack `models` (see INT8_PATH):
+    calibrate and quantize, serve, reload the ranges (same bits), the
+    widest scope, the conv checks and times, the UNet's eps int8 vs float
+    and the worst convs' SQNR."""
+    import torch.nn.functional as F
+
+    from pea_diffusion_tpu_torch.pipelines.text2image import (
+        StableDiffusionXLPEAPipeline, decode_latents, encode_prompt_sdxl, generate_sdxl,
+        make_add_time_ids)
+    from pea_diffusion_tpu_torch.quant.int8 import load_ranges, per_conv_sqnr, quantize_for_serving
+
+    size, steps, dev = 1024, SERVING["sdxl serving"]["steps"], models.device
+    ids, uncond = tokenize([PROMPTS[0]]), tokenize([""])
+    ranges_path = repo / "build" / "chip_smoke_int8_ranges.json"
+    wide_path = repo / "build" / "chip_smoke_int8_wide_ranges.json"
+    for f in (ranges_path, wide_path):
+        f.unlink(missing_ok=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        quant = quantize_for_serving(models, ids, uncond, size, ranges_path=str(ranges_path))
+        torch.cuda.synchronize()
+        ranges = load_ranges(str(ranges_path))
+        log(f"[{INT8_PATH}] calibrated and quantized in {time.time() - t0:.3f}s: "
+            f"{len(ranges)} conv ranges, max|x| from {min(ranges.values()):.4g} to "
+            f"{max(ranges.values()):.4g}")
+        pipe = StableDiffusionXLPEAPipeline(quant, "ddim")
+
+        def request(prompt, seed):
+            return pipe(tokenize([prompt]), tokenize([""]), height=size, width=size,
+                        num_steps=steps, guidance_scale=GUIDANCE, seed=seed)
+
+        routes = attention_routes(quant.unet, size // 8, TEXT_TOKENS)
+        images, req_s = serve_requests(torch, INT8_PATH, request, size,
+                                       [("serving", routes, steps * REQUESTS)], kernels)
+        idle = profile_run(torch, lambda: request(PROMPTS[0], 7), min(req_s),
+                           repo / "build" / INT8_TABLE, f"{INT8_PATH} profile")
+        log(f"[{INT8_PATH}] requests {req_s} s; idle share {idle:.3f}")
+
+        reloaded = quantize_for_serving(models, ids, uncond, size, ranges_path=str(ranges_path))
+        same = torch.equal(StableDiffusionXLPEAPipeline(reloaded, "ddim")(
+            ids, uncond, height=size, width=size, num_steps=steps, guidance_scale=GUIDANCE,
+            seed=0).float(), images[0])
+        log(f"[{INT8_PATH}] quantized again from the ranges file: same bits {same}")
+        if not same:
+            raise AssertionError(f"{INT8_PATH}: the reloaded ranges gave other bits")
+        del reloaded
+
+        with torch.inference_mode():
+            context, pooled = encode_prompt_sdxl(quant, torch.as_tensor(ids, device=dev),
+                                                 torch.as_tensor(uncond, device=dev))
+        added = {"text_embeds": pooled, "time_ids": make_add_time_ids(
+            (size, size), (0, 0), (size, size), 2, dev)}
+        gen = torch.Generator(device=dev).manual_seed(29)
+        x = torch.randn((2, size // 8, size // 8, 4), generator=gen, device=dev).bfloat16()
+        t = torch.full((2,), 499, device=dev)
+        with torch.inference_mode():
+            eps_f = models.unet(x, t, context, added).float()
+            eps_q = quant.unet(x, t, context, added).float()
+        rel = ((eps_q - eps_f).norm() / eps_f.norm()).item()
+        sqnr = per_conv_sqnr(models.unet, [(x, t, context, added)], ranges)
+        worst = sorted(sqnr.items(), key=lambda kv: kv[1])[:5]
+        log(f"[{INT8_PATH}] UNet eps at t=499, int8 vs bf16 float: rel L2 {rel:.5f}; "
+            f"per-conv SQNR over {len(sqnr)} convs, worst five (dB): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in worst))
+        del quant, pipe, eps_f, eps_q
+
+        wide = quantize_for_serving(models, ids, uncond, size, ranges_path=str(wide_path),
+                                    conv_quant=INT8_WIDE)
+
+        def wide_request(prompt, seed):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            return generate_sdxl(wide, tokenize([prompt]), tokenize([""]), generator=gen,
+                                 sampler_name="ddim", height=size, width=size,
+                                 num_steps=steps, guidance_scale=GUIDANCE, split_decode=True,
+                                 decode_chunk=INT8_DECODE_CHUNK)
+
+        routes = attention_routes(wide.unet, size // 8, TEXT_TOKENS)
+        _, wide_s = serve_requests(torch, INT8_WIDE_PATH, wide_request, size,
+                                   [("serving", routes, steps * REQUESTS)], kernels)
+        z = torch.randn((3, size // 8, size // 8, 4), generator=gen, device=dev)
+        with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
+            whole = decode_latents(wide, z)
+            peak_whole = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            chunked = decode_latents(wide, z, chunk=INT8_DECODE_CHUNK)
+            peak_chunked = torch.cuda.max_memory_allocated() / 2**30
+            gap = (whole - chunked).abs()
+            float_gap = (decode_latents(models, z) - decode_latents(
+                models, z, chunk=INT8_DECODE_CHUNK)).abs()
+        log(f"[{INT8_WIDE_PATH}] requests {wide_s} s; {INT8_WIDE} decode of 3 latents at "
+            f"once vs in chunks of {INT8_DECODE_CHUNK}: |difference| max {gap.max().item():.4g} "
+            f"mean {gap.mean().item():.4g} (the bf16 decoder's: max "
+            f"{float_gap.max().item():.4g} mean {float_gap.mean().item():.4g}; GroupNorm's "
+            f"form and cuDNN's kernels change with the batch), peak memory {peak_whole:.2f} vs "
+            f"{peak_chunked:.2f} GiB")
+        del wide, whole, chunked
+        gc.collect()
+        torch.cuda.empty_cache()
+        int8_conv_checks(torch, F)
+    finally:
+        for f in (ranges_path, wide_path):
+            f.unlink(missing_ok=True)
 
 
 def serve_requests(torch, path, request, size, calls, kernels):

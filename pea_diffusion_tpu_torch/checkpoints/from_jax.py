@@ -8,7 +8,8 @@ own ``convert_*`` (``checkpoints/torch_convert.py``) maps such a state dict
 back to the JAX tree, which is how the tests check the names both ways.
 
 Layout rules: Dense kernel [in, out] -> Linear weight [out, in]; Conv HWIO
--> OIHW; norm scale -> weight; Embed embedding -> weight; the UNet's GEGLU
+-> OIHW (an int8 QConvInt8's kernel_q too, its w_scale, x_scale and bias as
+they are); norm scale -> weight; Embed embedding -> weight; the UNet's GEGLU
 halves geglu_h / geglu_gate fuse into ff.net.0.proj in [h | gate] order.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))  # 0-d stays 0-d
 
 
 class _Writer:
@@ -37,6 +38,12 @@ class _Writer:
             self.sd[f"{name}.bias"] = _t(node["bias"])
 
     def conv(self, name: str, node: Mapping):
+        if "kernel_q" in node:  # a QConvInt8: int8 HWIO codes -> OIHW, scales as they are
+            self.sd[f"{name}.kernel_q"] = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(node["kernel_q"], np.int8).transpose(3, 2, 0, 1)))
+            for leaf in ("w_scale", "x_scale", "bias"):
+                self.sd[f"{name}.{leaf}"] = _t(node[leaf])
+            return
         self.sd[f"{name}.weight"] = _t(
             np.asarray(node["kernel"], np.float32).transpose(3, 2, 0, 1))
         if "bias" in node:

@@ -30,6 +30,19 @@ whose unet/config.json says in_channels 9) takes the mask and the masked
 image's latents as input, a 4-channel one blends the unmasked region back
 after each step; --strength sets how far into the schedule it starts.
 
+--quant int8 (= int8:resnet) or int8:<scopes> (resnet, shortcut, sampler,
+stem, vae) serves the SDXL UNet's (and under vae the VAE decoder's)
+in-scope convs in int8 (quant/int8.py), calibrated on the prompt; with
+--calib-ranges PATH the ranges are read from PATH if it exists and written
+there otherwise. --aot-cache DIR keeps the compiled kernel library under DIR
+(utils/startup.py), so a restarted process builds nothing; by default the
+library is built into the checkout's build/ (or ~/.cache/
+pea_diffusion_tpu_torch/), --no-compile-cache builds it into a temporary
+directory every time. --aot-cache, --quant and --calib-ranges are
+text-to-image only. --repl then reads more prompts, one a line, and writes
+each image beside -o (out-1.png, out-2.png, ...) until an empty line or the
+end of the input.
+
 Usage:
   python -m pea_diffusion_tpu_torch.cli.generate --model-dir sdxl --text-encoder-dir cn-clip \
       --adapter proj_1000/pytorch_model.bin --lora lcm-lora.safetensors --sampler lcm \
@@ -45,10 +58,13 @@ Usage:
       --control-canny --control-scale 0.8 --control-end 0.6 -o out.png
   python -m pea_diffusion_tpu_torch.cli.generate --demo --device cpu --inpaint-image photo.png \
       --mask mask.png --strength 0.6 --sampler ddim -o out.png
+  python -m pea_diffusion_tpu_torch.cli.generate --demo-full --quant int8:resnet,vae \
+      --calib-ranges ranges.json --aot-cache aot --sampler ddim --steps 4 -o out.png --repl
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -227,6 +243,37 @@ def make_inpaint_run(args, models, size: int, steps: int):
     return run
 
 
+def check_serving_flags(ap, args):
+    """The argparse errors of the flags both CLIs share: --tp above 1 (not
+    ported), an unknown --quant scope, --aot-cache with --no-compile-cache."""
+    from ..quant.int8 import parse_scopes
+
+    if args.tp > 1:
+        ap.error("--tp > 1: tensor parallelism (parallel/tp.py) is not ported yet "
+                 "(ROADMAP Queue A item 9 [A17])")
+    try:
+        parse_scopes(args.quant)
+    except ValueError as e:
+        ap.error(f"--quant {args.quant}: {e}")
+    if args.aot_cache and args.no_compile_cache:
+        ap.error("--aot-cache keeps the compiled library, --no-compile-cache builds it "
+                 "anew: give one")
+
+
+def start_compile_cache(args):
+    """Where this process builds and finds the kernel library, before
+    anything loads it: under --aot-cache DIR, in a temporary directory with
+    --no-compile-cache, else the default compile cache."""
+    from ..utils.startup import AOTCache, enable_compile_cache, temporary_compile_cache
+
+    if args.aot_cache:
+        AOTCache(args.aot_cache)
+    elif args.no_compile_cache:
+        temporary_compile_cache()
+    else:
+        enable_compile_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     mode = ap.add_mutually_exclusive_group()
@@ -285,6 +332,26 @@ def main(argv=None):
                      help="the image to repaint (turns inpaint mode on; needs --mask)")
     inp.add_argument("--mask", metavar="PATH", help="repaint-region mask (white = repaint)")
     inp.add_argument("--strength", type=float, default=0.85)
+    srv = ap.add_argument_group("serving")
+    srv.add_argument("--repl", action="store_true",
+                     help="then read prompts from the input, one a line, an image each "
+                          "(out-1.png, out-2.png, ...), until an empty line or its end")
+    srv.add_argument("--aot-cache", metavar="DIR",
+                     help="keep the compiled kernel library under DIR (keyed by the "
+                          "sources, torch, CUDA and the card), so a restart builds nothing")
+    srv.add_argument("--no-compile-cache", action="store_true",
+                     help="build the kernel library into a temporary directory, removed "
+                          "at exit (every start compiles)")
+    srv.add_argument("--quant", default="none",
+                     help="'int8' (= int8:resnet) or 'int8:<scopes>' from {resnet, shortcut, "
+                          "sampler, stem, vae}: int8 PTQ of the SDXL UNet's in-scope convs "
+                          "(vae: the VAE decoder's), calibrated on the prompt")
+    srv.add_argument("--calib-ranges", metavar="PATH",
+                     help="JSON of calibration ranges for --quant: read if it exists, "
+                          "written otherwise")
+    srv.add_argument("--tp", type=int, default=1,
+                     help="tensor-parallel degree (not ported yet: ROADMAP Queue A item 9 "
+                          "[A17]); only 1")
     args = ap.parse_args(argv)
     real_mode = not (args.demo or args.demo_full)
     if real_mode:
@@ -306,6 +373,11 @@ def main(argv=None):
         ap.error("inpaint mode runs the SDXL stack (--model sdxl)")
     if real_mode and args.family == "mul_zh" and (args.control_image or inpaint):
         ap.error("ControlNet and inpaint modes take one tokenization: not --family mul_zh")
+    check_serving_flags(ap, args)
+    if (args.control_image or inpaint) and (args.aot_cache or args.quant != "none"
+                                            or args.calib_ranges):
+        ap.error("--aot-cache/--quant/--calib-ranges are text-to-image only")
+    start_compile_cache(args)
 
     from ..pipelines.text2image import (StableDiffusionPEAPipeline,
                                         StableDiffusionXLPEAPipeline, to_pil)
@@ -327,24 +399,49 @@ def main(argv=None):
         size, steps, sd15 = args.size or size, args.steps, args.model == "sd15"
     if (args.control_image or inpaint) and sd15:
         ap.error(f"{'ControlNet' if args.control_image else 'inpaint'} mode runs an SDXL UNet")
-    extra = {}
+    if args.quant != "none" and sd15:
+        ap.error("--quant calibrates the SDXL stack (--model sdxl)")
     if args.control_image or inpaint:
-        run = (make_controlnet_run if args.control_image else make_inpaint_run)(
+        mode_run = (make_controlnet_run if args.control_image else make_inpaint_run)(
             args, models, size, steps)
-        imgs = run(tokenize([args.prompt]), tokenize([args.negative_prompt]), args.seed)
-        to_pil(imgs)[0].save(args.output)
-        print(f"wrote {args.output}")
-        return
-    if sd15:
-        pipe = StableDiffusionPEAPipeline(models, args.sampler)
+
+        def images(prompt):
+            return mode_run(tokenize([prompt]), tokenize([args.negative_prompt]), args.seed)
     else:
-        pipe = StableDiffusionXLPEAPipeline(models, args.sampler)
-        extra["guidance_rescale"] = args.guidance_rescale
-    imgs = pipe(tokenize([args.prompt]), tokenize([args.negative_prompt]),
-                height=size, width=size, num_steps=steps,
-                guidance_scale=args.guidance, seed=args.seed, **extra)
-    to_pil(imgs)[0].save(args.output)
-    print(f"wrote {args.output}")
+        if args.quant != "none":
+            from ..quant import quantize_for_serving
+
+            models = quantize_for_serving(models, tokenize([args.prompt]),
+                                          tokenize([args.negative_prompt]), size,
+                                          ranges_path=args.calib_ranges, conv_quant=args.quant)
+        extra = {}
+        if sd15:
+            pipe = StableDiffusionPEAPipeline(models, args.sampler)
+        else:
+            pipe = StableDiffusionXLPEAPipeline(models, args.sampler, aot_dir=args.aot_cache)
+            extra["guidance_rescale"] = args.guidance_rescale
+
+        def images(prompt):
+            return pipe(tokenize([prompt]), tokenize([args.negative_prompt]), height=size,
+                        width=size, num_steps=steps, guidance_scale=args.guidance,
+                        seed=args.seed, **extra)
+
+    def run(prompt, path):
+        to_pil(images(prompt))[0].save(path)
+        print(f"wrote {path}")
+
+    run(args.prompt, args.output)
+    stem, ext = os.path.splitext(args.output)
+    n = 0
+    while args.repl:
+        try:
+            prompt = input("prompt> ").strip()
+        except EOFError:
+            break
+        if not prompt:
+            break
+        n += 1
+        run(prompt, f"{stem}-{n}{ext}")
 
 
 if __name__ == "__main__":

@@ -20,6 +20,15 @@ change with the batch.
   python -m pea_diffusion_tpu_torch.cli.serve --demo --device cpu --port 8471
   curl -X POST localhost:8471/generate -d '{"prompt": "一只猫"}' > out.png
   python -m pea_diffusion_tpu_torch.cli.serve --demo-full --max-batch 8
+  python -m pea_diffusion_tpu_torch.cli.serve --demo-full --quant int8 \
+      --calib-ranges ranges.json --aot-cache aot
+
+--quant int8[:scopes] quantizes the UNet's in-scope convs (and under vae the
+VAE decoder's) at start-up, calibrated on --calib-prompt, the ranges read
+from or written to --calib-ranges (quant/int8.py). --aot-cache DIR keeps the
+compiled kernel library under DIR; --no-compile-cache builds it into a
+temporary directory; by default it is built into the checkout's build/
+(utils/startup.py).
 """
 from __future__ import annotations
 
@@ -248,38 +257,32 @@ def main(argv=None):
     ap.add_argument("--max-length", type=int, default=52)
     ap.add_argument("--default-steps", type=int, default=30)
     ap.add_argument("--aot-cache", metavar="DIR",
-                    help="AOT program cache (not ported yet: ROADMAP Queue A item 8 [A19])")
+                    help="keep the compiled kernel library under DIR (keyed by the sources, "
+                         "torch, CUDA and the card): a restarted server builds nothing")
+    ap.add_argument("--no-compile-cache", action="store_true",
+                    help="build the kernel library into a temporary directory, removed at "
+                         "exit (every start compiles)")
     ap.add_argument("--max-batch", type=int, default=8,
                     help="co-batch up to N concurrent requests into one call "
                          "(1 = no batching)")
     ap.add_argument("--quant", default="none",
-                    help="int8 PTQ of the UNet (not ported yet: ROADMAP Queue A item 10 "
-                         "[A18]); only 'none'")
-    ap.add_argument("--calib-prompt",
-                    help="calibration prompt for --quant int8 (not ported yet: ROADMAP "
-                         "Queue A item 10 [A18])")
+                    help="'int8' (= int8:resnet) or 'int8:<scopes>' from {resnet, shortcut, "
+                         "sampler, stem, vae}: int8 PTQ of the UNet's in-scope convs (vae: "
+                         "the VAE decoder's) at start-up, calibrated on --calib-prompt")
+    ap.add_argument("--calib-prompt", default="一只戴着帽子的可爱猫咪",
+                    help="calibration prompt for --quant")
     ap.add_argument("--calib-ranges", metavar="PATH",
-                    help="JSON calibration-ranges cache for --quant int8 (not ported "
-                         "yet: ROADMAP Queue A item 10 [A18])")
+                    help="JSON calibration-ranges cache for --quant: read if it exists, "
+                         "written otherwise")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel degree (not ported yet: ROADMAP Queue A item 9 "
                          "[A17]); only 1")
     ap.add_argument("--batch-window-ms", type=int, default=150,
                     help="how long the batcher waits to fill a batch")
     args = ap.parse_args(argv)
-    if args.aot_cache:
-        ap.error("--aot-cache: the AOT program cache (utils/startup.py) is not ported "
-                 "yet (ROADMAP Queue A item 8 [A19])")
-    if args.tp > 1:
-        ap.error("--tp > 1: tensor parallelism (parallel/tp.py) is not ported yet "
-                 "(ROADMAP Queue A item 9 [A17])")
-    if args.quant != "none":
-        ap.error(f"--quant {args.quant}: int8 PTQ (quant/int8.py) is not ported yet "
-                 "(ROADMAP Queue A item 10 [A18])")
-    for flag in ("calib_prompt", "calib_ranges"):
-        if getattr(args, flag) is not None:
-            ap.error(f"--{flag.replace('_', '-')}: int8 PTQ calibration (quant/int8.py) "
-                     "is not ported yet (ROADMAP Queue A item 10 [A18])")
+    from .generate import check_serving_flags
+
+    check_serving_flags(ap, args)
     real_mode = not (args.demo or args.demo_full)
     if real_mode:
         for req in ("model_dir", "text_encoder_dir", "adapter"):
@@ -287,8 +290,9 @@ def main(argv=None):
                 ap.error(f"--{req.replace('_', '-')} required without --demo/--demo-full")
 
     from ..pipelines.text2image import StableDiffusionXLPEAPipeline
-    from .generate import build_demo, build_demo_full, build_real
+    from .generate import build_demo, build_demo_full, build_real, start_compile_cache
 
+    start_compile_cache(args)
     if args.demo_full:
         models, tokenize, size = build_demo_full(args.device)
         size, default_steps = min(size, args.size), args.default_steps
@@ -303,7 +307,13 @@ def main(argv=None):
         models, tokenize, size = build_real(args)
         default_steps = args.default_steps
 
-    pipe = StableDiffusionXLPEAPipeline(models, args.sampler)
+    if args.quant != "none":
+        from ..quant import quantize_for_serving
+
+        models = quantize_for_serving(models, tokenize([args.calib_prompt]), tokenize([""]),
+                                      size, ranges_path=args.calib_ranges,
+                                      conv_quant=args.quant)
+    pipe = StableDiffusionXLPEAPipeline(models, args.sampler, aot_dir=args.aot_cache)
     engine = BatchingEngine(pipe, tokenize, size, max_batch=max(1, args.max_batch),
                             window_ms=args.batch_window_ms)
     srv = make_server(engine, args.port, default_steps)

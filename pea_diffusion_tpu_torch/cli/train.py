@@ -48,6 +48,7 @@ import torch
 # --model's choices, with the (micro-batch, image side) of --demo-full: bench_train.py's SDXL operating
 # point; the reference's SD1.5 one (train_sd_zh.py, 40 per GPU at 512²)
 DEMO_FULL_DEFAULTS = {"sdxl": (10, 640), "sd15": (40, 512)}
+REAL_BATCH = 10  # the real mode's rows per step, the JAX CLI's default
 
 
 def build_demo(device="cuda", batch_size: int = 2, seed: int = 0, model: str = "sdxl"):
@@ -231,7 +232,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None,
                     help="rows per step (default: 2 for --demo; for --demo-full 10 "
-                         "for sdxl, 40 for sd15)")
+                         "for sdxl, 40 for sd15; 10 in the real mode)")
     ap.add_argument("--size", type=int, default=None,
                     help="--demo-full image size (default: 640 for sdxl, 512 for sd15)")
     ap.add_argument("--output", default="./checkpoints")
@@ -279,8 +280,8 @@ def main(argv=None):
     from ..configs.train import TrainConfig
     from ..train.trainer import KDTrainer
 
-    if real_mode:
-        batch = args.batch_size or DEMO_FULL_DEFAULTS["sdxl"][0]
+    if real_mode:  # build_real reads args.batch_size: resolve it first
+        batch = args.batch_size = args.batch_size or REAL_BATCH
         models, make_batches = build_real(args)
     elif args.demo:
         batch = args.batch_size or 2

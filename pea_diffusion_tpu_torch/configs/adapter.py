@@ -28,6 +28,24 @@ class AdapterConfig:
     use_residual: bool = False
     layernorm_eps: float = 1e-5
 
+    @property
+    def pooled_dim(self) -> Optional[int]:
+        return self.projector_dims[-1] if self.head_dim is not None else None
+
+    @property
+    def seq_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.projector_dims[-1]
+
+    def param_count(self) -> int:
+        n = 2 * self.in_dim  # LayerNorm weight + bias
+        prev = self.in_dim
+        for d in self.projector_dims:
+            n += prev * d + (d if self.projector_bias else 0)
+            prev = d
+        if self.head_dim is not None:
+            n += prev * self.head_dim + self.head_dim
+        return n
+
 
 ADAPTER_PRESETS = {
     # SDXL "MLP_plus" variants: (pooled 1280, seq 2048)

@@ -23,6 +23,7 @@ from torch import nn
 from ..ops import onepass_attention
 from ..ops.attention import dot_product_attention, use_flash, xla_attention_bshd
 from ..ops.groupnorm import fused_gn_applicable, fused_group_norm, group_norm
+from ..quant.int8 import make_conv, parse_scopes
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -80,20 +81,24 @@ class GroupNorm(nn.Module):
 class ResnetBlock2D(nn.Module):
     """GN-silu-conv x2 with timestep bias and 1x1 shortcut (diffusers
     ResnetBlock2D, output_scale_factor=1). `temb_channels=None` (the VAE)
-    has no time projection."""
+    has no time projection. `conv_quant` ("int8:<scopes>", quant/int8.py)
+    makes the two 3x3s int8 under the "resnet" scope and the shortcut under
+    "shortcut"; the norms and the time projection stay float."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: Optional[int] = None,
-                 norm_num_groups: int = 32, eps: float = 1e-5):
+                 norm_num_groups: int = 32, eps: float = 1e-5, conv_quant: str = "none"):
         super().__init__()
+        scopes = parse_scopes(conv_quant)
         self.norm1 = GroupNorm(in_channels, norm_num_groups, eps, act="silu")
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = make_conv(in_channels, out_channels, 3, quantized="resnet" in scopes)
         self.time_emb_proj = (None if temb_channels is None
                               else nn.Linear(temb_channels, out_channels))
         self.norm2 = GroupNorm(out_channels, norm_num_groups, eps, act="silu")
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = make_conv(out_channels, out_channels, 3, quantized="resnet" in scopes)
         self.conv_shortcut = (None if in_channels == out_channels
-                              else nn.Conv2d(in_channels, out_channels, 1))
+                              else make_conv(in_channels, out_channels, 1,
+                                             quantized="shortcut" in scopes))
 
     def forward(self, x, temb: Optional[torch.Tensor] = None):
         h = self.conv1(self.norm1(x))
@@ -107,22 +112,25 @@ class ResnetBlock2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """3x3 stride-2 conv with symmetric padding 1 (the JAX package's form)."""
+    """3x3 stride-2 conv with symmetric padding 1 (the JAX package's form),
+    int8 under the "sampler" scope."""
 
-    def __init__(self, channels: int, out_channels: int):
+    def __init__(self, channels: int, out_channels: int, conv_quant: str = "none"):
         super().__init__()
-        self.conv = nn.Conv2d(channels, out_channels, 3, stride=2, padding=1)
+        self.conv = make_conv(channels, out_channels, 3, stride=2,
+                              quantized="sampler" in parse_scopes(conv_quant))
 
     def forward(self, x):
         return self.conv(x)
 
 
 class Upsample2D(nn.Module):
-    """Nearest x2 then a 3x3 conv."""
+    """Nearest x2 then a 3x3 conv, int8 under the "sampler" scope."""
 
-    def __init__(self, channels: int, out_channels: int):
+    def __init__(self, channels: int, out_channels: int, conv_quant: str = "none"):
         super().__init__()
-        self.conv = nn.Conv2d(channels, out_channels, 3, padding=1)
+        self.conv = make_conv(channels, out_channels, 3,
+                              quantized="sampler" in parse_scopes(conv_quant))
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))

@@ -25,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.unet import UNetConfig
+from ..quant.int8 import make_conv, parse_scopes
 from .layers import (Downsample2D, GroupNorm, ResnetBlock2D, TimestepEmbedding,
                      Transformer2D, Upsample2D, timestep_embedding)
 
@@ -72,7 +73,7 @@ def _transformer(cfg: UNetConfig, channels: int, block_idx: int, depth: int,
                          cfg.norm_num_groups, cfg.use_linear_projection, attn_backend)
 
 
-def down_and_mid_blocks(cfg: UNetConfig, attn_backend: str = "auto"):
+def down_and_mid_blocks(cfg: UNetConfig, attn_backend: str = "auto", conv_quant: str = "none"):
     """The down blocks and the mid block of a UNet (a ControlNet builds the
     same), and the channels of every skip the down path leaves."""
     c0 = cfg.block_out_channels[0]
@@ -85,21 +86,21 @@ def down_and_mid_blocks(cfg: UNetConfig, attn_backend: str = "auto"):
         depths = cfg.down_block_layers(i)
         resnets, attns = [], []
         for j in range(cfg.layers_per_block):
-            resnets.append(ResnetBlock2D(ch, out_ch, time_dim, groups))
+            resnets.append(ResnetBlock2D(ch, out_ch, time_dim, groups, conv_quant=conv_quant))
             ch = out_ch
             skip_channels.append(ch)
         if _block_depths(depths, f"down block {i}"):
             attns = [_transformer(cfg, out_ch, i, d, attn_backend) for d in depths]
         down = None
         if i < cfg.num_blocks - 1:
-            down = Downsample2D(out_ch, out_ch)
+            down = Downsample2D(out_ch, out_ch, conv_quant)
             skip_channels.append(ch)
         down_blocks.append(UNetBlock(resnets, attns, downsample=down))
 
     mid_ch = cfg.block_out_channels[-1]
     mid_block = UNetBlock(
-        [ResnetBlock2D(mid_ch, mid_ch, time_dim, groups),
-         ResnetBlock2D(mid_ch, mid_ch, time_dim, groups)],
+        [ResnetBlock2D(mid_ch, mid_ch, time_dim, groups, conv_quant=conv_quant),
+         ResnetBlock2D(mid_ch, mid_ch, time_dim, groups, conv_quant=conv_quant)],
         [_transformer(cfg, mid_ch, cfg.num_blocks - 1, cfg.mid_transformer_layers,
                       attn_backend)]
         if cfg.mid_transformer_layers > 0 else None)
@@ -188,20 +189,27 @@ def run_mid_block(mid: UNetBlock, h: torch.Tensor, temb: torch.Tensor,
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, config: UNetConfig, attn_backend: str = "auto"):
+    """`conv_quant` ("none", "int8" or "int8:<scopes>", quant/int8.py) puts
+    the in-scope convs on the int8 path: the resnets' (and shortcuts'),
+    the samplers' and, under "stem", conv_in; conv_out always stays float."""
+
+    def __init__(self, config: UNetConfig, attn_backend: str = "auto",
+                 conv_quant: str = "none"):
         super().__init__()
         cfg = self.config = config
+        self.attn_backend, self.conv_quant = attn_backend, conv_quant
         c0 = cfg.block_out_channels[0]
         time_dim = c0 * 4
         groups = cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1)
+        self.conv_in = make_conv(cfg.in_channels, c0, 3,
+                                 quantized="stem" in parse_scopes(conv_quant))
         self.time_embedding = TimestepEmbedding(c0, time_dim)
         if cfg.addition_embed_type == "text_time":
             self.add_embedding = TimestepEmbedding(
                 cfg.projection_class_embeddings_input_dim, time_dim)
 
         self.down_blocks, self.mid_block, skip_channels = down_and_mid_blocks(
-            cfg, attn_backend)
+            cfg, attn_backend, conv_quant)
         ch = cfg.block_out_channels[-1]
 
         self.up_blocks = nn.ModuleList()
@@ -210,12 +218,12 @@ class UNet2DCondition(nn.Module):
             resnets, attns = [], []
             for j in range(cfg.layers_per_block + 1):
                 resnets.append(ResnetBlock2D(ch + skip_channels.pop(), out_ch,
-                                             time_dim, groups))
+                                             time_dim, groups, conv_quant=conv_quant))
                 ch = out_ch
             if _block_depths(depths, f"up block {i}"):
                 attns = [_transformer(cfg, out_ch, cfg.num_blocks - 1 - i, d, attn_backend)
                          for d in depths]
-            up = Upsample2D(out_ch, out_ch) if i < cfg.num_blocks - 1 else None
+            up = Upsample2D(out_ch, out_ch, conv_quant) if i < cfg.num_blocks - 1 else None
             self.up_blocks.append(UNetBlock(resnets, attns, upsample=up))
 
         self.conv_norm_out = GroupNorm(ch, groups, 1e-5)
@@ -230,7 +238,7 @@ class UNet2DCondition(nn.Module):
         """sample [B, H, W, C_in] NHWC, timesteps [B] or scalar,
         encoder_hidden_states [B, T, cross_attention_dim], added_cond (SDXL)
         {"text_embeds": [B, P], "time_ids": [B, 6]} -> [B, H, W, C_out]."""
-        dtype = self.conv_in.weight.dtype
+        dtype = self.time_embedding.linear_1.weight.dtype
         temb = embed_time(self, self.config, timesteps, sample.shape[0], added_cond, dtype)
         context = encoder_hidden_states.to(dtype)
         features: Optional[Dict[str, torch.Tensor]] = {} if capture_features else None

@@ -30,9 +30,9 @@ class VAEAttention(MultiHeadAttention):
         return h + _nchw(x.reshape(b, hh, ww, c))
 
 
-def _mid_block(channels: int, groups: int) -> UNetBlock:
-    return UNetBlock([ResnetBlock2D(channels, channels, None, groups),
-                      ResnetBlock2D(channels, channels, None, groups)],
+def _mid_block(channels: int, groups: int, conv_quant: str = "none") -> UNetBlock:
+    return UNetBlock([ResnetBlock2D(channels, channels, None, groups, conv_quant=conv_quant),
+                      ResnetBlock2D(channels, channels, None, groups, conv_quant=conv_quant)],
                      [VAEAttention(channels, groups)])
 
 
@@ -70,19 +70,23 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: VAEConfig):
+    """`conv_quant` ("int8:<scopes>", quant/int8.py) puts the resnet,
+    shortcut and upsampler convs on the int8 path (the serving "vae"
+    scope); conv_in, conv_out and the mid attention stay float."""
+
+    def __init__(self, cfg: VAEConfig, conv_quant: str = "none"):
         super().__init__()
         rev, groups = tuple(reversed(cfg.block_out_channels)), cfg.norm_num_groups
         self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
-        self.mid_block = _mid_block(rev[0], groups)
+        self.mid_block = _mid_block(rev[0], groups, conv_quant)
         self.up_blocks = nn.ModuleList()
         ch = rev[0]
         for i, out_ch in enumerate(rev):
             resnets = []
             for _ in range(cfg.layers_per_block + 1):
-                resnets.append(ResnetBlock2D(ch, out_ch, None, groups))
+                resnets.append(ResnetBlock2D(ch, out_ch, None, groups, conv_quant=conv_quant))
                 ch = out_ch
-            up = Upsample2D(ch, ch) if i < len(rev) - 1 else None
+            up = Upsample2D(ch, ch, conv_quant) if i < len(rev) - 1 else None
             self.up_blocks.append(UNetBlock(resnets, upsample=up))
         self.conv_norm_out = GroupNorm(ch, groups, 1e-6)
         self.conv_out = nn.Conv2d(ch, cfg.out_channels, 3, padding=1)
@@ -98,11 +102,14 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    def __init__(self, config: VAEConfig):
+    """`conv_quant` applies to the decoder only (the serving path); the
+    encoder always stays float."""
+
+    def __init__(self, config: VAEConfig, conv_quant: str = "none"):
         super().__init__()
-        self.config = config
+        self.config, self.conv_quant = config, conv_quant
         self.encoder = Encoder(config)
-        self.decoder = Decoder(config)
+        self.decoder = Decoder(config, conv_quant)
         lat = config.latent_channels
         self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1)
         self.post_quant_conv = nn.Conv2d(lat, lat, 1)

@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -31,6 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 TENSOR_MAP_ERROR = 1000
 
 _functions: Dict[str, Callable[..., int]] = {}
+# The library this process loaded: every later symbol comes from it, wherever
+# the compile cache points afterwards (utils/startup.py).
+_library: Optional[ctypes.CDLL] = None
 
 
 def _nvcc() -> str:
@@ -95,10 +98,13 @@ def build() -> str:
 
 def function(symbol: str, argtypes: Sequence, restype=ctypes.c_int) -> Callable:
     """The C function `symbol` of the library, built and loaded on first use."""
+    global _library
     fn = _functions.get(symbol)
     if fn is None:
-        build()
-        fn = getattr(ctypes.CDLL(str(library_path())), symbol)
+        if _library is None:
+            build()
+            _library = ctypes.CDLL(str(library_path()))
+        fn = getattr(_library, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = restype
         _functions[symbol] = fn

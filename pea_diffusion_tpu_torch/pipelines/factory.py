@@ -36,6 +36,7 @@ from ..models.layers import GroupNorm, LayerNormFP32
 from ..models.mt5 import T5Encoder, T5LayerNorm
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
+from ..quant.int8 import QConvInt8
 from ..schedulers import SDXL_SCHEDULE, NoiseScheduleConfig
 from .text2image import PEAModels
 
@@ -91,6 +92,8 @@ def _materialize(module: nn.Module, dtype: torch.dtype, device: torch.device,
                 p.zero_()
             else:
                 p.normal_(0.0, 0.02, generator=gen)
+        if isinstance(mod, QConvInt8):
+            mod.reset_buffers()
     return module.eval().requires_grad_(False)
 
 
@@ -121,15 +124,18 @@ def build_models(*, family: str, text_cfg: TextConfig,
                  dtype: torch.dtype = torch.bfloat16,
                  vae_dtype: torch.dtype = torch.float32,
                  adapter_dtype: Optional[torch.dtype] = None,
-                 device="cuda", seed: int = 0) -> PEAModels:
+                 device="cuda", seed: int = 0, conv_quant: str = "none") -> PEAModels:
     """The text tower and UNet hold `dtype` weights, the VAE `vae_dtype`;
     the adapter keeps fp32 weights and computes in `adapter_dtype` (by
-    default `dtype`)."""
+    default `dtype`). `conv_quant` builds the UNet's in-scope convs int8
+    (quant/int8.py), holding zero codes until quantized weights load
+    (``quant.quantize_unet_params``, or ``quant.quantize_for_serving`` on a
+    float stack)."""
     device = resolve_device(device)
     with torch.device("meta"):
         text, text_fn = make_text_encoder_fn(family, text_cfg)
         adapter = PEAAdapter(adapter_cfg, dtype=adapter_dtype or dtype)
-        unet = UNet2DCondition(unet_cfg)
+        unet = UNet2DCondition(unet_cfg, conv_quant=conv_quant)
         vae = AutoencoderKL(vae_cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     return PEAModels(

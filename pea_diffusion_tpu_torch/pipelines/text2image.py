@@ -14,6 +14,7 @@ Generation runs under ``torch.inference_mode()``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -226,7 +227,8 @@ def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
                   original_size=None, crops_coords_top_left=(0, 0),
                   target_size=None, do_cfg: Optional[bool] = None,
                   denoising_end: Optional[float] = None,
-                  init_noise=None, step_noise=None) -> torch.Tensor:
+                  init_noise=None, step_noise=None, split_decode: bool = False,
+                  decode_chunk: int = 0) -> torch.Tensor:
     """ids, uncond_ids [B, T] -> images [B, height, width, 3] in [0, 1]; with
     `denoising_end`, the undecoded latents [B, H/8, W/8, 4] after the steps
     whose timesteps lie at or above its cutoff (the base half of the
@@ -238,7 +240,13 @@ def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
     [B, H/8, W/8, 4] replaces the initial latents drawn from `generator`,
     and `step_noise` [steps, B, H/8, W/8, 4] the draws of a stochastic
     sampler's steps, which otherwise come from `generator` after the
-    initial latents."""
+    initial latents.
+
+    `decode_chunk` > 0 decodes `decode_chunk` rows at a time
+    (`decode_latents`): the int8 "vae" scope's full-size serving needs it,
+    its im2col being ~1.2 GB a 1024² image. `split_decode` is the JAX
+    package's switch to compile the denoise loop and the decode as two
+    programs; eager always runs them apart, so it changes nothing here."""
     device = models.device
     if do_cfg is None:
         do_cfg = bool(np.max(np.asarray(guidance_scale)) > 1.0)
@@ -274,7 +282,7 @@ def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
         latents = denoise_loop(eps_fn, sampler, noise, generator, step_noise, end=end)
         if denoising_end is not None:
             return latents
-        return decode_latents(models, latents)
+        return decode_latents(models, latents, chunk=decode_chunk)
 
 
 def refine_sdxl(models: PEAModels, ids, uncond_ids, latents, *,
@@ -361,10 +369,42 @@ class StableDiffusionPEAPipeline:
 class StableDiffusionXLPEAPipeline:
     """SDXL + PEA adapter (pooled 1280 + seq 2048). Calling it returns the
     images as a [B, H, W, 3] tensor in [0, 1]; `to_pil` turns them into
-    PIL images."""
+    PIL images.
 
-    def __init__(self, models: PEAModels, sampler_name: str = "dpm++"):
+    `aot_dir` (``--aot-cache``) keeps the compiled libraries under that
+    directory, keyed by the sources and the card (utils/startup.py's
+    `AOTCache`), so that a restarted process builds nothing."""
+
+    def __init__(self, models: PEAModels, sampler_name: str = "dpm++",
+                 aot_dir: Optional[str] = None):
         self.models, self.sampler_name = models, sampler_name
+        self._aot = None
+        if aot_dir is not None:
+            from ..utils.startup import AOTCache
+
+            self._aot = AOTCache(aot_dir)
+
+    def prefetch(self, batch: int, seq_len: int, *, height: int = 1024, width: int = 1024,
+                 num_steps: int = 30) -> tuple:
+        """Loads the kernel library (building it if it is not cached) and
+        resolves every launcher that a request of `batch` prompts of
+        `seq_len` tokens at height x width calls, from shapes alone: the
+        weights may still be on their way (`device_put_streamed`). Returns
+        the launchers' names; on a CPU pipeline, where no kernel runs, it
+        does nothing and returns (). `batch` and `num_steps` change no
+        launcher; they name the operating point as the JAX package's do."""
+        del batch, num_steps
+        if self.models.device.type != "cuda":
+            return ()
+        from ..ops import kernel_build
+        from ..utils.startup import launcher_symbols, unet_attention_routes
+
+        routes = unet_attention_routes(self.models.unet, height // 8, width // 8, seq_len)
+        fused_gn = os.environ.get("PEA_FUSED_GROUPNORM") == "1"  # the layers' opt-in
+        symbols = launcher_symbols(routes, fused_gn)
+        for name, argtypes in symbols.items():  # the first one loads (or builds) the library
+            kernel_build.function(name, argtypes)
+        return tuple(symbols)
 
     def __call__(self, ids, uncond_ids, *, height=1024, width=1024,
                  num_steps=30, guidance_scale=7.5, guidance_rescale=0.0,

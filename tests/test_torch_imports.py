@@ -48,6 +48,8 @@ def test_guard_catches_the_jax_package_but_not_the_port():
                                     "utils/metrics.py", "train/trainer.py", "train/kd.py",
                                     "cli/train.py", "cli/serve.py", "cli/evaluate.py",
                                     "models/clip_vision.py", "utils/fid.py",
-                                    "tools/bench_serve.py"])
+                                    "tools/bench_serve.py", "utils/startup.py",
+                                    "quant/__init__.py", "quant/int8.py",
+                                    "tools/bench_startup.py"])
 def test_the_guard_covers_the_data_and_training_modules(module):
     assert REPO / "pea_diffusion_tpu_torch" / module in SOURCES

@@ -17,6 +17,9 @@ gives the bits it gives on the CPU. The data pipeline's prefetcher copies
 pinned host batches to the card on a side stream, in order, values intact.
 The serving engine co-batches two requests into one call of the tiny stack
 on the card, within 1 uint8 level of the same engine on the CPU.
+The int8 convolution's product (torch._int_mm over an im2col, K and N
+padded with zeros, rows padded past 16) gives its float64 plain version's
+int32 sums exactly, and QConvInt8 on the card gives the CPU's bits.
 
 This file imports neither JAX nor the JAX package, so it runs where the
 card is, without the repository's conftest:
@@ -701,3 +704,39 @@ def test_serving_engine_cobatches_on_card():
     for got, want in zip(images["cuda"], images["cpu"]):
         assert got.shape == (16, 16, 3)
         assert np.abs(got - want).max() <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,cin,cout,side,k,stride", [
+    (2, 320, 320, 32, 3, 1),
+    (2, 320, 640, 32, 3, 2),
+    (1, 4, 320, 16, 3, 1),    # the stem: K = 9 * 4 = 36, padded with zero codes to 40
+    (1, 12, 20, 3, 3, 1),     # 9 rows (below _int_mm's 17) and N = 20 (not a multiple of 8)
+    (2, 640, 1280, 16, 1, 1),  # a shortcut
+])
+def test_int8_conv_matches_its_plain_version_on_card(b, cin, cout, side, k, stride):
+    """The int8 product (torch._int_mm over the im2col) gives the int32
+    sums of its float64 plain version exactly, and QConvInt8 on the card
+    gives the CPU's bits."""
+    from pea_diffusion_tpu_torch.quant.int8 import QConvInt8, int8_conv, int8_conv_plain
+
+    dev = _card()
+    g = torch.Generator().manual_seed(b * cin + k)
+    xq = torch.randint(-127, 128, (b, cin, side, side), generator=g, dtype=torch.int8)
+    kq = torch.randint(-127, 128, (cout, cin, k, k), generator=g, dtype=torch.int8)
+    for layout in (torch.contiguous_format, torch.channels_last):
+        x = xq.to(dev).contiguous(memory_format=layout)
+        got = int8_conv(x, kq.to(dev), (stride, stride))
+        want = int8_conv_plain(x, kq.to(dev), (stride, stride))
+        assert got.dtype == torch.int32 and torch.equal(got.double(), want)
+        assert torch.equal(got.cpu(), int8_conv(xq, kq, (stride, stride)))
+    conv = QConvInt8(cin, cout, k, stride)
+    with torch.no_grad():
+        conv.kernel_q.copy_(kq)
+        conv.w_scale.copy_(torch.rand(cout, generator=g) * 1e-3 + 1e-4)
+        conv.x_scale.fill_(0.02)
+        conv.bias.copy_(torch.randn(cout, generator=g))
+    xf = torch.randn(b, cin, side, side, generator=g)
+    want = conv(xf)
+    got = conv.to(dev)(xf.to(dev))
+    assert torch.equal(got.cpu(), want)

@@ -73,6 +73,19 @@ def test_configs_are_copies_of_the_jax_presets():
 
 
 @pytest.mark.parametrize("preset", sorted(ADAPTER_PRESETS))
+def test_adapter_config_dims_and_count_match_jax(preset):
+    """pooled_dim, seq_dim and param_count at every preset are the JAX
+    config's, and param_count is the port module's parameter count."""
+    from pea_diffusion_tpu_torch.models.adapter import PEAAdapter
+
+    mine, theirs = ADAPTER_PRESETS[preset], jax_adapter_cfg.ADAPTER_PRESETS[preset]
+    assert (mine.pooled_dim, mine.seq_dim, mine.param_count()) == (
+        theirs.pooled_dim, theirs.seq_dim, theirs.param_count())
+    with torch.device("meta"):
+        assert sum(p.numel() for p in PEAAdapter(mine).parameters()) == mine.param_count()
+
+
+@pytest.mark.parametrize("preset", sorted(ADAPTER_PRESETS))
 def test_adapter_every_preset(preset):
     full = ADAPTER_PRESETS[preset]
     small = dict(in_dim=full.in_dim // 32,

@@ -250,3 +250,64 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the CUDA default succeeds here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_demo()
+
+
+def test_cli_int8_ranges_file_then_same_png(tmp_path, capsys):
+    """--quant int8 --calib-ranges PATH on --demo: the first run calibrates
+    and writes PATH, the second loads it and writes the same PNG bit for
+    bit (and --aot-cache and --no-compile-cache are taken)."""
+    from pea_diffusion_tpu_torch.data import native_reader
+    from pea_diffusion_tpu_torch.ops import kernel_build
+
+    ranges = tmp_path / "ranges.json"
+    base = ["--demo", "--device", "cpu", "--sampler", "ddim", "--steps", "2", "--size", "64",
+            "--quant", "int8", "--calib-ranges", str(ranges)]
+    build_dirs = kernel_build.BUILD_DIR, native_reader.BUILD_DIR
+    try:
+        main(base + ["-o", str(tmp_path / "a.png"), "--aot-cache", str(tmp_path / "aot")])
+        first = ranges.read_text()
+        main(base + ["-o", str(tmp_path / "b.png"), "--no-compile-cache"])
+    finally:
+        kernel_build.BUILD_DIR, native_reader.BUILD_DIR = build_dirs
+    assert ranges.read_text() == first and "down_0_resnet_0/conv1" in first
+    assert (tmp_path / "a.png").read_bytes() == (tmp_path / "b.png").read_bytes()
+    assert capsys.readouterr().out.count("wrote ") == 2
+
+
+def test_cli_repl_writes_an_image_a_prompt(tmp_path, monkeypatch, capsys):
+    """--repl: after -o, one image a prompt read from the input (out-1.png,
+    out-2.png), until an empty line; at the end of the input it stops too."""
+    from PIL import Image
+
+    for lines, want in ((["一只猫", "雪山", "", "never read"], 2), (["一只猫"], 1)):
+        feed = iter(lines)
+
+        def read(prompt):
+            try:
+                return next(feed)
+            except StopIteration:
+                raise EOFError from None
+
+        monkeypatch.setattr("builtins.input", read)
+        out = tmp_path / f"out{want}.png"
+        main(["--demo", "--device", "cpu", "--sampler", "ddim", "--steps", "1", "--size", "64",
+              "-o", str(out), "--repl"])
+        written = [out] + [tmp_path / f"out{want}-{i}.png" for i in range(1, want + 1)]
+        assert all(Image.open(p).size == (16, 16) for p in written)
+        assert not (tmp_path / f"out{want}-{want + 1}.png").exists()
+        assert capsys.readouterr().out.count("wrote ") == want + 1
+    if want == 1:
+        assert list(feed) == []
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--tp", "2"], "Queue A item 9 [A17]"),
+    (["--quant", "int8:bogus"], "unknown int8 scopes ['bogus']"),
+    (["--aot-cache", "c", "--no-compile-cache"], "give one"),
+    (["--quant", "int8", "--inpaint-image", "a.png", "--mask", "m.png"], "text-to-image only"),
+    (["--model", "sd15", "--quant", "int8"], "SDXL stack"),
+])
+def test_cli_refuses_tp_and_bad_quant(argv, message, capsys):
+    with pytest.raises(SystemExit) as exc:
+        main(["--demo", "--device", "cpu"] + argv)
+    assert exc.value.code == 2 and message in capsys.readouterr().err

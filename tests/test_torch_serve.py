@@ -12,6 +12,7 @@ import http.client
 import io
 import json
 import threading
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -343,11 +344,9 @@ def test_cli_real_mode_serves_a_model_directory(stacks, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--demo", "--aot-cache", "cache"], "Queue A item 8 [A19]"),
     (["--demo", "--tp", "2"], "Queue A item 9 [A17]"),
-    (["--demo", "--quant", "int8"], "Queue A item 10 [A18]"),
-    (["--demo", "--calib-prompt", "一只猫"], "--calib-prompt: int8 PTQ calibration"),
-    (["--demo", "--calib-ranges", "ranges.json"], "--calib-ranges: int8 PTQ calibration"),
+    (["--demo", "--quant", "int8:bogus"], "unknown int8 scopes ['bogus']"),
+    (["--demo", "--aot-cache", "cache", "--no-compile-cache"], "give one"),
     (["--text-encoder-dir", "te", "--adapter", "proj.bin"], "--model-dir required"),
 ])
 def test_cli_refuses_what_is_not_ported_and_real_mode_without_a_model(argv, message, capsys):
@@ -355,3 +354,56 @@ def test_cli_refuses_what_is_not_ported_and_real_mode_without_a_model(argv, mess
         serve.main(argv)
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case", ["aot-cache", "quant", "calib-prompt", "calib-ranges"])
+def test_cli_serves_int8_and_from_an_aot_cache(case, tmp_path, monkeypatch):
+    """The demo server starts with each start-up and int8 flag and answers
+    a request: --aot-cache points the kernel library's build under the
+    directory, --quant int8 quantizes the UNet's resnet convs, calibrated
+    on --calib-prompt (default: the JAX CLI's prompt), and --calib-ranges
+    writes the ranges file (with the VAE decoder's under the vae scope)."""
+    from pea_diffusion_tpu_torch.data import native_reader
+    from pea_diffusion_tpu_torch.ops import kernel_build
+    from pea_diffusion_tpu_torch import quant
+    from pea_diffusion_tpu_torch.quant import int8
+
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", kernel_build.BUILD_DIR)
+    monkeypatch.setattr(native_reader, "BUILD_DIR", native_reader.BUILD_DIR)
+    argv = {"aot-cache": ["--aot-cache", str(tmp_path / "aot")],
+            "quant": ["--quant", "int8"],
+            "calib-prompt": ["--quant", "int8", "--calib-prompt", "雪山"],
+            "calib-ranges": ["--quant", "int8:resnet,vae", "--calib-ranges",
+                             str(tmp_path / "ranges.json")]}[case]
+    calibrated, served = [], {}
+    quantize = quant.quantize_for_serving
+    monkeypatch.setattr(quant, "quantize_for_serving",
+                        lambda models, ids, *a, **k: calibrated.append(ids) or quantize(
+                            models, ids, *a, **k))
+
+    class Server:
+        def __init__(self, engine, port, default_steps):
+            served.update(engine=engine)
+
+        def serve_forever(self):
+            served["img"] = served["engine"].submit("一丁", "", 2, 7.5, 0.0, 3)
+
+        def server_close(self):
+            pass
+
+    monkeypatch.setattr(serve, "make_server", Server)
+    serve.main(["--demo", "--device", "cpu", "--sampler", "ddim", "--port", "0"] + argv)
+    assert served["img"].size == (64, 64) and served["img"].mode == "RGB"  # the demo's 256²
+    unet = served["engine"].pipe.models.unet
+    if case == "aot-cache":
+        assert not calibrated and unet.conv_quant == "none"
+        assert Path(kernel_build.BUILD_DIR).parent.parent == (tmp_path / "aot").resolve()
+        return
+    tokenize = served["engine"].tokenize
+    prompt = "雪山" if case == "calib-prompt" else "一只戴着帽子的可爱猫咪"
+    assert len(calibrated) == 1 and np.array_equal(calibrated[0], tokenize([prompt]))
+    assert unet.conv_quant == "int8:resnet"
+    if case == "calib-ranges":
+        ranges = json.loads((tmp_path / "ranges.json").read_text())
+        assert any(k.startswith("vae::") for k in ranges) and "down_0_resnet_0/conv1" in ranges
+        assert served["engine"].pipe.models.vae.conv_quant == int8.VAE_DECODER_CONV_QUANT

@@ -416,11 +416,10 @@ def _write_clip_tokenizer(directory):
         f.write("#version: 0.2\n")
 
 
-def _write_shards(root, n=18):
-    """Two shards, one image in each of the nine buckets (1.25x the
-    bucket's sides) a shard, parallel captions."""
-    sizes = [(560, 1120), (560, 1040), (640, 960), (720, 880), (800, 800), (880, 720),
-             (960, 640), (1040, 560), (1120, 560)]
+def _write_shards(root, sizes=((560, 1120), (560, 1040), (640, 960), (720, 880), (800, 800),
+                                (880, 720), (960, 640), (1040, 560), (1120, 560))):
+    """Two shards, an image of each of `sizes` a shard (by default one in
+    each of the nine buckets, 1.25x the bucket's sides), parallel captions."""
     for s in range(2):
         with tarfile.open(os.path.join(root, f"{s:05d}.tar"), "w") as tf:
             for i, (w, h) in enumerate(sizes):
@@ -440,11 +439,11 @@ def _write_shards(root, n=18):
     return os.path.join(root, "{00000..00001}.tar")
 
 
-def test_cli_real_mode_trains_from_shards_and_resumes(tmp_path, capsys, monkeypatch):
-    """--model-dir (a diffusers directory written here: the tiny SDXL UNet,
-    a VAE 8x down, two CLIP teachers with byte-level tokenizers), a
-    Chinese-CLIP tower directory, webdataset shards: 2 steps, then a rerun
-    to step 3 that resumes from the step-2 checkpoint."""
+def _real_mode_args(tmp_path, monkeypatch):
+    """The real mode's inputs written under tmp_path: a diffusers directory
+    (the tiny SDXL UNet, a VAE 8x down, two CLIP teachers with byte-level
+    tokenizers) and a Chinese-CLIP tower directory; returns the CLI's
+    arguments without --urls and --batch-size."""
     clip1 = CLIPTextConfig(**dict(CLIP1, vocab_size=514, max_position_embeddings=77,
                                   eos_token_id=513))
     clip2 = CLIPTextConfig(**dict(CLIP2, vocab_size=514, max_position_embeddings=77,
@@ -466,13 +465,20 @@ def test_cli_real_mode_trains_from_shards_and_resumes(tmp_path, capsys, monkeypa
     for name in ("tokenizer", "tokenizer_2"):
         _write_clip_tokenizer(os.path.join(model_dir, name))
     text_dir = dirs.write_text_dir(str(tmp_path / "cn_clip"), m.text_encoder.state_dict())
-    urls = _write_shards(str(tmp_path))
     monkeypatch.setitem(ADAPTER_PRESETS, "tiny", AdapterConfig(64, (96, 64), head_dim=64))
+    return ["--model-dir", model_dir, "--text-encoder-dir", text_dir, "--adapter-preset",
+            "tiny", "--num-workers", "2", "--max-length", "8", "--device", "cpu",
+            "--every-n-steps", "1", "--log-every", "1"]
+
+
+def test_cli_real_mode_trains_from_shards_and_resumes(tmp_path, capsys, monkeypatch):
+    """--model-dir (a diffusers directory written here: the tiny SDXL UNet,
+    a VAE 8x down, two CLIP teachers with byte-level tokenizers), a
+    Chinese-CLIP tower directory, webdataset shards: 2 steps, then a rerun
+    to step 3 that resumes from the step-2 checkpoint."""
     out = str(tmp_path / "run")
-    args = ["--model-dir", model_dir, "--text-encoder-dir", text_dir, "--adapter-preset",
-            "tiny", "--urls", urls, "--batch-size", "2", "--num-workers", "2",
-            "--max-length", "8", "--device", "cpu", "--every-n-steps", "1",
-            "--log-every", "1", "--output", out]
+    args = _real_mode_args(tmp_path, monkeypatch) + [
+        "--urls", _write_shards(str(tmp_path)), "--batch-size", "2", "--output", out]
     train_cli.main(args + ["--steps", "2"])
     text = capsys.readouterr().out
     assert "done at step 2" in text
@@ -483,6 +489,36 @@ def test_cli_real_mode_trains_from_shards_and_resumes(tmp_path, capsys, monkeypa
     recs = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
     assert [r["step"] for r in recs] == [1, 2, 3]
     assert all(np.isfinite(r["loss"]) for r in recs)
+
+
+def test_cli_real_mode_defaults_to_batches_of_10(tmp_path, monkeypatch):
+    """Without --batch-size the real mode batches 10 rows (the JAX CLI's
+    default), resolved before the data pipeline is built: twelve images of
+    one bucket, the trainer handed the stream and the config."""
+    from types import SimpleNamespace
+
+    from pea_diffusion_tpu_torch.train import trainer as trainer_mod
+
+    seen = {}
+
+    class Trainer:
+        def __init__(self, models, cfg, profile_window=None):
+            seen["batch_size"] = cfg.batch_size_per_device
+
+        def resume(self):
+            return 0
+
+        def fit(self, batches, max_steps=None):
+            seen["rows"] = next(iter(batches))["pixel_values"].shape[0]
+            return SimpleNamespace(step=0)
+
+    monkeypatch.setattr(trainer_mod, "KDTrainer", Trainer)
+    shards = tmp_path / "shards"
+    shards.mkdir()
+    urls = _write_shards(str(shards), sizes=[(800, 800)] * 6)
+    train_cli.main(_real_mode_args(tmp_path, monkeypatch) + [
+        "--urls", urls, "--steps", "1", "--output", str(tmp_path / "run")])
+    assert seen == {"batch_size": 10, "rows": 10}
 
 
 @pytest.mark.parametrize("argv,message", [
