@@ -22,7 +22,10 @@ checkpoints/  weights from disk: safetensors, diffusers/transformers
               directories, LoRA fusion, the reference adapter format; and
               the JAX parameter tree -> the port's state dicts
 utils/        the JSONL metric log
-cli/          the generate and train CLIs
+parallel/     multi-GPU: process-group start-up, the (data, fsdp) meshes
+              and FSDP2 rule for KD training, Megatron tensor parallelism
+              of the UNet for serving
+cli/          the generate, serve, train and evaluate CLIs
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; on the CPU each kernel wrapper runs its plain version.

@@ -43,6 +43,12 @@ text-to-image only. --repl then reads more prompts, one a line, and writes
 each image beside -o (out-1.png, out-2.png, ...) until an empty line or the
 end of the input.
 
+--tp N runs the UNet Megatron-sharded over N ranks (parallel/tp.py; text to
+image): launch it under ``torchrun --nproc-per-node N -m
+pea_diffusion_tpu_torch.cli.generate ... --tp N``. Every rank parses the
+same arguments and runs the same request; rank 0 alone writes the images,
+prints, and reads the --repl prompts, which it sends to the others.
+
 Usage:
   python -m pea_diffusion_tpu_torch.cli.generate --model-dir sdxl --text-encoder-dir cn-clip \
       --adapter proj_1000/pytorch_model.bin --lora lcm-lora.safetensors --sampler lcm \
@@ -68,6 +74,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def make_tokenizer(vocab_size: int, length: int):
@@ -243,14 +250,19 @@ def make_inpaint_run(args, models, size: int, steps: int):
     return run
 
 
-def check_serving_flags(ap, args):
-    """The argparse errors of the flags both CLIs share: --tp above 1 (not
-    ported), an unknown --quant scope, --aot-cache with --no-compile-cache."""
+def check_serving_flags(ap, args, cli: str = "generate"):
+    """The argparse errors of the flags both CLIs share: --tp N in a process
+    without N ranks (with how to launch it), an unknown --quant scope,
+    --aot-cache with --no-compile-cache."""
     from ..quant.int8 import parse_scopes
 
-    if args.tp > 1:
-        ap.error("--tp > 1: tensor parallelism (parallel/tp.py) is not ported yet "
-                 "(ROADMAP Queue A item 9 [A17])")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.tp < 1:
+        ap.error(f"--tp {args.tp}: the tensor-parallel degree is at least 1")
+    if args.tp > 1 and world != args.tp:
+        ap.error(f"--tp {args.tp} runs on {args.tp} ranks but this process has "
+                 f"WORLD_SIZE={world}: launch it with torchrun --nproc-per-node {args.tp} "
+                 f"-m pea_diffusion_tpu_torch.cli.{cli} ... --tp {args.tp}")
     try:
         parse_scopes(args.quant)
     except ValueError as e:
@@ -258,6 +270,28 @@ def check_serving_flags(ap, args):
     if args.aot_cache and args.no_compile_cache:
         ap.error("--aot-cache keeps the compiled library, --no-compile-cache builds it "
                  "anew: give one")
+
+
+def start_tp(args):
+    """--tp N above 1: joins the ranks' process group (torchrun's
+    environment) and returns the (1, N) tensor-parallel mesh; else None."""
+    if args.tp == 1:
+        return None
+    from ..parallel import initialize
+    from ..parallel.tp import make_tp_mesh
+
+    initialize(device=args.device)
+    return make_tp_mesh((1, args.tp))
+
+
+def shard_for_tp(models, mesh):
+    """`models` with the UNet cut to this rank's shard over `mesh` (None:
+    as they are)."""
+    if mesh is None:
+        return models
+    from ..parallel.tp import shard_bundle_for_tp
+
+    return shard_bundle_for_tp(models, mesh)
 
 
 def start_compile_cache(args):
@@ -350,8 +384,8 @@ def main(argv=None):
                      help="JSON of calibration ranges for --quant: read if it exists, "
                           "written otherwise")
     srv.add_argument("--tp", type=int, default=1,
-                     help="tensor-parallel degree (not ported yet: ROADMAP Queue A item 9 "
-                          "[A17]); only 1")
+                     help="tensor-parallel degree: the UNet Megatron-sharded over N ranks "
+                          "(launch under torchrun --nproc-per-node N; text to image)")
     args = ap.parse_args(argv)
     real_mode = not (args.demo or args.demo_full)
     if real_mode:
@@ -375,8 +409,10 @@ def main(argv=None):
         ap.error("ControlNet and inpaint modes take one tokenization: not --family mul_zh")
     check_serving_flags(ap, args)
     if (args.control_image or inpaint) and (args.aot_cache or args.quant != "none"
-                                            or args.calib_ranges):
-        ap.error("--aot-cache/--quant/--calib-ranges are text-to-image only")
+                                            or args.calib_ranges or args.tp > 1):
+        ap.error("--tp/--aot-cache/--quant/--calib-ranges are text-to-image only")
+    mesh = start_tp(args)
+    main_rank = mesh is None or dist.get_rank() == 0
     start_compile_cache(args)
 
     from ..pipelines.text2image import (StableDiffusionPEAPipeline,
@@ -414,11 +450,13 @@ def main(argv=None):
             models = quantize_for_serving(models, tokenize([args.prompt]),
                                           tokenize([args.negative_prompt]), size,
                                           ranges_path=args.calib_ranges, conv_quant=args.quant)
+        models = shard_for_tp(models, mesh)
         extra = {}
         if sd15:
             pipe = StableDiffusionPEAPipeline(models, args.sampler)
         else:
-            pipe = StableDiffusionXLPEAPipeline(models, args.sampler, aot_dir=args.aot_cache)
+            pipe = StableDiffusionXLPEAPipeline(models, args.sampler, aot_dir=args.aot_cache,
+                                                mesh=mesh)
             extra["guidance_rescale"] = args.guidance_rescale
 
         def images(prompt):
@@ -427,17 +465,29 @@ def main(argv=None):
                         seed=args.seed, **extra)
 
     def run(prompt, path):
-        to_pil(images(prompt))[0].save(path)
-        print(f"wrote {path}")
+        img = to_pil(images(prompt))[0]
+        if main_rank:
+            img.save(path)
+            print(f"wrote {path}")
+
+    def read_prompt():
+        prompt = ""
+        if main_rank:
+            try:
+                prompt = input("prompt> ").strip()
+            except EOFError:
+                pass
+        if mesh is not None:  # rank 0's line to every rank
+            box = [prompt]
+            dist.broadcast_object_list(box, src=0)
+            prompt = box[0]
+        return prompt
 
     run(args.prompt, args.output)
     stem, ext = os.path.splitext(args.output)
     n = 0
     while args.repl:
-        try:
-            prompt = input("prompt> ").strip()
-        except EOFError:
-            break
+        prompt = read_prompt()
         if not prompt:
             break
         n += 1

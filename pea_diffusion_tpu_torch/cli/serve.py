@@ -29,6 +29,22 @@ from or written to --calib-ranges (quant/int8.py). --aot-cache DIR keeps the
 compiled kernel library under DIR; --no-compile-cache builds it into a
 temporary directory; by default it is built into the checkout's build/
 (utils/startup.py).
+
+--tp N serves the UNet Megatron-sharded over N ranks (parallel/tp.py), under
+``torchrun --nproc-per-node N -m pea_diffusion_tpu_torch.cli.serve ... --tp
+N``. Rank 0 runs the HTTP server and the engine; for each engine call it
+broadcasts the call's spec (ids, guidance, steps, size and seeds) over a CPU
+gloo group, and the other ranks replay the call (the noise is numpy from
+the seeds, so every rank makes it) and drop the images, until ``close()``
+sends a stop; a barrier ends each call. A failure inside a call is fatal to
+the group, since the ranks' collectives are out of step after it: a
+follower that fails exits non-zero, and its closed connections fail rank
+0's pending collective at once; rank 0 then fails the call and every queued
+request, stops the server and exits non-zero, which in turn fails the
+pending collective of every follower still waiting. (A pending NCCL
+collective does not see a peer's exit; there torchrun, which launches the
+ranks, ends the others when one exits non-zero, and the collective's
+timeout, ``parallel.distributed.TIMEOUT``, bounds the wait.)
 """
 from __future__ import annotations
 
@@ -39,11 +55,64 @@ import queue
 import threading
 import time
 import traceback
+from typing import Optional
 from http.server import BaseHTTPRequestHandler, HTTPServer
 from socketserver import ThreadingMixIn
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+
+def request_noise(seed: int, n: int, latent: int) -> np.ndarray:
+    """A request's initial latents [n, latent, latent, 4] from its seed."""
+    rs = np.random.RandomState(seed & 0x7FFFFFFF)
+    return rs.standard_normal((n, latent, latent, 4)).astype(np.float32)
+
+
+def run_spec(pipe, spec: dict, size: int, latent: int):
+    """One engine call from its spec: {"ids", "uncond" (token ids), "steps",
+    "guidance", "rescale", "seeds": [(seed, rows), ...]}."""
+    noise = np.concatenate([request_noise(s, n, latent) for s, n in spec["seeds"]])
+    return pipe(spec["ids"], spec["uncond"], height=size, width=size,
+                num_steps=spec["steps"], guidance_scale=spec["guidance"],
+                guidance_rescale=spec["rescale"], init_noise=noise)
+
+
+class TPLink:
+    """The ranks' link for tensor-parallel serving: a CPU gloo group (made
+    by every rank, in the same order) that carries each call's spec from
+    rank 0 and the barrier that ends the call. An exception inside a call
+    leaves the ranks out of step: the caller ends the group (see the
+    module's docstring)."""
+
+    def __init__(self):
+        self.group = dist.new_group(backend="gloo")
+        self.calls = 0
+
+    def lead(self, run, spec: dict):
+        """Rank 0: sends `spec`, then runs the call with the others."""
+        dist.broadcast_object_list([spec], src=0, group=self.group)
+        out = run()
+        dist.barrier(group=self.group)
+        self.calls += 1
+        return out
+
+    def stop(self):
+        dist.broadcast_object_list([None], src=0, group=self.group)
+
+    def follow(self, run) -> int:
+        """A rank above 0: runs `run(spec)` for each spec rank 0 sends,
+        dropping the result, until the stop; returns the calls replayed.
+        An exception propagates: the caller exits."""
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self.group)
+            if box[0] is None:
+                return self.calls
+            run(box[0])
+            dist.barrier(group=self.group)
+            self.calls += 1
 
 
 class BatchingEngine:
@@ -54,17 +123,23 @@ class BatchingEngine:
     (under inference mode, on the pipeline's device). Only `steps` splits a
     drain cycle into separate calls; guidance and rescale are per-request [B]
     operands (``pipelines/text2image.py::cfg_combine``), so mixed-CFG
-    requests share one call. A uniform group passes scalars."""
+    requests share one call. A uniform group passes scalars.
+
+    Under tensor parallelism (`tp`) a failed call stops the engine: the
+    call's requests, the queued ones and every later submit get the error,
+    ``failed`` holds it and ``on_failure`` (if set) is called once."""
 
     def __init__(self, pipe, tokenize, size, max_batch=8, window_ms=150,
-                 latent_factor=8):
-        self.pipe, self.tokenize, self.size = pipe, tokenize, size
+                 latent_factor=8, tp: Optional[TPLink] = None):
+        self.pipe, self.tokenize, self.size, self.tp = pipe, tokenize, size, tp
         self.max_batch, self.window = max_batch, window_ms / 1000.0
         self.latent = size // latent_factor
         # /healthz "engine": pipeline calls against requests show co-batching
         self.stats = {"device_calls": 0, "requests_batched": 0,
                       "vector_cfg_calls": 0, "batch_hist": {}}
         self._lock = threading.Lock()
+        self.failed: Optional[str] = None
+        self.on_failure = None
         # the worker runs on the pipeline's card (a bare "cuda": the caller's)
         device = torch.device(getattr(getattr(pipe, "models", None), "device", "cpu"))
         self._cuda_index = None
@@ -77,8 +152,11 @@ class BatchingEngine:
 
     def submit(self, prompt, negative, steps, guidance, rescale, seed):
         done, slot = threading.Event(), {}
-        self.q.put(((steps, guidance, rescale),
-                    (prompt, negative, int(seed)), done, slot))
+        with self._lock:  # the queue takes nothing after a failure stopped the worker
+            if self.failed is not None:
+                raise RuntimeError(self.failed)
+            self.q.put(((steps, guidance, rescale),
+                        (prompt, negative, int(seed)), done, slot))
         done.wait()
         if "error" in slot:
             raise RuntimeError(slot["error"])
@@ -90,13 +168,19 @@ class BatchingEngine:
             return json.loads(json.dumps(self.stats))
 
     def close(self, timeout=None):
-        """Stops the worker after the requests queued before this call."""
+        """Stops the worker after the requests queued before this call (and
+        under tensor parallelism, the other ranks after it)."""
         self.q.put(None)
         self._thread.join(timeout)
+        if self.tp is not None and self.failed is None and not self._thread.is_alive():
+            self.tp.stop()
 
     def _noise(self, seed, n):
-        rs = np.random.RandomState(seed & 0x7FFFFFFF)
-        return rs.standard_normal((n, self.latent, self.latent, 4)).astype(np.float32)
+        return request_noise(seed, n, self.latent)
+
+    def run(self, spec: dict):
+        """One call of the pipeline from its spec (see `run_spec`)."""
+        return run_spec(self.pipe, spec, self.size, self.latent)
 
     def _worker(self):
         from ..pipelines.text2image import to_pil
@@ -132,6 +216,8 @@ class BatchingEngine:
         for item in batch:
             groups.setdefault(item[0][0], []).append(item)  # by steps
         for steps, items in groups.items():
+            if self.failed is not None:
+                break
             try:
                 n = len(items)
                 padded = 1 << (n - 1).bit_length()  # a power of two
@@ -139,20 +225,19 @@ class BatchingEngine:
                 negatives = [it[1][1] for it in items]
                 prompts += [prompts[0]] * (padded - n)
                 negatives += [negatives[0]] * (padded - n)
-                rows = [self._noise(it[1][2], 1) for it in items]
+                seeds = [(it[1][2], 1) for it in items]
                 if padded > n:
-                    rows.append(self._noise(0, padded - n))
-                noise = np.concatenate(rows)
+                    seeds.append((0, padded - n))
                 # pad rows reuse row 0's CFG, so do_cfg is unaffected
                 gs = [it[0][1] for it in items] + [items[0][0][1]] * (padded - n)
                 rs = [it[0][2] for it in items] + [items[0][0][2]] * (padded - n)
                 guidance = gs[0] if len(set(gs)) == 1 else np.asarray(gs, np.float32)
                 rescale = rs[0] if len(set(rs)) == 1 else np.asarray(rs, np.float32)
-                imgs = to_pil(self.pipe(
-                    self.tokenize(prompts), self.tokenize(negatives),
-                    height=self.size, width=self.size, num_steps=steps,
-                    guidance_scale=guidance, guidance_rescale=rescale,
-                    init_noise=noise))
+                spec = {"ids": self.tokenize(prompts), "uncond": self.tokenize(negatives),
+                        "steps": steps, "guidance": guidance, "rescale": rescale,
+                        "seeds": seeds}
+                imgs = to_pil(self.run(spec) if self.tp is None
+                              else self.tp.lead(lambda: self.run(spec), spec))
                 with self._lock:
                     st = self.stats
                     st["device_calls"] += 1
@@ -161,14 +246,38 @@ class BatchingEngine:
                     st["batch_hist"][str(n)] = st["batch_hist"].get(str(n), 0) + 1
                 for it, img in zip(items, imgs):
                     it[3]["img"] = img
-            except Exception as e:  # the worker keeps serving; every submitter hears
+            except Exception as e:  # every submitter hears; one process keeps serving
                 traceback.print_exc()
                 for it in items:
                     it[3]["error"] = f"{type(e).__name__}: {e}"
+                if self.tp is not None:
+                    with self._lock:
+                        self.failed = f"tensor-parallel serving stopped: {type(e).__name__}: {e}"
             finally:
                 for it in items:
                     it[2].set()
+        if self.failed is not None:
+            self._stop_after_failure(batch)
+            return False
         return not stop
+
+    def _stop_after_failure(self, batch):
+        """Fails the drain cycle's unanswered requests and the queued ones,
+        then calls on_failure."""
+        left = [it for it in batch if not it[2].is_set()]
+        with self._lock:
+            while True:
+                try:
+                    item = self.q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is not None:
+                    left.append(item)
+        for it in left:
+            it[3]["error"] = self.failed
+            it[2].set()
+        if self.on_failure is not None:
+            self.on_failure()
 
 
 class _ThreadingHTTPServer(ThreadingMixIn, HTTPServer):
@@ -275,14 +384,14 @@ def main(argv=None):
                     help="JSON calibration-ranges cache for --quant: read if it exists, "
                          "written otherwise")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (not ported yet: ROADMAP Queue A item 9 "
-                         "[A17]); only 1")
+                    help="tensor-parallel degree: the UNet Megatron-sharded over N ranks "
+                         "(launch under torchrun --nproc-per-node N)")
     ap.add_argument("--batch-window-ms", type=int, default=150,
                     help="how long the batcher waits to fill a batch")
     args = ap.parse_args(argv)
     from .generate import check_serving_flags
 
-    check_serving_flags(ap, args)
+    check_serving_flags(ap, args, "serve")
     real_mode = not (args.demo or args.demo_full)
     if real_mode:
         for req in ("model_dir", "text_encoder_dir", "adapter"):
@@ -290,8 +399,10 @@ def main(argv=None):
                 ap.error(f"--{req.replace('_', '-')} required without --demo/--demo-full")
 
     from ..pipelines.text2image import StableDiffusionXLPEAPipeline
-    from .generate import build_demo, build_demo_full, build_real, start_compile_cache
+    from .generate import (build_demo, build_demo_full, build_real, shard_for_tp,
+                           start_compile_cache, start_tp)
 
+    mesh = start_tp(args)
     start_compile_cache(args)
     if args.demo_full:
         models, tokenize, size = build_demo_full(args.device)
@@ -313,10 +424,20 @@ def main(argv=None):
         models = quantize_for_serving(models, tokenize([args.calib_prompt]), tokenize([""]),
                                       size, ranges_path=args.calib_ranges,
                                       conv_quant=args.quant)
-    pipe = StableDiffusionXLPEAPipeline(models, args.sampler, aot_dir=args.aot_cache)
+    models = shard_for_tp(models, mesh)
+    pipe = StableDiffusionXLPEAPipeline(models, args.sampler, aot_dir=args.aot_cache,
+                                        mesh=mesh)
+    tp = TPLink() if mesh is not None else None
+    if tp is not None and dist.get_rank() != 0:
+        with torch.inference_mode():  # an error ends this process (see the docstring)
+            calls = tp.follow(lambda spec: run_spec(pipe, spec, size, size // 8))
+        print(f"rank {dist.get_rank()}: replayed {calls} calls", flush=True)
+        return
     engine = BatchingEngine(pipe, tokenize, size, max_batch=max(1, args.max_batch),
-                            window_ms=args.batch_window_ms)
+                            window_ms=args.batch_window_ms, tp=tp)
     srv = make_server(engine, args.port, default_steps)
+    # shutdown() waits for serve_forever, so not on the engine's thread
+    engine.on_failure = lambda: threading.Thread(target=srv.shutdown, daemon=True).start()
     print(f"serving on :{args.port} (size={size}, sampler={args.sampler}, "
           f"max_batch={args.max_batch}, device={models.device})", flush=True)
     try:
@@ -324,6 +445,8 @@ def main(argv=None):
     finally:
         srv.server_close()
         engine.close(timeout=60)
+    if engine.failed is not None:
+        raise SystemExit(engine.failed)
 
 
 if __name__ == "__main__":

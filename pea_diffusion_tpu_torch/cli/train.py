@@ -28,6 +28,16 @@ tower directories, through transformers), optional --lora files fused into
 the UNet and the CLIP teachers. --profile START STOP traces steps
 [START, STOP) under <output>/trace.
 
+Several GPUs: under ``torchrun --nproc-per-node N`` (or with --coordinator
+HOST:PORT --num-processes N --process-id I on each process) the ranks join
+one process group first, then train over the (data, fsdp) mesh of
+TrainConfig.mesh_shape (every rank a data rank): --batch-size rows a data
+rank, the adapter gradient averaged over the data ranks (parallel/mesh.py;
+an fsdp size above 1, set through TrainConfig in code, shards the frozen
+UNet). The demo streams make the global batch on every
+rank and each keeps its rows; in the real mode each rank reads its own
+shards.
+
 Usage:
   python -m pea_diffusion_tpu_torch.cli.train --demo --device cpu --steps 2 --output run
   python -m pea_diffusion_tpu_torch.cli.train --demo-full --steps 3 --output run
@@ -35,11 +45,14 @@ Usage:
   python -m pea_diffusion_tpu_torch.cli.train --model-dir sdxl --text-encoder-dir cn-clip \
       --urls "/data/laion_zh/{00000..00999}.tar::/data/wukong/{00000..00499}.tar" \
       --batch-size 10 --output runs/sdxl_zh
+  torchrun --nproc-per-node 8 -m pea_diffusion_tpu_torch.cli.train --demo-full --steps 3 \
+      --output run
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -215,8 +228,11 @@ def build_real(args):
     def make_batches(start_step: int = 0):
         # made after the trainer's resume: start_step re-seeds the stream so
         # that a resumed run does not replay the consumed prefix
+        # a data rank reads its own shards (the ranks of one fsdp group, the same)
+        index, count = getattr(args, "data_shard", (None, None))
         return prefetch_to_device(make_train_iterator(
-            data_cfg, tokenize, teacher_tokenize, tokenize_zh, start_step=start_step), dev)
+            data_cfg, tokenize, teacher_tokenize, tokenize_zh, start_step=start_step,
+            process_index=index, process_count=count), dev)
 
     return models, make_batches
 
@@ -262,7 +278,22 @@ def main(argv=None):
     real.add_argument("--urls", nargs="+", default=[], help="webdataset shard urls")
     real.add_argument("--num-workers", type=int, default=2)
     real.add_argument("--max-length", type=int, default=52)
+    dist_args = ap.add_argument_group("several processes")
+    dist_args.add_argument("--coordinator", metavar="HOST:PORT",
+                           help="rank 0's address (without it: torchrun's environment)")
+    dist_args.add_argument("--num-processes", type=int)
+    dist_args.add_argument("--process-id", type=int)
     args = ap.parse_args(argv)
+    if args.coordinator and (args.num_processes is None or args.process_id is None):
+        ap.error("--coordinator needs --num-processes and --process-id")
+    from ..configs.train import TrainConfig
+
+    mesh = None
+    if args.coordinator or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from ..parallel import initialize, make_mesh
+
+        initialize(args.coordinator, args.num_processes, args.process_id, device=args.device)
+        mesh = make_mesh(TrainConfig.mesh_shape)
 
     real_mode = not (args.demo or args.demo_full)
     if real_mode:
@@ -277,20 +308,24 @@ def main(argv=None):
         if not args.urls:
             ap.error("--urls required without --demo")
 
-    from ..configs.train import TrainConfig
+    from ..parallel.distributed import is_main
+    from ..parallel.mesh import batch_shards
     from ..train.trainer import KDTrainer
 
+    # the demo streams make the global batch (every data rank's rows)
+    args.data_shard = (0, 1) if mesh is None else batch_shards(mesh)
+    n_data = args.data_shard[1]
     if real_mode:  # build_real reads args.batch_size: resolve it first
         batch = args.batch_size = args.batch_size or REAL_BATCH
         models, make_batches = build_real(args)
     elif args.demo:
         batch = args.batch_size or 2
-        models, make_batches = build_demo(args.device, batch, model=args.model)
+        models, make_batches = build_demo(args.device, batch * n_data, model=args.model)
     else:
         default_batch, default_size = DEMO_FULL_DEFAULTS[args.model]
         batch = args.batch_size or default_batch
-        models, make_batches = build_demo_full(args.device, batch, args.size or default_size,
-                                               model=args.model)
+        models, make_batches = build_demo_full(args.device, batch * n_data,
+                                               args.size or default_size, model=args.model)
     if args.resume_adapter:
         from ..checkpoints.orbax_io import import_adapter
 
@@ -306,10 +341,15 @@ def main(argv=None):
     elif args.demo_full:  # no warmup, so that the first update already moves the
         # adapter: warmup_steps=0 alone falls back to warmup_ratio * total_steps
         cfg = dataclasses.replace(cfg, warmup_steps=0, warmup_ratio=0.0)
-    trainer = KDTrainer(models, cfg, profile_window=tuple(args.profile) if args.profile else None)
+    # over a mesh, the real mode's batches are the rank's own (its shards)
+    over_mesh = {} if mesh is None else {"mesh": mesh, "local_batches": real_mode}
+    trainer = KDTrainer(models, cfg,
+                        profile_window=tuple(args.profile) if args.profile else None,
+                        **over_mesh)
     resumed = trainer.resume()
     state = trainer.fit(make_batches(resumed), max_steps=args.steps)
-    print(f"done at step {state.step}")
+    if is_main():
+        print(f"done at step {state.step}")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,6 @@
 """Training and data configuration (the port's own copy of the JAX
 package's ``configs/train.py``: ``TrainConfig`` and ``DataConfig``).
-Defaults reproduce the reference operating point. The JAX package's mesh
-field is left out: the port trains on one device (DDP/FSDP are ROADMAP
-Queue A item 17)."""
+Defaults reproduce the reference operating point."""
 from __future__ import annotations
 
 import dataclasses
@@ -47,6 +45,11 @@ class TrainConfig:
     output_dir: str = "./checkpoints"
     load_ckpt_path: Optional[str] = None
     load_ckpt_step: Optional[int] = None
+
+    # Parallelism: mesh axes (data, fsdp) over the process group's ranks
+    # (parallel/mesh.py). fsdp=1 replicates the frozen UNet; >1 shards the
+    # frozen weights (FSDP2) for memory headroom.
+    mesh_shape: Tuple[int, int] = (-1, 1)  # -1 = all remaining ranks
     log_every_n_steps: int = 100
 
 

@@ -246,6 +246,10 @@ class DevicePrefetcher:
 
     def __init__(self, it: Iterable, device, depth: int = 2):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the rank's own card (parallel.initialize makes it current): the
+            # producer thread's current card is card 0
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
@@ -320,7 +324,8 @@ class DevicePrefetcher:
 def prefetch_to_device(it, device="cuda", depth: int = 2) -> DevicePrefetcher:
     """Wrap a host batch iterator with asynchronous copies to `device` (the
     card unless the caller asks for the CPU; raises if a card is asked for
-    and there is none)."""
+    and there is none). A bare "cuda" is this rank's local card, the
+    current one."""
     from ..pipelines.factory import resolve_device
 
     return DevicePrefetcher(it, resolve_device(device), depth)

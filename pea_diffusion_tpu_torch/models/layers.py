@@ -10,6 +10,12 @@ convolutions run in the parameters' type.
 
 Numerics follow diffusers' SD-era blocks as the JAX package does (resnet GN
 eps 1e-5, transformer GN eps 1e-6, GEGLU feed-forward, exact-erf GELU).
+
+Tensor parallelism (parallel/tp.py): ``shard_bundle_for_tp`` cuts the
+weights of ``MultiHeadAttention``, ``FeedForward`` and ``ResnetBlock2D`` to
+a rank's shard and sets their ``tp_group``; each then ends in one
+``all_reduce`` of its partial result. A module with no group runs as it
+always did.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import onepass_attention
+from ..parallel.tp import reduce_partial
 from ..ops.attention import dot_product_attention, use_flash, xla_attention_bshd
 from ..ops.groupnorm import fused_gn_applicable, fused_group_norm, group_norm
 from ..quant.int8 import make_conv, parse_scopes
@@ -99,16 +106,63 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (None if in_channels == out_channels
                               else make_conv(in_channels, out_channels, 1,
                                              quantized="shortcut" in scopes))
+        # tensor parallelism: the group, and this rank's input channels of
+        # the shortcut (parallel/tp.py)
+        self.tp_group = None
+        self.tp_in = None
 
     def forward(self, x, temb: Optional[torch.Tensor] = None):
         h = self.conv1(self.norm1(x))
         t = None
         if temb is not None:
             t = self.time_emb_proj(F.silu(temb))
-        h = self.conv2(self.norm2(h, extra_bias=t))
+        h = self.norm2(h, extra_bias=t)
+        if self.tp_group is not None:
+            return self._tp_out(x, h)
+        h = self.conv2(h)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
+
+    def _tp_out(self, x, h):
+        """conv2 over this rank's channels `h` plus the shortcut over its
+        slice of `x`: one partial sum, one all_reduce, the biases after."""
+        y = conv_partial(self.conv2, h)
+        bias = self.conv2.bias.float()
+        if self.conv_shortcut is not None:
+            lo, hi = self.tp_in
+            y = y + conv_partial(self.conv_shortcut, x[:, lo:hi])
+            bias = bias + self.conv_shortcut.bias.float()
+        y = reduce_partial(y, self.tp_group) + bias[:, None, None]
+        if self.conv_shortcut is None:
+            y = y + x.float()
+        return y.to(h.dtype)
+
+
+def conv_partial(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A convolution's product without its bias, in fp32 (an input-sharded
+    conv's partial sum): an ``nn.Conv2d``'s (rounded to `x`'s type by the
+    convolution first: no conv gives fp32 out of bf16 in, and an fp32
+    conv moved a TP = 2 SDXL forward's error no closer to fp32), or an int8
+    ``QConvInt8``'s dequantized int32 sums."""
+    if isinstance(conv, nn.Conv2d):
+        return F.conv2d(x, conv.weight, None, conv.stride, conv.padding).float()
+    return conv.dequantized(x).permute(0, 3, 1, 2)
+
+
+def row_parallel_linear(layer: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-sharded Linear: the partial product over this rank's input
+    features, one all_reduce, the bias after, in `x`'s type. On a card a
+    bf16 / fp16 partial leaves the tensor cores in fp32 (``torch.mm``'s
+    out_dtype), so that only the sum is rounded, as the unsharded product's
+    output is."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        part = torch.mm(x.reshape(-1, x.shape[-1]), layer.weight.t(), out_dtype=torch.float32)
+        part = part.view(*x.shape[:-1], -1)
+    else:
+        part = F.linear(x, layer.weight)
+    y = reduce_partial(part, group) + layer.bias.float()
+    return y.to(x.dtype)
 
 
 class Downsample2D(nn.Module):
@@ -166,6 +220,7 @@ class MultiHeadAttention(nn.Module):
         self.to_k = nn.Linear(context_dim, inner, bias=qkv_bias)
         self.to_v = nn.Linear(context_dim, inner, bias=qkv_bias)
         self.to_out = nn.ModuleList([nn.Linear(inner, inner)])
+        self.tp_group = None  # set with the heads cut to a rank's (parallel/tp.py)
 
     def forward(self, x, context: Optional[torch.Tensor] = None):
         context = x if context is None else context
@@ -190,11 +245,15 @@ class MultiHeadAttention(nn.Module):
                                      k.reshape(b, skv, h, d),
                                      v.reshape(b, skv, h, d),
                                      scale).reshape(b, sq, inner)
+        if self.tp_group is not None:
+            return row_parallel_linear(self.to_out[0], out, self.tp_group)
         return self.to_out[0](out)
 
 
 class GEGLU(nn.Module):
-    """One fused [dim -> 2*inner] projection chunked into [h | gate]."""
+    """One fused [dim -> 2*inner] projection chunked into [h | gate]. Under
+    tensor parallelism a rank holds its rows of each half, [h_r | gate_r],
+    so the same chunk gives its own h and gate."""
 
     def __init__(self, dim: int, inner: int):
         super().__init__()
@@ -213,8 +272,11 @@ class FeedForward(nn.Module):
         inner = dim * mult
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(),
                                   nn.Linear(inner, dim)])
+        self.tp_group = None  # net.2 row-sharded (parallel/tp.py)
 
     def forward(self, x):
+        if self.tp_group is not None:
+            return row_parallel_linear(self.net[2], self.net[0](x), self.tp_group)
         for layer in self.net:
             x = layer(x)
         return x

@@ -13,6 +13,12 @@ attention; the mid block; each up unit: the skip concat, a resnet and its
 attention; each transformer block inside a Transformer2D) as its own
 non-reentrant ``torch.utils.checkpoint`` region, the transformer blocks
 nested inside their unit's; otherwise the same ops run plainly.
+
+Under tensor parallelism (``parallel/tp.py::shard_bundle_for_tp``) the
+resnets, attention modules and feed-forwards hold a rank's shard and the
+"model" group; the UNet records the group and the degree in ``tp_group`` and
+``tp_size``. The blocks take the same replicated activations either way, so
+the forward below does not change.
 """
 from __future__ import annotations
 
@@ -198,6 +204,7 @@ class UNet2DCondition(nn.Module):
         super().__init__()
         cfg = self.config = config
         self.attn_backend, self.conv_quant = attn_backend, conv_quant
+        self.tp_group, self.tp_size = None, 1  # set by parallel/tp.py
         c0 = cfg.block_out_channels[0]
         time_dim = c0 * 4
         groups = cfg.norm_num_groups

@@ -373,10 +373,19 @@ class StableDiffusionXLPEAPipeline:
 
     `aot_dir` (``--aot-cache``) keeps the compiled libraries under that
     directory, keyed by the sources and the card (utils/startup.py's
-    `AOTCache`), so that a restarted process builds nothing."""
+    `AOTCache`), so that a restarted process builds nothing.
+
+    `mesh`: a tensor-parallel mesh (parallel/tp.py); the models must already
+    be placed on it (``shard_bundle_for_tp``), which is all it is checked
+    for (the JAX signature's argument). Every rank of the mesh then makes
+    the same call, and each gets the same images."""
 
     def __init__(self, models: PEAModels, sampler_name: str = "dpm++",
-                 aot_dir: Optional[str] = None):
+                 aot_dir: Optional[str] = None, mesh=None):
+        if mesh is not None and getattr(models.unet, "tp_size", 1) != mesh.size(
+                mesh.mesh_dim_names.index("model")):
+            raise ValueError("mesh given but the UNet is not sharded over its 'model' dim: "
+                             "place the models with parallel.tp.shard_bundle_for_tp first")
         self.models, self.sampler_name = models, sampler_name
         self._aot = None
         if aot_dir is not None:

@@ -193,10 +193,15 @@ class QConvInt8(nn.Module):
                 self._buffers[name] = self._buffers[name].float()
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def dequantized(self, x: torch.Tensor) -> torch.Tensor:
+        """The dequantized product without the bias, [B, Ho, Wo, cout] fp32
+        (under tensor parallelism, an input-sharded conv's partial sum)."""
         xq = quantize_activation(x, self.x_scale)
         y = int8_conv(xq, self.kernel_q, self.stride)
-        out = y.float() * (self.x_scale * self.w_scale) + self.bias
+        return y.float() * (self.x_scale * self.w_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.dequantized(x) + self.bias
         return out.permute(0, 3, 1, 2).to(x.dtype)
 
 

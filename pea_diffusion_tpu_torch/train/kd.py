@@ -29,6 +29,11 @@ JAX package's memory lever); their per-sample means reduce in fp32.
 Random draws come from an explicit ``torch.Generator`` in a fixed order
 (VAE eps, noise, offset noise, timesteps, the CFG-drop uniforms), or are
 injected through ``draws``, so that a test can hand in the JAX package's.
+Under data parallelism (`rows`) a rank draws the global micro-batch's
+randoms from the generator that every rank shares, in the single-process
+order, and keeps its own rows: N ranks take the step one process takes on
+the global batch, as the JAX package's draws over the global batch, which
+it then shards, do.
 """
 from __future__ import annotations
 
@@ -154,21 +159,29 @@ def student_forward(models: KDModels, *args):
     return checkpoint(fwd, *args, use_reentrant=False)
 
 
-def _draw(draws: Dict[str, torch.Tensor], key: str, make: Callable[[], torch.Tensor]):
+Rows = Optional[Tuple[int, int]]
+
+
+def _draw(draws: Dict[str, torch.Tensor], key: str, make: Callable[[int], torch.Tensor],
+          b: int, rows: Rows = None):
+    """draws[key], else `make(n)` of n rows: the whole micro-batch's, or with
+    `rows` = (first, global rows) the global micro-batch's, cut to this
+    rank's b rows from `first`."""
     if key not in draws:
-        draws[key] = make()
+        draws[key] = make(b) if rows is None else make(rows[1])[rows[0]:rows[0] + b]
     return draws[key]
 
 
-def _encode_latents(models: KDModels, pixels: torch.Tensor, draws, gen) -> torch.Tensor:
+def _encode_latents(models: KDModels, pixels: torch.Tensor, draws, gen,
+                    rows: Rows = None) -> torch.Tensor:
     """fp32 VAE encode and sample, in chunks of `vae_encode_chunk` where it
     divides a larger batch (the JAX package's condition), else at once."""
     vae = models.vae
     b, h, w, _ = pixels.shape
     f = 2 ** (len(vae.config.block_out_channels) - 1)
-    shape = (b, h // f, w // f, vae.config.latent_channels)
-    eps = _draw(draws, "vae_eps", lambda: torch.randn(
-        shape, generator=gen, device=pixels.device, dtype=vae.quant_conv.weight.dtype))
+    eps = _draw(draws, "vae_eps", lambda n: torch.randn(
+        (n, h // f, w // f, vae.config.latent_channels), generator=gen,
+        device=pixels.device, dtype=vae.quant_conv.weight.dtype), b, rows)
     chunk = models.vae_encode_chunk
     if chunk is None or b <= chunk or b % chunk:
         chunk = b
@@ -179,7 +192,7 @@ def _encode_latents(models: KDModels, pixels: torch.Tensor, draws, gen) -> torch
 
 def kd_loss(models: KDModels, cfg: TrainConfig, batch: Batch,
             generator: Optional[torch.Generator] = None,
-            draws: Optional[Dict[str, torch.Tensor]] = None
+            draws: Optional[Dict[str, torch.Tensor]] = None, rows: Rows = None
             ) -> Tuple[torch.Tensor, Metrics]:
     """The KD loss of one micro-batch, differentiable in the adapter.
 
@@ -189,26 +202,30 @@ def kd_loss(models: KDModels, cfg: TrainConfig, batch: Batch,
     teacher_uncond_ids_1 / _2 [B, 77]; time_ids [B, 6]; zh_or_not [B] (1 = Chinese-native, 0 =
     parallel English). draws (optional, filled from `generator` where
     absent): vae_eps [B, h, w, 4], noise [B, h, w, 4] and offset_noise
-    [B, 1, 1, 4] fp32, timesteps [B] int64, cfg_uniform [B, 1, 1]."""
+    [B, 1, 1, 4] fp32, timesteps [B] int64, cfg_uniform [B, 1, 1]. rows
+    (data parallelism): (this batch's first row in the global micro-batch,
+    the global micro-batch's rows); draws made here are the global
+    micro-batch's, cut to this batch's rows."""
     draws = {} if draws is None else draws
     unet_dtype = models.unet.conv_in.weight.dtype
     dev = batch["pixel_values"].device
     sched = ddpm.make_schedule(models.schedule)
 
     # 1. fp32 VAE encode -> scaled latents in the UNet's type
-    latents = _encode_latents(models, batch["pixel_values"].float(), draws, generator)
+    latents = _encode_latents(models, batch["pixel_values"].float(), draws, generator, rows)
     latents = (latents * models.vae_scaling).to(unet_dtype)
     b = latents.shape[0]
 
     # 2. noise + offset noise, timesteps, forward diffusion
-    noise = _draw(draws, "noise", lambda: torch.randn(
-        latents.shape, generator=generator, device=dev))
-    offset = _draw(draws, "offset_noise", lambda: torch.randn(
-        (b, 1, 1, latents.shape[-1]), generator=generator, device=dev))
-    timesteps = _draw(draws, "timesteps", lambda: torch.randint(
-        0, models.schedule.num_train_timesteps, (b,), generator=generator, device=dev))
-    cfg_uniform = _draw(draws, "cfg_uniform", lambda: torch.rand(
-        (b, 1, 1), generator=generator, device=dev))
+    noise = _draw(draws, "noise", lambda n: torch.randn(
+        (n,) + latents.shape[1:], generator=generator, device=dev), b, rows)
+    offset = _draw(draws, "offset_noise", lambda n: torch.randn(
+        (n, 1, 1, latents.shape[-1]), generator=generator, device=dev), b, rows)
+    timesteps = _draw(draws, "timesteps", lambda n: torch.randint(
+        0, models.schedule.num_train_timesteps, (n,), generator=generator, device=dev),
+        b, rows)
+    cfg_uniform = _draw(draws, "cfg_uniform", lambda n: torch.rand(
+        (n, 1, 1), generator=generator, device=dev), b, rows)
     if cfg.noise_offset:
         noise = noise + cfg.noise_offset * offset
     noise = noise.to(unet_dtype)
@@ -272,19 +289,40 @@ def kd_loss(models: KDModels, cfg: TrainConfig, batch: Batch,
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
+def _flatten(tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.detach().float().reshape(-1) for t in tensors.values()])
+
+
+def _unflatten(flat: torch.Tensor, like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    out, i = {}, 0
+    for k, t in like.items():
+        out[k] = flat[i:i + t.numel()].view(t.shape).to(t.dtype)
+        i += t.numel()
+    return out
+
+
 @dataclasses.dataclass
 class KDState:
     step: int
     optimizer: dict  # optim.init_state of the adapter's parameters
 
 
-def make_train_step(models: KDModels, cfg: TrainConfig):
+def make_train_step(models: KDModels, cfg: TrainConfig,
+                    data_shard: Tuple[int, int] = (0, 1),
+                    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
     """Returns (init_fn, step_fn). step_fn(state, batch, generator, draws=None)
     runs one optimizer step on the adapter, in place, over
     ``cfg.grad_accum_steps`` micro-batches (their fp32 gradients summed and
     divided by the count, their metrics averaged; each draws its own
     randoms, in order, from `generator`, or takes ``draws[i]``), and returns
-    (state, metrics) with ``grad_norm``, the pre-clip global norm."""
+    (state, metrics) with ``grad_norm``, the pre-clip global norm.
+
+    Data parallelism: `data_shard` = (this rank's index, the number of data
+    ranks); `batch` holds the rank's rows of each global micro-batch, whose
+    randoms it draws (see kd_loss's `rows`). `reduce` sums a flat fp32
+    tensor over the data ranks (one ``all_reduce``): after the accumulation
+    loop and before the update it averages the adapter gradient, flattened,
+    and the metrics."""
     params = dict(models.adapter.named_parameters())
     mask = optim.decay_mask(models.adapter)
 
@@ -304,14 +342,19 @@ def make_train_step(models: KDModels, cfg: TrainConfig):
         for p in params.values():
             p.grad = None
         metrics: List[Metrics] = []
+        r, n = data_shard
+        rows = None if n == 1 else (r * mb, n * mb)
         for i in range(accum):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss, m = kd_loss(models, cfg, part, generator,
-                              None if draws is None else draws[i])
+                              None if draws is None else draws[i], rows)
             loss.backward()
             metrics.append(m)
         grads = {k: p.grad / accum for k, p in params.items()}
         mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
+        if reduce is not None:
+            grads = _unflatten(reduce(_flatten(grads)) / n, grads)
+            mean = _unflatten(reduce(_flatten(mean)) / n, mean)
         mean["grad_norm"] = optim.apply_update(
             cfg, {k: p.data for k, p in params.items()}, grads, state.optimizer, mask)
         for p in params.values():

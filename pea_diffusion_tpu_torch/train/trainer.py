@@ -1,7 +1,7 @@
-"""Training loop on one device (port of
-``pea_diffusion_tpu/train/trainer.py``): the KD step over a stream of
-batches, the JSONL metric log, checkpoint rotation with the adapter exported
-in the reference's format, and resume.
+"""Training loop (port of ``pea_diffusion_tpu/train/trainer.py``): the KD
+step over a stream of batches, on one device or over a mesh
+(parallel/mesh.py), the JSONL metric log, checkpoint rotation with the
+adapter exported in the reference's format, and resume.
 
 The train state (step, adapter, optimizer) goes through ``torch.save`` to
 ``<output_dir>/checkpoints/step_<N>.pt`` (the newest ``save_top_k`` kept);
@@ -11,8 +11,18 @@ its ``model.safetensors`` sibling) under the reference's names, through
 aspect bucket before ``fit`` (the JAX package compiles there; here the
 kernels build, the convolutions meet their shapes and the allocator grows
 to its peak), and a ``profile_window`` (start, stop) traces those steps
-with ``torch.profiler`` under ``<output_dir>/trace``. DDP/FSDP are not
-ported (ROADMAP Queue A item 17).
+with ``torch.profiler`` under ``<output_dir>/trace``.
+
+Over a mesh (``mesh``, or ``make_mesh(cfg.mesh_shape)`` when a process group
+is up): the frozen UNet is sharded over fsdp (``shard_params``), each rank
+takes its rows of the global batch (``shard_batch``; with
+``local_batches=True`` the batches are already the rank's own, as a reader
+that splits shards by rank gives them), the adapter gradient is averaged
+over dcn x data in one ``all_reduce`` before the update, and
+``consumed_samples`` counts every data rank's rows. Rank 0 alone writes the
+metric log, the checkpoints and the trace, behind a barrier; ``resume``
+runs on every rank. Training has no tensor parallelism, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -22,10 +32,13 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoints.orbax_io import export_adapter
 from ..configs.train import TrainConfig
 from ..data.buckets import BUCKETS
+from ..parallel import distributed as pdist
+from ..parallel import mesh as pmesh
 from ..utils.metrics import MetricLogger, ProfilerWindow
 from .kd import KDModels, KDState, kd_loss, make_train_step
 
@@ -47,13 +60,31 @@ def _batch_to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tenso
     return out
 
 
+def _sum_over(group):
+    def reduce(x: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(x, group=group)
+        return x
+
+    return reduce
+
+
 class KDTrainer:
-    def __init__(self, models: KDModels, cfg: TrainConfig,
-                 profile_window: Optional[Tuple[int, int]] = None):
+    def __init__(self, models: KDModels, cfg: TrainConfig, mesh=None,
+                 profile_window: Optional[Tuple[int, int]] = None,
+                 local_batches: bool = False):
         self.models, self.cfg = models, cfg
-        init_fn, self.step_fn = make_train_step(models, cfg)
+        if mesh is None and dist.is_initialized():
+            mesh = pmesh.make_mesh(cfg.mesh_shape)
+        self.mesh, self.local_batches = mesh, local_batches
+        self.data_shard, reduce = (0, 1), None
+        if mesh is not None:
+            pmesh.shard_params(models, mesh)
+            self.data_shard = pmesh.batch_shards(mesh)
+            reduce = _sum_over(pmesh.batch_group(mesh))
+        init_fn, self.step_fn = make_train_step(models, cfg, self.data_shard, reduce)
         self.state: KDState = init_fn()
-        self.logger = MetricLogger(cfg.output_dir)
+        self.main = pdist.is_main()
+        self.logger = MetricLogger(cfg.output_dir if self.main else None)
         self.ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
         self.host_step = 0
         # rows of the last batch fed to fit(): consumed_samples follows the
@@ -61,7 +92,7 @@ class KDTrainer:
         self._batch_rows: Optional[int] = None
         self.profiler = (ProfilerWindow(os.path.join(cfg.output_dir, "trace"),
                                         *profile_window, device=models.device)
-                         if profile_window else None)
+                         if profile_window and self.main else None)
 
     def _checkpoints(self):
         if not os.path.isdir(self.ckpt_dir):
@@ -85,8 +116,9 @@ class KDTrainer:
 
     @property
     def consumed_samples(self) -> int:
+        """Global samples so far: steps x a rank's rows x the data ranks."""
         rows = self._batch_rows or self.cfg.batch_size_per_device
-        return self.host_step * rows
+        return self.host_step * rows * self.data_shard[1]
 
     def fit(self, batches: Iterable[Dict], max_steps: Optional[int] = None) -> KDState:
         cfg = self.cfg
@@ -100,11 +132,13 @@ class KDTrainer:
             if self.profiler:
                 self.profiler.step(step)
             gen = torch.Generator(device=dev).manual_seed(cfg.seed * 1_000_003 + step)
+            if self.mesh is not None and not self.local_batches:
+                batch = pmesh.shard_batch(batch, self.mesh, max(1, cfg.grad_accum_steps))
             batch = _batch_to_device(batch, dev)
             self._batch_rows = batch["pixel_values"].shape[0]
             self.state, metrics = self.step_fn(self.state, batch, gen)
             new_step = self.host_step = step + 1
-            if new_step % cfg.log_every_n_steps == 0 or new_step == start + 1:
+            if self.main and (new_step % cfg.log_every_n_steps == 0 or new_step == start + 1):
                 m = {k: float(v) for k, v in metrics.items()}
                 m["consumed_samples"] = self.consumed_samples
                 rec = self.logger.log(new_step, m)
@@ -157,11 +191,14 @@ class KDTrainer:
             print(f"warmup: bucket {b} ({w}x{h}) ready")
 
     def checkpoint(self, step: int):
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        torch.save({"step": step, "adapter": self.models.adapter.state_dict(),
-                    "optimizer": self.state.optimizer},
-                   os.path.join(self.ckpt_dir, f"step_{step}.pt"))
-        for old in self._checkpoints()[:-self.cfg.save_top_k]:
-            os.remove(os.path.join(self.ckpt_dir, f"step_{old}.pt"))
-        export_adapter(self.models.adapter, self.cfg.output_dir, step)
-        print(f"checkpointed step {step}")
+        """Rank 0 writes; every rank waits for it at a barrier."""
+        if self.main:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            torch.save({"step": step, "adapter": self.models.adapter.state_dict(),
+                        "optimizer": self.state.optimizer},
+                       os.path.join(self.ckpt_dir, f"step_{step}.pt"))
+            for old in self._checkpoints()[:-self.cfg.save_top_k]:
+                os.remove(os.path.join(self.ckpt_dir, f"step_{old}.pt"))
+            export_adapter(self.models.adapter, self.cfg.output_dir, step)
+            print(f"checkpointed step {step}")
+        pdist.barrier()

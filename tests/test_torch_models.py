@@ -66,7 +66,7 @@ def test_configs_are_copies_of_the_jax_presets():
             getattr(jax_text_cfg, name)), name
     port_train = dataclasses.asdict(TrainConfig())
     jax_train = dataclasses.asdict(JaxTrainConfig())
-    assert jax_train.pop("mesh_shape") and port_train == jax_train
+    assert port_train == jax_train and port_train["mesh_shape"] == (-1, 1)
     assert {k: dataclasses.asdict(v) for k, v in ADAPTER_PRESETS.items()} == {
         k: dataclasses.asdict(v)
         for k, v in jax_adapter_cfg.ADAPTER_PRESETS.items()}

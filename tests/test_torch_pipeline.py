@@ -301,7 +301,8 @@ def test_cli_repl_writes_an_image_a_prompt(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--tp", "2"], "Queue A item 9 [A17]"),
+    (["--tp", "2"], "launch it with torchrun --nproc-per-node 2 -m "
+                    "pea_diffusion_tpu_torch.cli.generate"),
     (["--quant", "int8:bogus"], "unknown int8 scopes ['bogus']"),
     (["--aot-cache", "c", "--no-compile-cache"], "give one"),
     (["--quant", "int8", "--inpaint-image", "a.png", "--mask", "m.png"], "text-to-image only"),

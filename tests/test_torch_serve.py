@@ -344,7 +344,8 @@ def test_cli_real_mode_serves_a_model_directory(stacks, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--demo", "--tp", "2"], "Queue A item 9 [A17]"),
+    (["--demo", "--tp", "2"], "launch it with torchrun --nproc-per-node 2 -m "
+                              "pea_diffusion_tpu_torch.cli.serve"),
     (["--demo", "--quant", "int8:bogus"], "unknown int8 scopes ['bogus']"),
     (["--demo", "--aot-cache", "cache", "--no-compile-cache"], "give one"),
     (["--text-encoder-dir", "te", "--adapter", "proj.bin"], "--model-dir required"),
