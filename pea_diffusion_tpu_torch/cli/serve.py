@@ -63,6 +63,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.trace import span
+
 
 def request_noise(seed: int, n: int, latent: int) -> np.ndarray:
     """A request's initial latents [n, latent, latent, 4] from its seed."""
@@ -180,7 +182,9 @@ class BatchingEngine:
 
     def run(self, spec: dict):
         """One call of the pipeline from its spec (see `run_spec`)."""
-        return run_spec(self.pipe, spec, self.size, self.latent)
+        rows = sum(n for _, n in spec["seeds"])
+        with span("engine.call", str(rows)):
+            return run_spec(self.pipe, spec, self.size, self.latent)
 
     def _worker(self):
         from ..pipelines.text2image import to_pil
@@ -194,24 +198,26 @@ class BatchingEngine:
     def _drain(self, to_pil) -> bool:
         """One drain cycle: the first request, then whatever arrives within
         the window (up to max_batch), run group by group. False on close."""
-        first = self.q.get()
+        with span("engine.refill_wait"):
+            first = self.q.get()
         if first is None:
             return False
         batch = [first]
         deadline = time.time() + self.window
         stop = False
-        while len(batch) < self.max_batch:
-            left = deadline - time.time()
-            if left <= 0:
-                break
-            try:
-                item = self.q.get(timeout=left)
-            except queue.Empty:
-                break
-            if item is None:
-                stop = True
-                break
-            batch.append(item)
+        with span("engine.batch_window"):
+            while len(batch) < self.max_batch:
+                left = deadline - time.time()
+                if left <= 0:
+                    break
+                try:
+                    item = self.q.get(timeout=left)
+                except queue.Empty:
+                    break
+                if item is None:
+                    stop = True
+                    break
+                batch.append(item)
         groups: dict = {}
         for item in batch:
             groups.setdefault(item[0][0], []).append(item)  # by steps
@@ -219,25 +225,12 @@ class BatchingEngine:
             if self.failed is not None:
                 break
             try:
-                n = len(items)
-                padded = 1 << (n - 1).bit_length()  # a power of two
-                prompts = [it[1][0] for it in items]
-                negatives = [it[1][1] for it in items]
-                prompts += [prompts[0]] * (padded - n)
-                negatives += [negatives[0]] * (padded - n)
-                seeds = [(it[1][2], 1) for it in items]
-                if padded > n:
-                    seeds.append((0, padded - n))
-                # pad rows reuse row 0's CFG, so do_cfg is unaffected
-                gs = [it[0][1] for it in items] + [items[0][0][1]] * (padded - n)
-                rs = [it[0][2] for it in items] + [items[0][0][2]] * (padded - n)
-                guidance = gs[0] if len(set(gs)) == 1 else np.asarray(gs, np.float32)
-                rescale = rs[0] if len(set(rs)) == 1 else np.asarray(rs, np.float32)
-                spec = {"ids": self.tokenize(prompts), "uncond": self.tokenize(negatives),
-                        "steps": steps, "guidance": guidance, "rescale": rescale,
-                        "seeds": seeds}
-                imgs = to_pil(self.run(spec) if self.tp is None
-                              else self.tp.lead(lambda: self.run(spec), spec))
+                with span("engine.prepare"):
+                    spec, n, guidance = self._spec(steps, items)
+                out = (self.run(spec) if self.tp is None
+                       else self.tp.lead(lambda: self.run(spec), spec))
+                with span("engine.to_pil"):
+                    imgs = to_pil(out)
                 with self._lock:
                     st = self.stats
                     st["device_calls"] += 1
@@ -260,6 +253,29 @@ class BatchingEngine:
             self._stop_after_failure(batch)
             return False
         return not stop
+
+    def _spec(self, steps, items):
+        """The call spec of one group of requests (see `run_spec`): prompts
+        padded to a power of two with row 0's, tokenised, with per-row
+        guidance where the group's values differ. Returns (spec, requests,
+        guidance)."""
+        n = len(items)
+        padded = 1 << (n - 1).bit_length()  # a power of two
+        prompts = [it[1][0] for it in items]
+        negatives = [it[1][1] for it in items]
+        prompts += [prompts[0]] * (padded - n)
+        negatives += [negatives[0]] * (padded - n)
+        seeds = [(it[1][2], 1) for it in items]
+        if padded > n:
+            seeds.append((0, padded - n))
+        # pad rows reuse row 0's CFG, so do_cfg is unaffected
+        gs = [it[0][1] for it in items] + [items[0][0][1]] * (padded - n)
+        rs = [it[0][2] for it in items] + [items[0][0][2]] * (padded - n)
+        guidance = gs[0] if len(set(gs)) == 1 else np.asarray(gs, np.float32)
+        rescale = rs[0] if len(set(rs)) == 1 else np.asarray(rs, np.float32)
+        spec = {"ids": self.tokenize(prompts), "uncond": self.tokenize(negatives),
+                "steps": steps, "guidance": guidance, "rescale": rescale, "seeds": seeds}
+        return spec, n, guidance
 
     def _stop_after_failure(self, batch):
         """Fails the drain cycle's unanswered requests and the queued ones,

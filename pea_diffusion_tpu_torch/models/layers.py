@@ -31,6 +31,7 @@ from ..parallel.tp import reduce_partial
 from ..ops.attention import dot_product_attention, use_flash, xla_attention_bshd
 from ..ops.groupnorm import fused_gn_applicable, fused_group_norm, group_norm
 from ..quant.int8 import make_conv, parse_scopes
+from ..utils.trace import span
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -64,7 +65,8 @@ class GroupNorm(nn.Module):
     (`extra_bias`, the resnet time embedding) and trailing SiLU. Where
     ``fused_gn_applicable`` holds (the opt-in PEA_FUSED_GROUPNORM=1 on a
     CUDA tensor) the whole chain is one fused kernel, B6 or B6-b; otherwise
-    the plain fp32 ``group_norm``."""
+    the plain fp32 ``group_norm``. Either way the call is one ``groupnorm``
+    span (utils/trace.py)."""
 
     def __init__(self, num_channels: int, num_groups: int = 32,
                  eps: float = 1e-5, act: str = "none"):
@@ -74,15 +76,16 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x, extra_bias: Optional[torch.Tensor] = None):
-        if fused_gn_applicable(x, self.num_groups):
-            return fused_group_norm(x, self.weight, self.bias, self.num_groups,
-                                    self.eps, self.act, extra_bias)
-        if extra_bias is not None:
-            x = x + extra_bias[:, :, None, None].to(x.dtype)
-        y = group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
-        if self.act == "silu":
-            y = F.silu(y)
-        return y
+        with span("groupnorm"):
+            if fused_gn_applicable(x, self.num_groups):
+                return fused_group_norm(x, self.weight, self.bias, self.num_groups,
+                                        self.eps, self.act, extra_bias)
+            if extra_bias is not None:
+                x = x + extra_bias[:, :, None, None].to(x.dtype)
+            y = group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
+            if self.act == "silu":
+                y = F.silu(y)
+            return y
 
 
 class ResnetBlock2D(nn.Module):

@@ -25,6 +25,7 @@ from ..models.adapter import PEAAdapter
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
 from ..schedulers import NoiseScheduleConfig
+from ..utils.trace import span
 from .sampling import Sampler, make_sampler, rescale_noise_cfg
 
 
@@ -56,12 +57,13 @@ def denoise_loop(eps_fn: Callable[[torch.Tensor, int], torch.Tensor],
     state = sampler.init()
     end = sampler.num_steps if end is None else end
     for i in range(start, end):
-        out = eps_fn(sampler.scale(i, x), i)
-        if step_noise is not None:
-            draw = step_noise[i]
-        else:
-            draw = None if generator is None else sampler.draw(x, generator)
-        x, state = sampler.step(i, x, out, state, draw)
+        with span("pipe.sampler_step"):
+            out = eps_fn(sampler.scale(i, x), i)
+            if step_noise is not None:
+                draw = step_noise[i]
+            else:
+                draw = None if generator is None else sampler.draw(x, generator)
+            x, state = sampler.step(i, x, out, state, draw)
     return x
 
 
@@ -92,6 +94,11 @@ def decode_latents(models: PEAModels, latents: torch.Tensor,
     """VAE decode -> NHWC images in [0, 1]. `chunk` > 0 decodes `chunk` rows
     at a time; a ragged tail is padded with the last row and cut after, so
     every decode sees a batch of `chunk` rows."""
+    with span("pipe.decode"):
+        return _decode(models, latents, chunk)
+
+
+def _decode(models: PEAModels, latents: torch.Tensor, chunk: int) -> torch.Tensor:
     b = latents.shape[0]
     if 0 < chunk < b:
         nchunks = -(-b // chunk)
@@ -99,7 +106,7 @@ def decode_latents(models: PEAModels, latents: torch.Tensor,
         z = latents
         if pad:
             z = torch.cat([z, z[-1:].expand(pad, *z.shape[1:])], dim=0)
-        imgs = [decode_latents(models, zc) for zc in z.split(chunk)]
+        imgs = [_decode(models, zc, 0) for zc in z.split(chunk)]
         return torch.cat(imgs, dim=0)[:b]
     z = latents.float() / models.vae_scaling
     img = models.vae.decode(z)
@@ -152,20 +159,22 @@ def steps_at_or_above(sampler: Sampler, schedule: NoiseScheduleConfig, fraction)
 def encode_prompt_sd(models: PEAModels, ids, uncond_ids) -> torch.Tensor:
     """Adapter-projected cross-attention states [2B, T, 768], CFG-stacked
     [uncond; cond]. The negative prompt also goes through the adapter."""
-    seq = models.adapter(models.text_encoder_fn(ids))
-    seq_u = models.adapter(models.text_encoder_fn(uncond_ids))
-    return torch.cat([seq_u, seq], dim=0)
+    with span("pipe.encode_prompt"):
+        seq = models.adapter(models.text_encoder_fn(ids))
+        seq_u = models.adapter(models.text_encoder_fn(uncond_ids))
+        return torch.cat([seq_u, seq], dim=0)
 
 
 def encode_prompt_sdxl(models: PEAModels, ids, uncond_ids):
     """Adapter-projected (context [2B, T, 2048], pooled [2B, 1280]),
     CFG-stacked [uncond; cond]. The negative prompt also goes through the
     adapter: the PEA plug-in replaces the whole prompt-encoding stage."""
-    hs = models.text_encoder_fn(ids)
-    hs_u = models.text_encoder_fn(uncond_ids)
-    pooled, seq = models.adapter(hs)
-    pooled_u, seq_u = models.adapter(hs_u)
-    return torch.cat([seq_u, seq], dim=0), torch.cat([pooled_u, pooled], dim=0)
+    with span("pipe.encode_prompt"):
+        hs = models.text_encoder_fn(ids)
+        hs_u = models.text_encoder_fn(uncond_ids)
+        pooled, seq = models.adapter(hs)
+        pooled_u, seq_u = models.adapter(hs_u)
+        return torch.cat([seq_u, seq], dim=0), torch.cat([pooled_u, pooled], dim=0)
 
 
 def ids_batch_size(ids) -> int:
@@ -213,7 +222,8 @@ def generate_sd(models: PEAModels, ids, uncond_ids, *,
         def eps_fn(x, i):
             t = torch.full((2 * b,), int(sampler.timesteps[i]), dtype=torch.long,
                            device=device)
-            out = models.unet(torch.cat([x, x], dim=0), t, context).float()
+            with span("pipe.unet"):
+                out = models.unet(torch.cat([x, x], dim=0), t, context).float()
             return cfg_combine(out, gs)
 
         return decode_latents(models, denoise_loop(eps_fn, sampler, noise))
@@ -271,7 +281,8 @@ def generate_sdxl(models: PEAModels, ids, uncond_ids, *,
             x_in = torch.cat([x] * mult, dim=0)
             t = torch.full((mult * b,), int(sampler.timesteps[i]),
                            dtype=torch.long, device=device)
-            out = models.unet(x_in, t, context, added).float()
+            with span("pipe.unet"):
+                out = models.unet(x_in, t, context, added).float()
             return cfg_combine(out, gs, gr) if do_cfg else out
 
         if step_noise is not None:
@@ -318,7 +329,8 @@ def refine_sdxl(models: PEAModels, ids, uncond_ids, latents, *,
         def eps_fn(x, i):
             t = torch.full((2 * b,), int(sampler.timesteps[i]), dtype=torch.long,
                            device=device)
-            out = models.unet(torch.cat([x, x], dim=0), t, context, added).float()
+            with span("pipe.unet"):
+                out = models.unet(torch.cat([x, x], dim=0), t, context, added).float()
             return cfg_combine(out, gs)
 
         latents = denoise_loop(eps_fn, sampler, torch.zeros_like(latents), start=start,

@@ -51,6 +51,7 @@ from ..models.clip_text import CLIPTextEncoder
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
 from ..schedulers import NoiseScheduleConfig, ddpm
+from ..utils.trace import span
 from . import optim
 
 Batch = Dict[str, torch.Tensor]
@@ -212,8 +213,10 @@ def kd_loss(models: KDModels, cfg: TrainConfig, batch: Batch,
     sched = ddpm.make_schedule(models.schedule)
 
     # 1. fp32 VAE encode -> scaled latents in the UNet's type
-    latents = _encode_latents(models, batch["pixel_values"].float(), draws, generator, rows)
-    latents = (latents * models.vae_scaling).to(unet_dtype)
+    with span("kd.vae_encode"):
+        latents = _encode_latents(models, batch["pixel_values"].float(), draws, generator,
+                                  rows)
+        latents = (latents * models.vae_scaling).to(unet_dtype)
     b = latents.shape[0]
 
     # 2. noise + offset noise, timesteps, forward diffusion
@@ -237,35 +240,38 @@ def kd_loss(models: KDModels, cfg: TrainConfig, batch: Batch,
     if "input_ids_zh" in batch:
         ids = {"mul": ids, "zh": batch["input_ids_zh"]}
         ids_u = {"mul": ids_u, "zh": batch["input_ids_uncond_zh"]}
-    with torch.no_grad():
-        hs = models.text_encoder_fn(ids)
-        hs_u = models.text_encoder_fn(ids_u)
-
-    # 4. the adapter, the only forward that carries a gradient
     is_sdxl = models.unet.config.addition_embed_type == "text_time"
-    if is_sdxl:
-        pooled, seq = models.adapter(hs)
-        _, seq_u = models.adapter(hs_u)
-    else:
-        seq, seq_u, pooled = models.adapter(hs), models.adapter(hs_u), None
+    with span("kd.student"):
+        with torch.no_grad():
+            hs = models.text_encoder_fn(ids)
+            hs_u = models.text_encoder_fn(ids_u)
 
-    # 5. CFG dropout: swap the sequence states only (pooled stays)
-    drop = cfg_uniform < cfg.cfg_dropout
-    seq = torch.where(drop, seq_u, seq)
-    added = {"text_embeds": pooled, "time_ids": batch["time_ids"]} if is_sdxl else None
+        # 4. the adapter, the only forward that carries a gradient
+        if is_sdxl:
+            pooled, seq = models.adapter(hs)
+            _, seq_u = models.adapter(hs_u)
+        else:
+            seq, seq_u, pooled = models.adapter(hs), models.adapter(hs_u), None
 
-    # 6. student UNet forward with feature taps, recomputed in the backward
-    noise_pred, feats_s = student_forward(models, noisy, timesteps, seq, added)
+        # 5. CFG dropout: swap the sequence states only (pooled stays)
+        drop = cfg_uniform < cfg.cfg_dropout
+        seq = torch.where(drop, seq_u, seq)
+        added = {"text_embeds": pooled, "time_ids": batch["time_ids"]} if is_sdxl else None
 
-    zh = batch["zh_or_not"].float()
-    w_denoise = zh if (cfg.kd and cfg.hybrid_training) else torch.ones_like(zh)
-    loss_denoise = _masked_mse(noise_pred, noise, w_denoise)
+        # 6. student UNet forward with feature taps, recomputed in the
+        # backward (outside this span)
+        noise_pred, feats_s = student_forward(models, noisy, timesteps, seq, added)
+
+    with span("kd.loss"):
+        zh = batch["zh_or_not"].float()
+        w_denoise = zh if (cfg.kd and cfg.hybrid_training) else torch.ones_like(zh)
+        loss_denoise = _masked_mse(noise_pred, noise, w_denoise)
     metrics = {"train_loss": loss_denoise}
     loss = loss_denoise
 
     if cfg.kd:
         # 7. teacher: dual-CLIP encode + the same frozen UNet, no gradient
-        with torch.no_grad():
+        with span("kd.teacher"), torch.no_grad():
             t_seq, t_pooled = teacher_encode_prompt(
                 models, batch["teacher_ids_1"], batch.get("teacher_ids_2"))
             tu_seq, _ = teacher_encode_prompt(
@@ -276,12 +282,13 @@ def kd_loss(models: KDModels, cfg: TrainConfig, batch: Batch,
             teacher_pred, feats_t = models.unet(noisy, timesteps, t_seq, t_added,
                                                 capture_features=True)
 
-        w_kd = (1.0 - zh) if cfg.hybrid_training else torch.ones_like(zh)
-        loss_teacher = _masked_mse(noise_pred, teacher_pred, w_kd)
-        tap_dtype = getattr(torch, models.feature_tap_dtype)
-        loss_features = sum(_masked_mse(feats_s[k], feats_t[k], w_kd, tap_dtype)
-                            for k in sorted(feats_s))
-        loss = loss + loss_teacher + cfg.feature_loss_weight * loss_features
+        with span("kd.loss"):
+            w_kd = (1.0 - zh) if cfg.hybrid_training else torch.ones_like(zh)
+            loss_teacher = _masked_mse(noise_pred, teacher_pred, w_kd)
+            tap_dtype = getattr(torch, models.feature_tap_dtype)
+            loss_features = sum(_masked_mse(feats_s[k], feats_t[k], w_kd, tap_dtype)
+                                for k in sorted(feats_s))
+            loss = loss + loss_teacher + cfg.feature_loss_weight * loss_features
         metrics["train_loss_logits"] = loss_teacher
         metrics["train_loss_features"] = loss_features
 
@@ -348,15 +355,17 @@ def make_train_step(models: KDModels, cfg: TrainConfig,
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss, m = kd_loss(models, cfg, part, generator,
                               None if draws is None else draws[i], rows)
-            loss.backward()
+            with span("kd.backward"):
+                loss.backward()
             metrics.append(m)
-        grads = {k: p.grad / accum for k, p in params.items()}
-        mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
-        if reduce is not None:
-            grads = _unflatten(reduce(_flatten(grads)) / n, grads)
-            mean = _unflatten(reduce(_flatten(mean)) / n, mean)
-        mean["grad_norm"] = optim.apply_update(
-            cfg, {k: p.data for k, p in params.items()}, grads, state.optimizer, mask)
+        with span("kd.optimizer"):
+            grads = {k: p.grad / accum for k, p in params.items()}
+            mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
+            if reduce is not None:
+                grads = _unflatten(reduce(_flatten(grads)) / n, grads)
+                mean = _unflatten(reduce(_flatten(mean)) / n, mean)
+            mean["grad_norm"] = optim.apply_update(
+                cfg, {k: p.data for k, p in params.items()}, grads, state.optimizer, mask)
         for p in params.values():
             p.grad = None
         return KDState(state.step + 1, state.optimizer), mean

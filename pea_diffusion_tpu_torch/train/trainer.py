@@ -40,6 +40,7 @@ from ..data.buckets import BUCKETS
 from ..parallel import distributed as pdist
 from ..parallel import mesh as pmesh
 from ..utils.metrics import MetricLogger, ProfilerWindow
+from ..utils.trace import span
 from .kd import KDModels, KDState, kd_loss, make_train_step
 
 ARRAY_KEYS = (
@@ -134,7 +135,8 @@ class KDTrainer:
             gen = torch.Generator(device=dev).manual_seed(cfg.seed * 1_000_003 + step)
             if self.mesh is not None and not self.local_batches:
                 batch = pmesh.shard_batch(batch, self.mesh, max(1, cfg.grad_accum_steps))
-            batch = _batch_to_device(batch, dev)
+            with span("train.h2d"):
+                batch = _batch_to_device(batch, dev)
             self._batch_rows = batch["pixel_values"].shape[0]
             self.state, metrics = self.step_fn(self.state, batch, gen)
             new_step = self.host_step = step + 1
