@@ -1140,34 +1140,16 @@ def _entry(kern, b, sq, skv, h, d, what, err, rel, rtol, ms, plain_ms, flops, nb
 def groupnorm_calls(model, side, batch):
     """{(kernel, batch, channels, side, act): calls} of one forward of a UNet
     or ControlNet at latent side `side`, or of a VAE decoder from latent side
-    `side`, from the GroupNorm modules each block holds at its spatial side:
-    B6-b for a resnet's norm2 that adds the time embedding, B6 for every
-    other one (the dispatch of models.layers.GroupNorm with the opt-in on)."""
+    `side`: tools/sweep_groupnorm.py's walk of the GroupNorm modules (B6-b for
+    a resnet's norm2 that adds the time embedding, B6 for every other one),
+    without the group count."""
     from collections import Counter
 
-    from pea_diffusion_tpu_torch.models.layers import GroupNorm, ResnetBlock2D
+    from pea_diffusion_tpu_torch.tools.sweep_groupnorm import groupnorm_calls as walk
 
-    if hasattr(model, "down_blocks"):
-        n = len(model.down_blocks)
-        levels = ([(blk, side >> i) for i, blk in enumerate(model.down_blocks)]
-                  + [(model.mid_block, side >> (n - 1))]
-                  + [(blk, side >> (n - 1 - i))
-                     for i, blk in enumerate(getattr(model, "up_blocks", []))])
-        last = side
-    else:  # a VAE decoder: the mid block at the latent side, each up block doubles it
-        levels = [(model.mid_block, side)] + [(blk, side << i)
-                                              for i, blk in enumerate(model.up_blocks)]
-        last = side << (len(model.up_blocks) - 1)
-    if hasattr(model, "conv_norm_out"):
-        levels.append((model.conv_norm_out, last))
     counts = Counter()
-    for block, s in levels:
-        biased = {id(m.norm2) for m in block.modules()
-                  if isinstance(m, ResnetBlock2D) and m.time_emb_proj is not None}
-        for m in block.modules():
-            if isinstance(m, GroupNorm):
-                kern = "B6-b" if id(m) in biased else "B6"
-                counts[kern, batch, m.weight.shape[0], s, m.act] += 1
+    for (kern, b, c, _, s, act), n in walk(model, side, batch).items():
+        counts[kern, b, c, s, act] += n
     return counts
 
 
@@ -1815,13 +1797,12 @@ def checksums(torch, modules):
 
 
 def set_fused_gn(on):
-    """Turns the fused GroupNorm opt-in (PEA_FUSED_GROUPNORM=1) on or off."""
+    """Turns the fused GroupNorm kernels on (PEA_FUSED_GROUPNORM=1: under
+    autograd too) or off (=0: the plain form everywhere; unset would take
+    the kernels wherever no input needs a gradient)."""
     import os
 
-    if on:
-        os.environ["PEA_FUSED_GROUPNORM"] = "1"
-    else:
-        os.environ.pop("PEA_FUSED_GROUPNORM", None)
+    os.environ["PEA_FUSED_GROUPNORM"] = "1" if on else "0"
 
 
 def reference_kd_step(torch, models, model, compare="attention", size=512, head_dim=None):

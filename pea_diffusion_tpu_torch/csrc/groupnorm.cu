@@ -380,23 +380,31 @@ inline int launch_three_pass(const void* x, const void* t, const void* scale, co
 constexpr const char* kGnVariants[] = {"three_pass", "persistent"};
 constexpr int kGnVariantCount = sizeof(kGnVariants) / sizeof(kGnVariants[0]);
 
+// Channels-last, the persistent variant's vector: the most of 16 bytes
+// that divides C and the alignment `align` (bytes) and spans at most two
+// groups of cg channels (V <= cg + 1).
+inline int nhwc_vector(int c, int cg, int size, int align) {
+  int vec = 16 / size;
+  while (vec > 1 && (c % vec || align % (vec * size) || vec - 1 > cg)) vec /= 2;
+  return vec;
+}
+
 // The variant B6 and B6-b run for a shape: `persistent` wherever it takes
 // the map, `three_pass` elsewhere. It takes channels-last maps of at most
-// 1024 groups whose rows split into at most 512 vectors, each in one group
-// (a vector: the most of 16 bytes that divides a group's channels and x's
-// alignment `align`, in bytes), and contiguous maps of at most 1023
-// channels a group. On the card it was the faster of the two at every
-// channels-last shape of the paths (by 1.1-2.3x) and at 27 of the 29
-// contiguous ones (chip_smoke.py's GroupNorm rows).
+// 1024 groups whose rows split into at most 512 vectors (nhwc_vector), and
+// contiguous maps of at most 1023 channels a group. On the card it was the
+// faster of the two at every channels-last shape of the paths: by 1.1-2.3x
+// at batch 1 and 2 (chip_smoke.py's GroupNorm rows, where it also won 27 of
+// the 29 contiguous ones), and by 1.03-2.2x at every GroupNorm of the
+// SDXL UNet at CFG batch 16, the SD1.5 UNet at batch 40 and the fp32 VAE
+// decoder and encoder (tools/sweep_groupnorm.py).
 inline int shipped_variant(int n, int c, int hw, int groups, int channels_last, int dtype,
                            int align) {
   const int size = dtype == 2 ? 4 : 2;
   if (n < 1 || hw < 1 || groups < 1 || c % groups) return 0;
   const int cg = c / groups;
   if (!channels_last) return cg <= 1023 ? 1 : 0;
-  int vec = 16 / size;
-  while (vec > 1 && (cg % vec || align % (vec * size))) vec /= 2;
-  return groups <= 1024 && c / vec <= 512 ? 1 : 0;
+  return groups <= 1024 && c / nhwc_vector(c, cg, size, align) <= 512 ? 1 : 0;
 }
 
 // variant: an index of kGnVariants. three_pass takes `chunks` and a scratch

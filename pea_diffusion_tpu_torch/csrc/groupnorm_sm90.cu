@@ -20,10 +20,13 @@
 // - Tiles come into a ring of `slots` shared-memory slots by 1-D bulk copies
 //   (cp.async.bulk, completing an mbarrier) where rows are whole 16-byte
 //   chunks and x is 16-byte aligned, else by the threads' vector loads.
-// - Statistics: each thread owns one vector of a row (V channels that lie
-//   in one group; a row has at most 512 vectors), sums v = x (+ t) and v^2
-//   in registers over the block's tiles of a segment, and the block folds
-//   them per group in a fixed order into its own slot of the partial sums
+// - Statistics: each thread owns one vector of a row (a row has at most 512
+//   vectors) and sums v = x (+ t) and v^2 per element in registers over the
+//   block's tiles of a segment. Channels-last, a vector holds V channels
+//   (16 bytes wherever C and x's alignment allow) that may straddle two
+//   groups, as at 10, 20, 30 and 60 channels a group: the thread folds its
+//   sums into its part of each of the two, and the block folds the parts
+//   per group in a fixed order into its own slot of the partial sums
 //   [segment, group, block] (no atomics on sums). The thread's weight, bias
 //   and t are loaded before the barrier, to arrive while it waits.
 // - One grid barrier (arrivals and a generation in one word that persists
@@ -46,7 +49,7 @@ namespace gn {
 
 constexpr int kPThreads = 512;
 constexpr int kPWarps = kPThreads / 32;
-constexpr int kRedFloats = 2048;  // the block's fold buffer: 2 floats a thread or group
+constexpr int kRedFloats = 2048;  // the block's fold buffer: 4 floats a thread, 2 a group
 constexpr int kMaxSlots = 32;
 constexpr int kPersistentSmem = 227 * 1024;  // an H100 block's opt-in maximum
 constexpr int kSmemFixed = kRedFloats * 4 + kMaxSlots * 8;
@@ -140,6 +143,11 @@ __global__ void __launch_bounds__(kPThreads, 1) gn_persistent(PParams p) {
   // (every row has at most kPThreads vectors).
   const RowSplit<kPThreads> rs(p.width, V);
   const int col = rs.col0;
+  // Channels-last: the vector's first `split` channels lie in group `glo`,
+  // the rest in glo + 1 (V <= cg + 1: at most two groups). Contiguous: one
+  // channel, one group.
+  const int glo = kNhwc ? col * V / p.cg : 0;
+  const int split = kNhwc ? min(V, (glo + 1) * p.cg - col * V) : V;
   const long long per_block = (p.tiles + gridDim.x - 1) / gridDim.x;
   const long long first = min(p.tiles, blockIdx.x * per_block);
   const int count = static_cast<int>(min(p.tiles, first + per_block) - first);
@@ -205,20 +213,40 @@ __global__ void __launch_bounds__(kPThreads, 1) gn_persistent(PParams p) {
     }
   };
 
-  // ---- statistics
-  float s1 = 0.f, s2 = 0.f, tv[V];
-  // The block's sums of segment seg, folded per group into its partials.
+  // ---- statistics: sums per element of the thread's vector
+  float s1[V], s2[V], tv[V];
+  // The block's sums of segment seg, folded per group into its partials:
+  // each thread's parts of its (at most two) groups in red[4 tid, +4), then
+  // per group the parts of the vectors that hold its channels, row-parallel
+  // threads in order.
   auto flush = [&](int seg) {
-    red[2 * tid] = s1;
-    red[2 * tid + 1] = s2;
+    float l1 = 0.f, l2 = 0.f, h1 = 0.f, h2 = 0.f;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      if (e < split) {
+        l1 += s1[e];
+        l2 += s2[e];
+      } else {
+        h1 += s1[e];
+        h2 += s2[e];
+      }
+    }
+    red[4 * tid] = l1;
+    red[4 * tid + 1] = l2;
+    red[4 * tid + 2] = h1;
+    red[4 * tid + 3] = h2;
     __syncthreads();
-    const int cgv = kNhwc ? p.cg / V : rs.per_row;  // a group's vectors in a row
     for (int g = warp; g < p.gs; g += kPWarps) {
+      // the vectors [v0, v0 + nv) of a row that hold channels of group g
+      const int v0 = kNhwc ? g * p.cg / V : 0;
+      const int nv = kNhwc ? ((g + 1) * p.cg - 1) / V - v0 + 1 : rs.per_row;
       float a = 0.f, b = 0.f;
-      for (int j = lane; j < rs.rows_par * cgv; j += 32) {
-        const int owner_tid = (j / cgv) * rs.per_row + g * cgv + j % cgv;
-        a += red[2 * owner_tid];
-        b += red[2 * owner_tid + 1];
+      for (int j = lane; j < rs.rows_par * nv; j += 32) {
+        const int v = v0 + j % nv;
+        const int part = (kNhwc && v * V / p.cg != g) ? 2 : 0;
+        const int owner_tid = (j / nv) * rs.per_row + v;
+        a += red[4 * owner_tid + part];
+        b += red[4 * owner_tid + part + 1];
       }
       a = warp_sum(a);
       b = warp_sum(b);
@@ -241,7 +269,8 @@ __global__ void __launch_bounds__(kPThreads, 1) gn_persistent(PParams p) {
     if (tl.seg != cur) {
       if (cur >= 0) flush(cur);
       cur = tl.seg;
-      s1 = s2 = 0.f;
+#pragma unroll
+      for (int e = 0; e < V; ++e) s1[e] = s2[e] = 0.f;
       load_t(tv, cur);
     }
     wait(i, s);
@@ -257,8 +286,8 @@ __global__ void __launch_bounds__(kPThreads, 1) gn_persistent(PParams p) {
 #pragma unroll
         for (int e = 0; e < V; ++e) {
           const float v = to_float(pk.v[e]) + (kNhwc ? tv[e] : tr);
-          s1 += v;
-          s2 = fmaf(v, v, s2);
+          s1[e] += v;
+          s2[e] = fmaf(v, v, s2[e]);
         }
       }
     }
@@ -337,14 +366,14 @@ __global__ void __launch_bounds__(kPThreads, 1) gn_persistent(PParams p) {
         }
       }
       __syncthreads();
-      if (kNhwc) {  // A and B of the thread's own channels (one group: V | cg)
+      if (kNhwc) {  // A and B of the thread's own channels (groups glo, glo + 1)
         if (cur != t_seg) {
           t_seg = cur;
           load_t(tb, cur);
         }
-        const int g = col * V / p.cg;
 #pragma unroll
         for (int e = 0; e < V; ++e) {
+          const int g = e < split ? glo : glo + 1;
           a[e] = red[2 * g + 1] * sc[e];
           b[e] = bi[e] - red[2 * g] * a[e] + tb[e] * a[e];
         }
@@ -444,8 +473,8 @@ int launch_persistent(const void* x, const void* t, const void* scale, const voi
   p.c = c;
   p.hw = hw;
   p.cg = c / groups;
-  if (nhwc) {  // a vector lies in one group; the groups' mean and rstd fit `red`
-    if (width != c || p.cg % vec || 2 * groups > kRedFloats) {
+  if (nhwc) {  // a vector spans at most two groups; their mean and rstd fit `red`
+    if (width != c || vec - 1 > p.cg || 2 * groups > kRedFloats) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     p.segs = n;

@@ -29,7 +29,7 @@ from torch import nn
 from ..ops import onepass_attention
 from ..parallel.tp import reduce_partial
 from ..ops.attention import dot_product_attention, use_flash, xla_attention_bshd
-from ..ops.groupnorm import fused_gn_applicable, fused_group_norm, group_norm
+from ..ops.groupnorm import fused_gn_applicable, fused_group_norm, group_norm, group_norm_act
 from ..quant.int8 import make_conv, parse_scopes
 from ..utils.trace import span
 
@@ -63,10 +63,11 @@ class TimestepEmbedding(nn.Module):
 class GroupNorm(nn.Module):
     """GroupNorm with an optional preceding per-(sample, channel) bias
     (`extra_bias`, the resnet time embedding) and trailing SiLU. Where
-    ``fused_gn_applicable`` holds (the opt-in PEA_FUSED_GROUPNORM=1 on a
-    CUDA tensor) the whole chain is one fused kernel, B6 or B6-b; otherwise
-    the plain fp32 ``group_norm``. Either way the call is one ``groupnorm``
-    span (utils/trace.py)."""
+    ``fused_gn_applicable`` holds (on a CUDA tensor, when no input needs a
+    gradient, or always with PEA_FUSED_GROUPNORM=1; never with =0) the
+    whole chain is one fused kernel, B6 or B6-b; otherwise the plain fp32
+    ``group_norm_act``. Either way the call is one ``groupnorm`` span
+    (utils/trace.py) whose argument is the route, "kernel" or "plain"."""
 
     def __init__(self, num_channels: int, num_groups: int = 32,
                  eps: float = 1e-5, act: str = "none"):
@@ -76,16 +77,11 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x, extra_bias: Optional[torch.Tensor] = None):
-        with span("groupnorm"):
-            if fused_gn_applicable(x, self.num_groups):
-                return fused_group_norm(x, self.weight, self.bias, self.num_groups,
-                                        self.eps, self.act, extra_bias)
-            if extra_bias is not None:
-                x = x + extra_bias[:, :, None, None].to(x.dtype)
-            y = group_norm(x, self.weight, self.bias, self.num_groups, self.eps)
-            if self.act == "silu":
-                y = F.silu(y)
-            return y
+        inputs = (self.weight, self.bias) + (() if extra_bias is None else (extra_bias,))
+        kernel = fused_gn_applicable(x, self.num_groups, *inputs)
+        with span("groupnorm", "kernel" if kernel else "plain"):
+            return (fused_group_norm if kernel else group_norm_act)(
+                x, self.weight, self.bias, self.num_groups, self.eps, self.act, extra_bias)
 
 
 class ResnetBlock2D(nn.Module):

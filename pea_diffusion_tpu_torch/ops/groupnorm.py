@@ -1,7 +1,19 @@
 """GroupNorm: the plain fp32 ``group_norm``, and the fused GroupNorm kernels
 B6 (``GN(x)`` with an optional SiLU) and B6-b (``GN(x + t)`` with a
-per-(sample, channel) bias t, the resnet's time embedding), behind the
-opt-in gate ``fused_gn_applicable``.
+per-(sample, channel) bias t, the resnet's time embedding), with the route
+between them, ``fused_gn_applicable``.
+
+Route (``models.layers.GroupNorm``, read at each call). A CUDA tensor takes
+the kernels wherever no input (x, the weight, the bias, t) needs a gradient:
+serving under ``torch.inference_mode()``, the KD step's VAE encode and
+teacher under ``torch.no_grad()``, and a frozen UNet's norms before the
+first input that carries one. The norms that carry a gradient take the
+plain form, ``group_norm_act``, whose backward is autograd's.
+``PEA_FUSED_GROUPNORM`` has three states: unset (or any value other than
+``0`` and ``1``), the route above; ``1``, the kernels under autograd too,
+through ``FusedGroupNorm`` / ``FusedGroupNormBias``; ``0``, the plain form
+everywhere. A CPU tensor always takes the plain form. On a CUDA tensor the
+kernel route launches or raises: it never falls back.
 
 Port of ``pea_diffusion_tpu/ops/groupnorm.py``. On a CUDA tensor
 ``group_norm_fwd`` and ``group_norm_bias_fwd`` launch the hand-written
@@ -9,20 +21,20 @@ Hopper kernels behind ``csrc/groupnorm.cu``'s entry points
 ``pea_group_norm_fwd`` and ``pea_group_norm_bias_fwd`` (replacing the TPU
 kernels ``_gn_kernel`` and ``_gn_bias_kernel``) in the variant the library's
 rule ships for the shape (``shipped_gn_variant``): ``persistent``
-(``csrc/groupnorm_sm90.cu``, one cooperative launch, the map kept in shared
-memory where it fits, planned by ``persistent_plan``) or ``three_pass``
-(statistics, finalize, apply). ``group_norm_variant`` runs either by name.
-On a CPU tensor each runs ``fused_gn_ref``, the plain version of the same
-function. Inputs are [N, C, H, W] in either dense layout: contiguous (a
-group is one slab of cg*H*W elements) or channels-last (the TPU kernel's
-NHWC, and what every GroupNorm of the UNet, ControlNet and VAE receives:
-they take NHWC and permute it). Any other strides are made contiguous by
-one copy, counted in ``group_norm_fwd.copies``. The
-kernels' outputs carry no autograd history: ``fused_group_norm`` takes
-inputs that need a gradient through ``FusedGroupNorm`` /
-``FusedGroupNormBias``, whose forward is the kernel and whose backward is
-the plain version's VJP, recomputed (the JAX package's custom VJP rules are
-XLA VJPs of its plain version too).
+(``csrc/groupnorm_sm90.cu``, one cooperative launch, the map kept in
+shared memory where it fits, planned by ``persistent_plan``) or
+``three_pass`` (statistics, finalize, apply).
+``group_norm_variant`` runs either by name. On a CPU tensor each runs
+``fused_gn_ref``, the plain version of the same function. Inputs are [N, C,
+H, W] in either dense layout: contiguous (a group is one slab of cg*H*W
+elements) or channels-last (the TPU kernel's NHWC, and what every GroupNorm
+of the UNet, ControlNet and VAE receives: they take NHWC and permute it).
+Any other strides are made contiguous by one copy, counted in
+``group_norm_fwd.copies``. The kernels' outputs carry no autograd history:
+``fused_group_norm`` takes inputs that need a gradient through
+``FusedGroupNorm`` / ``FusedGroupNormBias``, whose forward is the kernel and
+whose backward is the plain version's VJP, recomputed (the JAX package's
+custom VJP rules are XLA VJPs of its plain version too).
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import kernel_build
 from .flash_attention import check_no_grad, needs_grad
@@ -109,7 +122,8 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     the JAX package picks them: ``PEA_GN_GROUPED=1`` pins
     ``group_norm_grouped`` and ``=0`` ``group_norm_sums`` (read at each call;
     the way to pin batch-invariant bits), and otherwise batch <= 2 takes the
-    grouped form, batch >= 3 the sums."""
+    grouped form, batch >= 3 the sums. The knob acts on this plain form
+    only, never on the kernels."""
     knob = os.environ.get("PEA_GN_GROUPED")
     if knob == "1" or (knob != "0" and x.shape[0] <= 2):
         return group_norm_grouped(x, weight, bias, num_groups, eps)
@@ -131,19 +145,38 @@ def fused_gn_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y
 
 
-def fused_gn_applicable(x: torch.Tensor, groups: int) -> bool:
-    """Whether ``models.layers.GroupNorm`` takes the fused kernels, checked in
-    this order: the opt-in ``PEA_FUSED_GROUPNORM=1`` (read at each call), a
-    4-d input, channels divisible by `groups`, and a CUDA tensor (the JAX
-    gate's "the backend is a TPU"). The JAX gate's other two tests, 128
-    channel lanes and a map that fits VMEM, are the TPU's tiling and are not
-    copied: with the opt-in on, every GroupNorm of the UNet, the ControlNet
-    and the VAE runs B6 or B6-b on the card."""
-    if os.environ.get("PEA_FUSED_GROUPNORM") != "1":
+def group_norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   groups: int, eps: float, act: str = "none",
+                   extra_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain route of ``models.layers.GroupNorm``: x plus extra_bias [N,
+    C] in x's type, ``group_norm``, then SiLU. Counts its calls on CUDA
+    tensors in ``group_norm_act.cuda_calls``, beside the kernels'
+    ``launches``."""
+    if x.is_cuda:
+        group_norm_act.cuda_calls += 1
+    if extra_bias is not None:
+        x = x + extra_bias[:, :, None, None].to(x.dtype)
+    y = group_norm(x, weight, bias, groups, eps)
+    return F.silu(y) if act == "silu" else y
+
+
+group_norm_act.cuda_calls = 0
+
+
+def fused_gn_applicable(x: torch.Tensor, groups: int, *inputs: torch.Tensor) -> bool:
+    """Whether ``models.layers.GroupNorm`` takes the kernels (B6, or B6-b
+    with a t) for x and its other `inputs` (weight, bias, t), checked in
+    this order: ``PEA_FUSED_GROUPNORM`` (read at each call) is not ``0``, x
+    is 4-d with channels divisible by `groups`, x is a CUDA tensor (the JAX
+    gate's "the backend is a TPU"), and ``PEA_FUSED_GROUPNORM=1`` or no
+    input needs a gradient. The JAX gate's other two tests, 128 channel
+    lanes and a map that fits VMEM, are the TPU's tiling and are not copied:
+    every such GroupNorm of the UNet, the ControlNet and the VAE runs B6 or
+    B6-b on the card."""
+    knob = os.environ.get("PEA_FUSED_GROUPNORM")
+    if knob == "0" or x.ndim != 4 or x.shape[1] % groups or not x.is_cuda:
         return False
-    if x.ndim != 4 or x.shape[1] % groups:
-        return False
-    return x.is_cuda
+    return knob == "1" or not needs_grad(x, *inputs)
 
 
 def layout(x: torch.Tensor) -> str:
@@ -162,6 +195,16 @@ def vector_width(row: int, elem_size: int, ptr: int) -> int:
     pointer's alignment."""
     v = 16 // elem_size
     while v > 1 and (row % v or ptr % (v * elem_size)):
+        v //= 2
+    return v
+
+
+def nhwc_vector_width(c: int, cg: int, elem_size: int, ptr: int) -> int:
+    """Channels-last, the persistent variant's vector: ``vector_width`` of
+    the C channels, halved until it spans at most two groups of cg
+    (V <= cg + 1), as the C rule ``nhwc_vector`` has it."""
+    v = vector_width(c, elem_size, ptr)
+    while v > 1 and v - 1 > cg:
         v //= 2
     return v
 
@@ -228,14 +271,14 @@ def row_width(hw: int, vec: int) -> int:
 def persistent_plan(n: int, c: int, hw: int, groups: int, nhwc: bool, vec: int,
                     elem_size: int, blocks: int) -> TilePlan:
     """The persistent variant's tiles for an [N, C, H, W] map: each segment
-    spread over its share of the blocks (at least one), each block's rows cut
-    into tiles of about TILE_TARGET bytes, as many ring slots as a block has
-    tiles up to TILE_BUDGET. Raises ValueError for what the variant does not
-    take."""
+    spread over its share of the blocks (at least one), each block's rows
+    cut into tiles of about TILE_TARGET bytes (smaller where that keeps the
+    map resident), as many ring slots as a block has tiles up to
+    TILE_BUDGET. Raises ValueError for what the variant does not take."""
     cg = c // groups
     if nhwc:
         segs, seg_rows, width, gs = n, hw, c, groups
-        if cg % vec or groups > MAX_GROUPS:
+        if vec - 1 > cg or groups > MAX_GROUPS:
             raise ValueError(f"persistent group norm: {groups} groups of {cg} channels in "
                              f"vectors of {vec}")
     else:
@@ -248,13 +291,20 @@ def persistent_plan(n: int, c: int, hw: int, groups: int, nhwc: bool, vec: int,
     row = width * elem_size
     rows_per_block = -(-seg_rows // max(1, blocks // segs))
     per_tile = -(-rows_per_block * row // TILE_TARGET)
-    tile_rows = -(-rows_per_block // per_tile)
-    slot_bytes = -(-tile_rows * row // 128) * 128
-    fit = min(MAX_SLOTS, TILE_BUDGET // slot_bytes)
-    if fit < 1:
+    first = -(-rows_per_block // per_tile)
+    if -(-first * row // 128) * 128 > TILE_BUDGET:
         raise ValueError(f"persistent group norm: a row of {row} bytes")
-    tiles = segs * -(-seg_rows // tile_rows)
-    per_block = -(-tiles // blocks)
+
+    def cut(tile_rows):  # (slot bytes, slots that fit, tiles a block)
+        slot_bytes = -(-tile_rows * row // 128) * 128
+        per_block = -(-segs * -(-seg_rows // tile_rows) // blocks)
+        return slot_bytes, min(MAX_SLOTS, TILE_BUDGET // slot_bytes), per_block
+
+    # the first tile height that keeps the map resident, where a smaller one
+    # makes up for the segments' ragged ends
+    tile_rows = next((r for r in range(first, max(1, first // 2) - 1, -1)
+                      if cut(r)[2] <= cut(r)[1]), first)
+    slot_bytes, fit, per_block = cut(tile_rows)
     return TilePlan(segs, seg_rows, width, gs, tile_rows, blocks, min(fit, per_block),
                     slot_bytes, per_block, per_block <= fit)
 
@@ -278,6 +328,7 @@ def plan_tiles(plan: TilePlan, block: int) -> List[Tuple[int, int, int]]:
 # pea_group_norm_bias_fwd takes t after x and t_f32 after bias_f32
 _HEAD = [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 6
 _PLAN = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SHIPPED_ARGTYPES = [ctypes.c_int] * 7
 _ARGTYPES = [ctypes.c_void_p] * 5 + _HEAD + _PLAN
 _BIAS_ARGTYPES = [ctypes.c_void_p] * 6 + _HEAD + [ctypes.c_int] + _PLAN
 
@@ -295,7 +346,7 @@ def shipped_gn_variant(n: int, c: int, hw: int, groups: int, nhwc: bool,
     """The variant B6 and B6-b run for the shape, layout and type of a map at
     address `ptr` (its alignment counts): the library's own rule
     (``pea_gn_shipped_variant``), so it needs the built library."""
-    index = kernel_build.function("pea_gn_shipped_variant", [ctypes.c_int] * 7)(
+    index = kernel_build.function("pea_gn_shipped_variant", _SHIPPED_ARGTYPES)(
         n, c, hw, groups, int(nhwc), _DTYPES[dtype], min(16, ptr & -ptr) if ptr else 16)
     return GN_VARIANTS[index]
 
@@ -370,7 +421,8 @@ def _launch(name: str, x: torch.Tensor, t: Optional[torch.Tensor], scale: torch.
                            device=x.device)
         blocks = 0
     else:
-        vec = vector_width(c // groups if nhwc else h * w, x.element_size(), x.data_ptr())
+        vec = (nhwc_vector_width(c, c // groups, x.element_size(), x.data_ptr()) if nhwc
+               else vector_width(h * w, x.element_size(), x.data_ptr()))
         p = persistent_plan(n, c, h * w, groups, nhwc, vec, x.element_size(),
                             blocks or _sm_count(x.device.index))
         width, tile_rows, slots, blocks = p.width, p.tile_rows, p.slots, p.blocks

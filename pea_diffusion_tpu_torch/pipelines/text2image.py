@@ -421,7 +421,8 @@ class StableDiffusionXLPEAPipeline:
         from ..utils.startup import launcher_symbols, unet_attention_routes
 
         routes = unet_attention_routes(self.models.unet, height // 8, width // 8, seq_len)
-        fused_gn = os.environ.get("PEA_FUSED_GROUPNORM") == "1"  # the layers' opt-in
+        # the layers' GroupNorm takes the kernels unless PEA_FUSED_GROUPNORM=0
+        fused_gn = os.environ.get("PEA_FUSED_GROUPNORM") != "0"
         symbols = launcher_symbols(routes, fused_gn)
         for name, argtypes in symbols.items():  # the first one loads (or builds) the library
             kernel_build.function(name, argtypes)

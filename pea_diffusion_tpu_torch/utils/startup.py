@@ -128,7 +128,8 @@ def unet_attention_routes(unet, latent_h: int, latent_w: int, skv: int) -> set:
 
 def launcher_symbols(routes, fused_gn: bool) -> Dict[str, list]:
     """{launcher symbol: its argtypes} of the kernel routes in `routes` and,
-    with `fused_gn`, of the fused GroupNorm (B6, B6-b)."""
+    with `fused_gn`, of the fused GroupNorm (B6, B6-b, and the rule that
+    picks their variant)."""
     from ..ops import flash_attention, groupnorm, onepass_attention
 
     out = {}
@@ -139,6 +140,7 @@ def launcher_symbols(routes, fused_gn: bool) -> Dict[str, list]:
     if fused_gn:
         out["pea_group_norm_fwd"] = groupnorm._ARGTYPES
         out["pea_group_norm_bias_fwd"] = groupnorm._BIAS_ARGTYPES
+        out["pea_gn_shipped_variant"] = groupnorm._SHIPPED_ARGTYPES
     return out
 
 

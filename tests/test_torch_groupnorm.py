@@ -4,8 +4,12 @@ against the JAX ``fused_group_norm`` run in interpret mode (the Pallas
 kernel's own arithmetic) and against its ``group_norm``, for act none and
 silu, with and without the per-(sample, channel) bias t; the autograd
 Functions' gradients in x, t, scale and bias against ``jax.vjp`` of the JAX
-fused function; the opt-in gate's table; the GroupNorm module with the
-opt-in on (the CPU never takes the kernel); a channels-last input; and the
+fused function; the route's table (PEA_FUSED_GROUPNORM unset, 0 and 1, with
+and without an input that needs a gradient, on a CUDA tensor and a CPU
+one), the GroupNorm module's route on a tensor that reads as a CUDA one
+(which function it calls, the plain route's counter, the span's route
+argument); the GroupNorm module with the opt-in on (the CPU never takes
+the kernel); a channels-last input; and the
 wrapper's layout, vector width and chunking rules and the persistent
 variant's tile plan (every element in exactly one tile, the resident
 decision against the shared-memory budget at every path shape), which the
@@ -137,15 +141,15 @@ def test_function_backward_under_checkpointing():
     np.testing.assert_allclose(xs.grad.numpy(), ref_x.grad.numpy(), atol=1e-5)
 
 
-def _fake(ndim=4, channels=32, cuda=True):
+def _fake(ndim=4, channels=32, cuda=True, grad=False):
     return SimpleNamespace(ndim=ndim, shape=(2, channels, 8, 8)[:ndim] + (8,) * (ndim - 4),
-                           is_cuda=cuda)
+                           is_cuda=cuda, requires_grad=grad)
 
 
 @pytest.mark.parametrize("env,x,groups,want", [
-    (None, _fake(), 8, False),                 # opt-in unset
-    ("0", _fake(), 8, False),                  # opt-in off
-    ("true", _fake(), 8, False),               # only "1" turns it on
+    (None, _fake(), 8, True),                  # unset: the kernel, as no input needs a gradient
+    ("0", _fake(), 8, False),                  # the plain form everywhere
+    ("true", _fake(), 8, True),                # any value but 0 and 1 reads as unset
     ("1", _fake(), 8, True),                   # a 4-d CUDA tensor, 32 = 8 groups of 4
     ("1", _fake(ndim=3), 8, False),            # not 4-d
     ("1", _fake(channels=30), 8, False),       # channels not divisible by groups
@@ -166,6 +170,90 @@ def test_gate_reads_the_environment_at_call_time(monkeypatch):
     assert G.fused_gn_applicable(x, 8)
     monkeypatch.setenv("PEA_FUSED_GROUPNORM", "0")
     assert not G.fused_gn_applicable(x, 8)
+
+
+@pytest.mark.parametrize("env", [None, "0", "1"])
+@pytest.mark.parametrize("grad_on", [None, "x", "weight", "t"])
+@pytest.mark.parametrize("cuda", [True, False])
+def test_route_table(monkeypatch, env, grad_on, cuda):
+    """A CUDA tensor takes the kernels unless PEA_FUSED_GROUPNORM=0, and,
+    unset, only where no input (x, weight, bias, t) needs a gradient; a CPU
+    tensor never does."""
+    if env is None:
+        monkeypatch.delenv("PEA_FUSED_GROUPNORM", raising=False)
+    else:
+        monkeypatch.setenv("PEA_FUSED_GROUPNORM", env)
+    x = _fake(cuda=cuda, grad=grad_on == "x")
+    inputs = [torch.ones(32, requires_grad=grad_on == "weight"), torch.zeros(32),
+              torch.zeros(2, 32, requires_grad=grad_on == "t")]
+    want = cuda and env != "0" and (env == "1" or grad_on is None)
+    assert G.fused_gn_applicable(x, 8, *inputs) is want
+    with torch.no_grad():  # nothing needs a gradient under no_grad
+        assert G.fused_gn_applicable(x, 8, *inputs) is (cuda and env != "0")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reads as a CUDA one, to follow the module's route
+    past the gate here."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("env", [None, "0", "1"])
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("with_t", [False, True])
+def test_group_norm_module_route_counter_and_span(monkeypatch, env, grad, with_t):
+    """The module launches B6 / B6-b (here stand-ins that count) where the
+    route says so, through FusedGroupNorm(Bias) when an input needs a
+    gradient, and otherwise calls the plain route, which counts its CUDA
+    calls in group_norm_act.cuda_calls; either way one groupnorm span whose
+    argument names the route. Values match the plain version."""
+    if env is None:
+        monkeypatch.delenv("PEA_FUSED_GROUPNORM", raising=False)
+    else:
+        monkeypatch.setenv("PEA_FUSED_GROUPNORM", env)
+    launched = []
+
+    def stand_in(name):
+        def run(x, *args):
+            launched.append(name)
+            t_ = args[0] if name == "B6-b" else None
+            rest = args[1:] if name == "B6-b" else args
+            return G.fused_gn_ref(x, *rest, extra_bias=t_)
+        return run
+
+    monkeypatch.setattr(G, "group_norm_fwd", stand_in("B6"))
+    monkeypatch.setattr(G, "group_norm_bias_fwd", stand_in("B6-b"))
+    spans = []
+    real_span = P.span
+    monkeypatch.setattr(P, "span", lambda name, args=None: spans.append((name, args))
+                        or real_span(name, args))
+    x_np, tb_np = _rand(2, 4, 4, 32, seed=7), _rand(2, 32, seed=8)
+    x = _nchw(x_np).as_subclass(_OnCard).requires_grad_(grad)
+    tb = t(tb_np).as_subclass(_OnCard) if with_t else None
+    norm = P.GroupNorm(32, 8, 1e-5, act="silu")
+    norm.requires_grad_(False)
+    plain = G.group_norm_act.cuda_calls
+    out = norm(x, tb)
+    kernel = env != "0" and (env == "1" or not grad)
+    assert launched == ([("B6-b" if with_t else "B6")] if kernel else [])
+    assert G.group_norm_act.cuda_calls == plain + (not kernel)
+    assert spans == [("groupnorm", "kernel" if kernel else "plain")]
+    assert out.requires_grad == grad
+    want = G.fused_gn_ref(_nchw(x_np), norm.weight, norm.bias, 8, 1e-5, "silu",
+                          t(tb_np) if with_t else None)
+    np.testing.assert_allclose(out.detach().numpy(), want.numpy(), atol=1e-5)
+
+
+def test_plain_route_counts_only_cuda_calls():
+    x, scale, bias, tb = _inputs((2, 4, 4, 16), seed=9)
+    calls = G.group_norm_act.cuda_calls
+    G.group_norm_act(_nchw(x), t(scale), t(bias), 4, 1e-5, "silu", t(tb))
+    assert G.group_norm_act.cuda_calls == calls
+    G.group_norm_act(_nchw(x).as_subclass(_OnCard), t(scale), t(bias), 4, 1e-5)
+    assert G.group_norm_act.cuda_calls == calls + 1
 
 
 @pytest.mark.parametrize("act,with_t", [("silu", True), ("none", False)])
@@ -208,6 +296,20 @@ def test_plain_version_takes_channels_last(batch):
 ])
 def test_vector_width(row, size, ptr, want):
     assert G.vector_width(row, size, ptr) == want
+
+
+@pytest.mark.parametrize("c,cg,size,ptr,want", [
+    (320, 10, 2, 0, 8),     # SDXL level 0: 16 bytes, a vector over two groups
+    (640, 20, 2, 0, 8),
+    (1280, 40, 2, 0, 8),    # 8 divides 40: one group a vector
+    (128, 4, 4, 0, 4),      # fp32 VAE: 16 bytes
+    (96, 3, 2, 0, 4),       # 3 a group: at most 4 elements span two groups
+    (64, 1, 2, 0, 2),       # 1 a group
+    (320, 10, 2, 4, 2),     # a view 4 bytes past an aligned address
+])
+def test_nhwc_vector_width(c, cg, size, ptr, want):
+    got = G.nhwc_vector_width(c, cg, size, ptr)
+    assert got == want and c % got == 0 and got - 1 <= cg
 
 
 @pytest.mark.parametrize("n,c,hw,groups,nhwc,vec", [
@@ -263,6 +365,8 @@ def _coverage(n, c, hw, groups, nhwc, vec, elem_size, blocks):
     (1, 93, 323, 3, 1, 2, 7),      # 31 channels per group, ragged rows
     (2, 96, 900, 32, 1, 2, 16),    # 3 per group: 1-element vectors
     (1, 16, 4096, 4, 4, 4, 3),     # fp32, many tiles a block
+    (16, 320, 64, 32, 8, 2, 132),  # 10 channels a group: vectors span two groups
+    (5, 60, 33, 3, 4, 2, 16),      # 20 a group, ragged rows
 ])
 @pytest.mark.parametrize("nhwc", [True, False])
 def test_persistent_plan_covers_every_element_once(n, c, hw, groups, vec, elem_size,
@@ -271,26 +375,35 @@ def test_persistent_plan_covers_every_element_once(n, c, hw, groups, vec, elem_s
         vec = G.vector_width(hw, elem_size, 0)
     p, counts = _coverage(n, c, hw, groups, nhwc, vec, elem_size, blocks)
     assert (counts == 1).all()
-    if nhwc:  # a row is one pixel's C channels; a vector lies in one group
-        assert (p.segs, p.seg_rows, p.width) == (n, hw, c) and (c // groups) % vec == 0
+    if nhwc:  # a row is one pixel's C channels; a vector spans at most two groups
+        assert (p.segs, p.seg_rows, p.width) == (n, hw, c) and vec - 1 <= c // groups
     else:  # a row lies in one channel of a (sample, group) slab
         assert p.segs == n * groups and hw % p.width == 0 and p.width % vec == 0
 
 
 def test_persistent_plan_at_every_path_shape():
     """At each GroupNorm shape of the SDXL ControlNet path (and the smoke's
-    check shapes), on the H100's 132 SMs, both layouts: each segment's rows
-    covered once, the ring within the shared-memory budget, and the map
-    resident (every block's tiles in its slots) exactly when they fit: the
-    maps up to about 132 x TILE_BUDGET bytes."""
+    check shapes) and of the main paths (tools/sweep_groupnorm.py: the SDXL
+    UNet at CFG batch 16, the SD1.5 teacher at batch 40, the fp32 VAE
+    decoder and encoder), on the H100's 132 SMs, both layouts: each
+    segment's rows covered once, the ring within the shared-memory budget,
+    and the map resident (every block's tiles in its slots) exactly when
+    they fit: the maps up to about 132 x TILE_BUDGET bytes."""
     import chip_smoke
+
+    from pea_diffusion_tpu_torch.tools import sweep_groupnorm
 
     sms = 132
     seen = {}
-    for _, b, c, h, w, groups, _, dtype, _, _ in chip_smoke.groupnorm_cases():
+    cases = [(b, c, h, w, groups, dtype)
+             for _, b, c, h, w, groups, _, dtype, _, _ in chip_smoke.groupnorm_cases()]
+    cases += [(b, c, h, w, groups, dtype) for _, _, b, c, groups, h, w, _, dtype, _
+              in sweep_groupnorm.path_cases(list(sweep_groupnorm.PATHS))]
+    for b, c, h, w, groups, dtype in cases:
         size = torch.empty((), dtype=dtype).element_size()
         for nhwc in (True, False):
-            vec = G.vector_width(c // groups if nhwc else h * w, size, 0)
+            vec = (G.nhwc_vector_width(c, c // groups, size, 0) if nhwc
+                   else G.vector_width(h * w, size, 0))
             p = G.persistent_plan(b, c, h * w, groups, nhwc, vec, size, sms)
             rows = {}
             for blk in range(sms):
@@ -311,12 +424,47 @@ def test_persistent_plan_at_every_path_shape():
             if nbytes > sms * G.TILE_BUDGET:
                 assert not p.resident, (b, c, h, w, nhwc)
             if nhwc:
-                seen[b, c, h] = p.resident
-    # the maps the ControlNet path keeps on chip, and those it reads twice
-    assert seen[2, 1280, 64] and seen[2, 320, 128] and seen[1, 512, 128]
-    assert seen[2, 2560, 32] and seen[2, 960, 64]
-    assert not (seen[2, 1920, 64] or seen[2, 640, 128] or seen[2, 960, 128]
-                or seen[1, 512, 256] or seen[1, 128, 1024])
+                seen[b, c, h, size] = p.resident
+    # the maps the paths keep on chip, and those they read twice (bf16: 2
+    # bytes an element; the fp32 VAE's 4)
+    assert seen[2, 1280, 64, 2] and seen[2, 320, 128, 2] and seen[1, 512, 128, 2]
+    assert seen[2, 2560, 32, 2] and seen[2, 960, 64, 2] and seen[2, 512, 64, 4]
+    assert seen[16, 640, 32, 2] and seen[40, 1280, 16, 2] and seen[40, 2560, 8, 2]
+    assert not (seen[2, 1920, 64, 2] or seen[2, 640, 128, 2] or seen[2, 960, 128, 2]
+                or seen[1, 512, 256, 2] or seen[1, 128, 1024, 2] or seen[16, 1280, 32, 2]
+                or seen[40, 320, 64, 2] or seen[1, 512, 128, 4] or seen[2, 128, 512, 4])
+
+
+def test_sweep_walk_counts_the_groupnorms_a_forward_calls():
+    """tools/sweep_groupnorm.py's walk of the GroupNorm modules (channels,
+    groups, spatial side, B6 or B6-b, act) gives what hooks on the modules
+    see in one forward of the tiny SD1.5 UNet and VAE encoder (the
+    ControlNet path's walk is held in tests/test_torch_controlnet.py)."""
+    from collections import Counter
+
+    from pea_diffusion_tpu_torch.configs.unet import SD15_UNET_TINY, VAE_TINY
+    from pea_diffusion_tpu_torch.models import AutoencoderKL, UNet2DCondition
+    from pea_diffusion_tpu_torch.tools import sweep_groupnorm
+
+    seen = Counter()
+
+    def hook(mod, args, kwargs):
+        x = args[0]
+        kern = "B6-b" if kwargs.get("extra_bias") is not None else "B6"
+        seen[kern, x.shape[0], x.shape[1], mod.num_groups, x.shape[2], mod.act] += 1
+
+    torch.manual_seed(0)
+    unet, encoder = UNet2DCondition(SD15_UNET_TINY), AutoencoderKL(VAE_TINY).encoder
+    for m in (unet, encoder):
+        for norm in m.modules():
+            if isinstance(norm, P.GroupNorm):
+                norm.register_forward_pre_hook(hook, with_kwargs=True)
+    with torch.no_grad():
+        unet(torch.zeros(2, 8, 8, 4), torch.tensor([1, 2]),
+             torch.zeros(2, 5, SD15_UNET_TINY.cross_attention_dim))
+        encoder(torch.zeros(1, 3, 16, 16))
+    assert seen == (sweep_groupnorm.groupnorm_calls(unet, 8, 2)
+                    + sweep_groupnorm.groupnorm_calls(encoder, 16, 1))
 
 
 @pytest.mark.parametrize("hw,vec,want", [

@@ -12,7 +12,10 @@ rounded terms). The attention modules' input gradients through the kernels
 must match the plain route's within 2e-2 too. The GroupNorm kernels (B6,
 B6-b) are held, in each variant (three_pass, persistent), to 8e-3 of their
 fp32 plain version in bf16, fp16 and fp32, contiguous and channels-last,
-and must give the same bits on a second run. A LoRA fused on the card
+and must give the same bits on a second run, also at the main paths'
+shapes (CFG batch 16, the fp32 VAE maps); an SDXL UNet forward at CFG
+batch 16 launches them for all 46 GroupNorms, and a KD step takes the
+plain route only where an input needs a gradient. A LoRA fused on the card
 gives the bits it gives on the CPU. The data pipeline's prefetcher copies
 pinned host batches to the card on a side stream, in order, values intact.
 The serving engine co-batches two requests into one call of the tiny stack
@@ -561,6 +564,126 @@ def test_groupnorm_module_takes_the_kernels_behind_the_opt_in_on_card(monkeypatc
             out, (x, t, norm.weight, norm.bias), gout))
     for a, b in zip(grads["1"], grads["0"]):
         assert _rel_err(a, b.float()) < BWD_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((16, 320, 128, 128), torch.bfloat16),   # SDXL at CFG batch 16: level 0
+    ((16, 640, 128, 128), torch.bfloat16),   # up block 2's concat
+    ((16, 960, 128, 128), torch.bfloat16),   # up block 2's first resnet: over 28 MB a sample
+    ((16, 1280, 64, 64), torch.bfloat16),
+    ((16, 1920, 64, 64), torch.bfloat16),
+    ((16, 2560, 32, 32), torch.bfloat16),
+    ((1, 128, 1024, 1024), torch.float32),   # the SDXL VAE decoder's last level
+    ((1, 512, 128, 128), torch.float32),     # its mid block
+    ((2, 128, 512, 512), torch.float32),     # the SD1.5 VAE encoder's chunk of 2
+    ((2, 512, 64, 64), torch.float32),
+])
+@pytest.mark.parametrize("with_t", [False, True])
+def test_groupnorm_kernels_at_main_path_shapes_on_card(shape, dtype, with_t):
+    """B6 / B6-b, as the route launches them (the shipped variant and wave
+    plan, channels-last), against fused_gn_ref in fp32 at the main paths'
+    shapes, and the same bits on a second run."""
+    from pea_diffusion_tpu_torch.ops import groupnorm
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, c = shape[:2]
+    x = (0.5 + 2 * torch.randn(*shape, device=dev, generator=g)).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    scale = (1 + 0.1 * torch.randn(c, device=dev, generator=g)).to(dtype)
+    bias = (0.1 * torch.randn(c, device=dev, generator=g)).to(dtype)
+    t = torch.randn(n, c, device=dev, generator=g).to(dtype) if with_t else None
+    fn = groupnorm.group_norm_bias_fwd if with_t else groupnorm.group_norm_fwd
+    args = ((x, t) if with_t else (x,)) + (scale, bias, 32, 1e-5, "silu")
+    launches = fn.launches
+    out, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 2
+    assert out.dtype == dtype and out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out, again)
+    ref = groupnorm.fused_gn_ref(x.float(), scale.float(), bias.float(), 32, 1e-5, "silu",
+                                 None if t is None else t.float())
+    assert _rel_err(out, ref) < RTOL
+
+
+def _gn_counts():
+    from pea_diffusion_tpu_torch.ops import groupnorm
+
+    return (groupnorm.group_norm_fwd.launches + groupnorm.group_norm_bias_fwd.launches,
+            groupnorm.group_norm_act.cuda_calls)
+
+
+@pytest.mark.gpu
+def test_sdxl_unet_at_cfg_batch_16_takes_the_kernel_for_every_groupnorm_on_card(monkeypatch):
+    """Under inference_mode, with PEA_FUSED_GROUPNORM unset, one SDXL UNet
+    forward at CFG batch 16 (1024², bf16, random weights) launches B6 / B6-b
+    for each of its 46 GroupNorms and takes the plain route for none."""
+    from pea_diffusion_tpu_torch.configs import SDXL_UNET
+    from pea_diffusion_tpu_torch.models import UNet2DCondition
+    from pea_diffusion_tpu_torch.models.layers import GroupNorm
+
+    dev = _card()
+    monkeypatch.delenv("PEA_FUSED_GROUPNORM", raising=False)
+    with torch.device(dev):
+        unet = UNet2DCondition(SDXL_UNET).to(torch.bfloat16)
+    assert sum(isinstance(m, GroupNorm) for m in unet.modules()) == 46
+    g = torch.Generator(device=dev).manual_seed(8)
+    b = 16
+    with torch.inference_mode():
+        kernel, plain = _gn_counts()
+        unet(torch.randn(b, 128, 128, 4, device=dev, generator=g), torch.full((b,), 500.0,
+                                                                               device=dev),
+             torch.randn(b, 77, 2048, device=dev, generator=g),
+             {"text_embeds": torch.randn(b, 1280, device=dev, generator=g),
+              "time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * b, device=dev)})
+        torch.cuda.synchronize()
+        assert _gn_counts() == (kernel + 46, plain)
+
+
+@pytest.mark.gpu
+def test_kd_step_takes_the_plain_route_only_where_a_gradient_is_needed_on_card(
+        tmp_path, monkeypatch):
+    """One KD step of the full-width SD1.5 stack (bf16 UNet, fp32 VAE, batch
+    2 at 256²) on the card: every GroupNorm call (VAE encode, teacher, the
+    student's forward and its recompute) launches the kernel where no input
+    needs a gradient and takes the plain route where one does, and only the
+    student's calls need one."""
+    from pea_diffusion_tpu_torch.cli import train as train_cli
+    from pea_diffusion_tpu_torch.configs import TrainConfig
+    from pea_diffusion_tpu_torch.models.layers import GroupNorm
+    from pea_diffusion_tpu_torch.ops.flash_attention import needs_grad
+    from pea_diffusion_tpu_torch.train.trainer import KDTrainer
+
+    _card()
+    monkeypatch.delenv("PEA_FUSED_GROUPNORM", raising=False)
+    models, make_batches = train_cli.build_demo_full("cuda", batch_size=2, size=256,
+                                                     model="sd15")
+    trainer = KDTrainer(models, TrainConfig(output_dir=str(tmp_path), batch_size_per_device=2,
+                                            log_every_n_steps=100, every_n_steps=100))
+    calls = []  # (module, whether an input needs a gradient)
+
+    def record(module, args, kwargs):
+        extra = kwargs.get("extra_bias", args[1] if len(args) > 1 else None)
+        inputs = (args[0], module.weight, module.bias) + (() if extra is None else (extra,))
+        calls.append((module, needs_grad(*inputs)))
+
+    hooks = [m.register_forward_pre_hook(record, with_kwargs=True)
+             for net in (models.unet, models.vae) for m in net.modules()
+             if isinstance(m, GroupNorm)]
+    try:
+        kernel, plain = _gn_counts()
+        trainer.fit(make_batches(0), max_steps=1)
+        torch.cuda.synchronize()
+        got = _gn_counts()
+    finally:
+        for h in hooks:
+            h.remove()
+    unet_norms = {m for m in models.unet.modules() if isinstance(m, GroupNorm)}
+    graded = sum(grad for _, grad in calls)
+    assert 0 < graded < len(calls)
+    assert all(m in unet_norms for m, grad in calls if grad)
+    assert got == (kernel + len(calls) - graded, plain + graded)
 
 
 @pytest.mark.gpu

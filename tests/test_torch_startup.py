@@ -139,7 +139,7 @@ def test_prefetch_on_a_cpu_pipeline_does_nothing():
     assert startup.launcher_symbols({"onepass", "flash", "plain"}, False).keys() == {
         "pea_onepass_attention_fwd", "pea_flash_attention_fwd"}
     assert set(startup.launcher_symbols({"plain"}, True)) == {
-        "pea_group_norm_fwd", "pea_group_norm_bias_fwd"}
+        "pea_group_norm_fwd", "pea_group_norm_bias_fwd", "pea_gn_shipped_variant"}
 
 
 def test_unet_attention_routes_follow_the_dispatch():
