@@ -130,13 +130,8 @@ def load_controlnet(directory: str, dtype=None, device="cuda"):
     ControlNet)."""
     from ..models.controlnet import ControlNet
 
-    c = _read_json(os.path.join(directory, "config.json"))
-    c.setdefault("out_channels", c.get("in_channels", 4))  # no output head
-    cfg = ControlNetConfig(
-        unet=UNetConfig.from_diffusers_config(c),
-        conditioning_channels=c.get("conditioning_channels", 3),
-        conditioning_embedding_channels=tuple(
-            c.get("conditioning_embedding_out_channels", (16, 32, 96, 256))))
+    cfg = ControlNetConfig.from_diffusers_config(_read_json(os.path.join(directory,
+                                                                          "config.json")))
     with torch.device("meta"):
         cn = ControlNet(cfg)
     return cfg, load_weights(cn, load_state_dict(directory), dtype or torch.float32, device,

@@ -7,21 +7,34 @@ POST /generate {"prompt", "negative_prompt", "steps", "guidance",
 requests served, uptime and the engine's co-batching counters. An error is
 a 400 with a JSON body {"error": ...}; any other path a 404.
 
+A server started with a ControlNet (--controlnet DIR, or --demo-controlnet
+beside --demo / --demo-full) also takes "control_image", a base64 PNG of the
+control map (RGB or L; resized to the served size where it differs, as
+``pipelines/controlnet.py::prepare_control_image`` does), and
+"controlnet_conditioning_scale" (default 1.0). A request with a map runs the
+ControlNet on every step (guess mode off); one without runs text to image,
+which is the ControlNet at scale 0 without its cost. A bad map, or a map
+sent to a server without a ControlNet, is a 400.
+
 Requests that arrive within --batch-window-ms of each other (up to
---max-batch) run as one pipeline call: grouped by `steps`, padded to a power
-of two, with per-request guidance as a [B] vector when the group's values
-differ. Each request's initial latents come from its own seed
-(numpy's RandomState, the JAX engine's draws bit for bit), so co-batching
-does not change a request's noise. Its image can still move by rounding:
-the UNet's GroupNorm picks its form by batch size (grouped up to 2 rows,
-per-channel sums from 3; PEA_GN_GROUPED=1/0 pins one) and the GEMMs' shapes
-change with the batch.
+--max-batch) run as one pipeline call: grouped by `steps` and by whether
+they carry a control map, padded to a power of two (prompts and maps with
+row 0's), with per-request guidance and conditioning scale as [B] vectors
+when the group's values differ. Each request's initial latents come from
+its own seed (numpy's RandomState, the JAX engine's draws bit for bit), so
+co-batching does not change a request's noise. Its image can still move by
+rounding: the UNet's GroupNorm picks its form by batch size (grouped up to
+2 rows, per-channel sums from 3; PEA_GN_GROUPED=1/0 pins one) and the
+GEMMs' shapes change with the batch.
 
   python -m pea_diffusion_tpu_torch.cli.serve --demo --device cpu --port 8471
   curl -X POST localhost:8471/generate -d '{"prompt": "一只猫"}' > out.png
   python -m pea_diffusion_tpu_torch.cli.serve --demo-full --max-batch 8
   python -m pea_diffusion_tpu_torch.cli.serve --demo-full --quant int8 \
       --calib-ranges ranges.json --aot-cache aot
+  python -m pea_diffusion_tpu_torch.cli.serve --demo-full --demo-controlnet
+  curl -X POST localhost:8471/generate -d "{\"prompt\": \"一只猫\", \"control_image\": \
+      \"$(base64 -w0 edges.png)\", \"controlnet_conditioning_scale\": 0.7}" > out.png
 
 --quant int8[:scopes] quantizes the UNet's in-scope convs (and under vae the
 VAE decoder's) at start-up, calibrated on --calib-prompt, the ranges read
@@ -49,8 +62,11 @@ timeout, ``parallel.distributed.TIMEOUT``, bounds the wait.)
 from __future__ import annotations
 
 import argparse
+import base64
+import binascii
 import io
 import json
+import math
 import queue
 import threading
 import time
@@ -65,6 +81,8 @@ import torch.distributed as dist
 
 from ..utils.trace import span
 
+NO_CONTROLNET = "this server runs no ControlNet (start it with --controlnet)"
+
 
 def request_noise(seed: int, n: int, latent: int) -> np.ndarray:
     """A request's initial latents [n, latent, latent, 4] from its seed."""
@@ -74,11 +92,41 @@ def request_noise(seed: int, n: int, latent: int) -> np.ndarray:
 
 def run_spec(pipe, spec: dict, size: int, latent: int):
     """One engine call from its spec: {"ids", "uncond" (token ids), "steps",
-    "guidance", "rescale", "seeds": [(seed, rows), ...]}."""
+    "guidance", "rescale", "seeds": [(seed, rows), ...]}, and for ControlNet
+    requests "control" (the maps, [rows, size, size, 3] in [0, 1]) and
+    "control_scale" (a number, or one a row)."""
     noise = np.concatenate([request_noise(s, n, latent) for s, n in spec["seeds"]])
+    control = {}
+    if "control" in spec:
+        control = {"control_image": spec["control"],
+                   "controlnet_conditioning_scale": spec["control_scale"]}
     return pipe(spec["ids"], spec["uncond"], height=size, width=size,
                 num_steps=spec["steps"], guidance_scale=spec["guidance"],
-                guidance_rescale=spec["rescale"], init_noise=noise)
+                guidance_rescale=spec["rescale"], init_noise=noise, **control)
+
+
+def decode_control_image(data, size: int) -> np.ndarray:
+    """A request's "control_image", a base64 PNG (RGB or L), -> the map
+    [size, size, 3] float32 in [0, 1]: its uint8 levels over 255, resized
+    (PIL bicubic) only where its size differs, as
+    ``pipelines/controlnet.py::prepare_control_image`` takes a uint8 map.
+    Anything else raises ValueError."""
+    from PIL import Image, UnidentifiedImageError
+
+    if not isinstance(data, str):
+        raise ValueError("'control_image' must be a base64 string")
+    try:
+        img = Image.open(io.BytesIO(base64.b64decode(data, validate=True)))
+        img.load()
+    except (binascii.Error, UnidentifiedImageError, OSError) as e:
+        raise ValueError(f"'control_image' is not a base64 PNG: {e}") from None
+    if img.format != "PNG" or img.mode not in ("RGB", "L"):
+        raise ValueError(f"'control_image' must be an RGB or L PNG, not {img.format} "
+                         f"{img.mode}")
+    img = img.convert("RGB")
+    if img.size != (size, size):
+        img = img.resize((size, size), resample=Image.BICUBIC)
+    return np.asarray(img, np.float32) / 255.0
 
 
 class TPLink:
@@ -122,10 +170,14 @@ class BatchingEngine:
 
     submit() blocks the calling handler thread until its image is ready. One
     worker thread owns the pipeline and runs every operation on the card
-    (under inference mode, on the pipeline's device). Only `steps` splits a
-    drain cycle into separate calls; guidance and rescale are per-request [B]
-    operands (``pipelines/text2image.py::cfg_combine``), so mixed-CFG
-    requests share one call. A uniform group passes scalars.
+    (under inference mode, on the pipeline's device). Only `steps` and
+    whether a request carries a control map split a drain cycle into
+    separate calls; guidance, rescale and the conditioning scale are
+    per-request [B] operands (``pipelines/text2image.py::cfg_combine``,
+    ``pipelines/controlnet.py::generate_sdxl_controlnet``), so mixed
+    requests share one call. A uniform group passes scalars. Maps are taken
+    only when the pipeline has a ControlNet
+    (``StableDiffusionXLControlNetPEAPipeline``).
 
     Under tensor parallelism (`tp`) a failed call stops the engine: the
     call's requests, the queued ones and every later submit get the error,
@@ -136,9 +188,12 @@ class BatchingEngine:
         self.pipe, self.tokenize, self.size, self.tp = pipe, tokenize, size, tp
         self.max_batch, self.window = max_batch, window_ms / 1000.0
         self.latent = size // latent_factor
-        # /healthz "engine": pipeline calls against requests show co-batching
+        self.serves_control = getattr(pipe, "controlnet", None) is not None
+        # /healthz "engine": pipeline calls against requests show co-batching;
+        # controlnet_rows counts the requests with a map, not the pad rows
         self.stats = {"device_calls": 0, "requests_batched": 0,
-                      "vector_cfg_calls": 0, "batch_hist": {}}
+                      "vector_cfg_calls": 0, "batch_hist": {},
+                      "controlnet_calls": 0, "controlnet_rows": 0}
         self._lock = threading.Lock()
         self.failed: Optional[str] = None
         self.on_failure = None
@@ -152,13 +207,23 @@ class BatchingEngine:
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
-    def submit(self, prompt, negative, steps, guidance, rescale, seed):
+    def submit(self, prompt, negative, steps, guidance, rescale, seed, control=None,
+               control_scale=1.0):
+        """One request's image (a PIL image). `control`: its control map,
+        [size, size, 3] float32 in [0, 1] (``decode_control_image``), run
+        at `control_scale`; None runs text to image."""
+        if control is not None:
+            if not self.serves_control:
+                raise ValueError(NO_CONTROLNET)
+            if np.shape(control) != (self.size, self.size, 3):
+                raise ValueError(f"a control map of shape {np.shape(control)}, "
+                                 f"not {(self.size, self.size, 3)}")
         done, slot = threading.Event(), {}
         with self._lock:  # the queue takes nothing after a failure stopped the worker
             if self.failed is not None:
                 raise RuntimeError(self.failed)
-            self.q.put(((steps, guidance, rescale),
-                        (prompt, negative, int(seed)), done, slot))
+            self.q.put(((steps, guidance, rescale, float(control_scale)),
+                        (prompt, negative, int(seed), control), done, slot))
         done.wait()
         if "error" in slot:
             raise RuntimeError(slot["error"])
@@ -219,9 +284,9 @@ class BatchingEngine:
                     break
                 batch.append(item)
         groups: dict = {}
-        for item in batch:
-            groups.setdefault(item[0][0], []).append(item)  # by steps
-        for steps, items in groups.items():
+        for item in batch:  # by steps, and maps apart
+            groups.setdefault((item[0][0], item[1][3] is not None), []).append(item)
+        for (steps, controlled), items in groups.items():
             if self.failed is not None:
                 break
             try:
@@ -237,6 +302,8 @@ class BatchingEngine:
                     st["requests_batched"] += n
                     st["vector_cfg_calls"] += int(not isinstance(guidance, float))
                     st["batch_hist"][str(n)] = st["batch_hist"].get(str(n), 0) + 1
+                    st["controlnet_calls"] += int(controlled)
+                    st["controlnet_rows"] += n if controlled else 0
                 for it, img in zip(items, imgs):
                     it[3]["img"] = img
             except Exception as e:  # every submitter hears; one process keeps serving
@@ -256,9 +323,9 @@ class BatchingEngine:
 
     def _spec(self, steps, items):
         """The call spec of one group of requests (see `run_spec`): prompts
-        padded to a power of two with row 0's, tokenised, with per-row
-        guidance where the group's values differ. Returns (spec, requests,
-        guidance)."""
+        (and control maps) padded to a power of two with row 0's, tokenised,
+        with per-row guidance (and conditioning scale) where the group's
+        values differ. Returns (spec, requests, guidance)."""
         n = len(items)
         padded = 1 << (n - 1).bit_length()  # a power of two
         prompts = [it[1][0] for it in items]
@@ -275,6 +342,11 @@ class BatchingEngine:
         rescale = rs[0] if len(set(rs)) == 1 else np.asarray(rs, np.float32)
         spec = {"ids": self.tokenize(prompts), "uncond": self.tokenize(negatives),
                 "steps": steps, "guidance": guidance, "rescale": rescale, "seeds": seeds}
+        maps = [it[1][3] for it in items]
+        if maps[0] is not None:
+            cs = [it[0][3] for it in items] + [items[0][0][3]] * (padded - n)
+            spec["control"] = np.stack(maps + [maps[0]] * (padded - n))
+            spec["control_scale"] = cs[0] if len(set(cs)) == 1 else np.asarray(cs, np.float32)
         return spec, n, guidance
 
     def _stop_after_failure(self, batch):
@@ -340,12 +412,19 @@ def make_server(engine: BatchingEngine, port: int, default_steps: int,
                 prompt = req.get("prompt", "")
                 if not prompt:
                     raise ValueError("missing 'prompt'")
-                img = engine.submit(
-                    prompt, req.get("negative_prompt", ""),
-                    int(req.get("steps", default_steps)),
-                    float(req.get("guidance", 7.5)),
-                    float(req.get("guidance_rescale", 0.0)),
-                    int(req.get("seed", 0)))
+                args = (prompt, req.get("negative_prompt", ""),
+                        int(req.get("steps", default_steps)), float(req.get("guidance", 7.5)),
+                        float(req.get("guidance_rescale", 0.0)), int(req.get("seed", 0)))
+                if "control_image" in req:  # decoded here, off the engine's worker
+                    if not engine.serves_control:
+                        raise ValueError(NO_CONTROLNET)
+                    scale = float(req.get("controlnet_conditioning_scale", 1.0))
+                    if not math.isfinite(scale):
+                        raise ValueError("'controlnet_conditioning_scale' must be finite")
+                    img = engine.submit(*args, control=decode_control_image(
+                        req["control_image"], engine.size), control_scale=scale)
+                else:
+                    img = engine.submit(*args)
                 buf = io.BytesIO()
                 img.save(buf, "PNG")
                 with lock:
@@ -360,6 +439,26 @@ def make_server(engine: BatchingEngine, port: int, default_steps: int,
     return _ThreadingHTTPServer((host, port), Handler)
 
 
+def build_serving_controlnet(args, models):
+    """The ControlNet the server runs beside `models`' UNet: --controlnet's
+    checkpoint in bf16, or under --demo-controlnet random weights from seed
+    2 with random zero convs, so that the residuals reach the UNet (tiny and
+    fp32 under --demo, SDXL canny's embedder widths in bf16 under
+    --demo-full); None without either."""
+    if args.controlnet:
+        from ..checkpoints.load_pretrained import load_controlnet
+
+        return load_controlnet(args.controlnet, dtype=torch.bfloat16, device=models.device)[1]
+    if not args.demo_controlnet:
+        return None
+    from ..pipelines.factory import build_controlnet
+
+    tiny = bool(args.demo)
+    return build_controlnet(models.unet.config, (8, 8, 16, 16) if tiny else (16, 32, 96, 256),
+                            dtype=torch.float32 if tiny else torch.bfloat16,
+                            device=models.device, seed=2, zero_init=False)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", type=int, default=8471)
@@ -368,8 +467,15 @@ def main(argv=None):
                     help="full-size SDXL stack with random weights: the real serving "
                          "shapes, steps and latency without checkpoints, for load "
                          "benchmarks (tools/bench_serve.py)")
+    ap.add_argument("--demo-controlnet", action="store_true",
+                    help="with --demo / --demo-full: serve control maps through a "
+                         "random-weight ControlNet matching the UNet (tiny under --demo; the "
+                         "SDXL canny ControlNet's widths in bf16 under --demo-full)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--model-dir")
+    ap.add_argument("--controlnet", metavar="DIR",
+                    help="a diffusers ControlNetModel checkpoint (real mode, loaded in bf16): "
+                         "requests with a control_image run it")
     ap.add_argument("--text-encoder-dir")
     ap.add_argument("--adapter")
     ap.add_argument("--adapter-preset", default="sdxl_chinese_clip")
@@ -413,6 +519,12 @@ def main(argv=None):
         for req in ("model_dir", "text_encoder_dir", "adapter"):
             if getattr(args, req) is None:
                 ap.error(f"--{req.replace('_', '-')} required without --demo/--demo-full")
+    if args.controlnet and not real_mode:
+        ap.error("--controlnet DIR is real mode: --demo-controlnet serves a random one")
+    if args.demo_controlnet and real_mode:
+        ap.error("--demo-controlnet goes with --demo or --demo-full")
+    if (args.controlnet or args.demo_controlnet) and args.tp > 1:
+        ap.error("ControlNet serving runs on one rank (not --tp)")
 
     from ..pipelines.text2image import StableDiffusionXLPEAPipeline
     from .generate import (build_demo, build_demo_full, build_real, shard_for_tp,
@@ -441,8 +553,15 @@ def main(argv=None):
                                       size, ranges_path=args.calib_ranges,
                                       conv_quant=args.quant)
     models = shard_for_tp(models, mesh)
-    pipe = StableDiffusionXLPEAPipeline(models, args.sampler, aot_dir=args.aot_cache,
-                                        mesh=mesh)
+    controlnet = build_serving_controlnet(args, models)
+    if controlnet is not None:
+        from ..pipelines.controlnet import StableDiffusionXLControlNetPEAPipeline
+
+        pipe = StableDiffusionXLControlNetPEAPipeline(models, controlnet, args.sampler,
+                                                      aot_dir=args.aot_cache)
+    else:
+        pipe = StableDiffusionXLPEAPipeline(models, args.sampler, aot_dir=args.aot_cache,
+                                            mesh=mesh)
     tp = TPLink() if mesh is not None else None
     if tp is not None and dist.get_rank() != 0:
         with torch.inference_mode():  # an error ends this process (see the docstring)
@@ -455,7 +574,8 @@ def main(argv=None):
     # shutdown() waits for serve_forever, so not on the engine's thread
     engine.on_failure = lambda: threading.Thread(target=srv.shutdown, daemon=True).start()
     print(f"serving on :{args.port} (size={size}, sampler={args.sampler}, "
-          f"max_batch={args.max_batch}, device={models.device})", flush=True)
+          f"max_batch={args.max_batch}, device={models.device}, "
+          f"controlnet={controlnet is not None})", flush=True)
     try:
         srv.serve_forever()
     finally:

@@ -204,6 +204,19 @@ class ControlNetConfig:
     conditioning_channels: int = 3
     conditioning_embedding_channels: Tuple[int, ...] = (16, 32, 96, 256)
 
+    @staticmethod
+    def from_diffusers_config(cfg: Union[dict, str]) -> "ControlNetConfig":
+        """A diffusers ControlNetModel config, as a dict or the directory
+        holding its config.json (it has no output head: out_channels is
+        in_channels)."""
+        cfg = dict(_read_config(cfg))
+        cfg.setdefault("out_channels", cfg.get("in_channels", 4))
+        return ControlNetConfig(
+            unet=UNetConfig.from_diffusers_config(cfg),
+            conditioning_channels=cfg.get("conditioning_channels", 3),
+            conditioning_embedding_channels=tuple(
+                cfg.get("conditioning_embedding_out_channels", (16, 32, 96, 256))))
+
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:

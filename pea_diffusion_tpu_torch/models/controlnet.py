@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.unet import ControlNetConfig
+from ..utils.trace import span
 from .layers import TimestepEmbedding
 from .unet import _nchw, _nhwc, down_and_mid_blocks, embed_time, run_down_blocks, run_mid_block
 
@@ -74,15 +75,17 @@ class ControlNet(nn.Module):
                 added_cond: Optional[Dict[str, torch.Tensor]] = None):
         """sample [B, H, W, 4] NHWC noisy latents, timesteps [B] or scalar,
         encoder_hidden_states [B, T, E], controlnet_cond [B, 8H, 8W, 3] in
-        [0, 1], conditioning_scale a number or a tensor -> (down residuals,
-        one NHWC tensor per UNet skip; the mid residual), each multiplied by
-        the scale in the model's type."""
+        [0, 1], conditioning_scale a number or a tensor that broadcasts over
+        NHWC (a [B, 1, 1, 1] one scales each row) -> (down residuals, one
+        NHWC tensor per UNet skip; the mid residual), each multiplied by the
+        scale in the model's type."""
         dtype = self.conv_in.weight.dtype
         temb = embed_time(self, self.config.unet, timesteps, sample.shape[0], added_cond,
                           dtype)
         context = encoder_hidden_states.to(dtype)
         h = self.conv_in(_nchw(sample.to(dtype)))
-        h = h + self.controlnet_cond_embedding(_nchw(controlnet_cond.to(dtype)))
+        with span("controlnet.cond_embed"):
+            h = h + self.controlnet_cond_embedding(_nchw(controlnet_cond.to(dtype)))
         h, res_stack = run_down_blocks(self.down_blocks, h, temb, context)
         h = run_mid_block(self.mid_block, h, temb, context)
         scale = torch.as_tensor(conditioning_scale, device=h.device).to(dtype)

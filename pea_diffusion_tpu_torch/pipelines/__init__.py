@@ -1,5 +1,5 @@
-from .controlnet import (canny_edges, generate_sdxl_controlnet, keep_schedule,
-                         prepare_control_image)
+from .controlnet import (StableDiffusionXLControlNetPEAPipeline, canny_edges,
+                         generate_sdxl_controlnet, keep_schedule, prepare_control_image)
 from .factory import build_controlnet, build_models, build_unet, with_text_tower, with_unet
 from .inpaint import (denoising_start_index, generate_sdxl_inpaint, mask_to_latents,
                       preprocess_image, preprocess_mask, strength_start)
@@ -12,7 +12,8 @@ from .text2image import (PEAModels, StableDiffusionPEAPipeline,
                          steps_at_or_above, timestep_cutoff, to_pil)
 
 __all__ = [
-    "canny_edges", "generate_sdxl_controlnet", "keep_schedule", "prepare_control_image",
+    "StableDiffusionXLControlNetPEAPipeline", "canny_edges", "generate_sdxl_controlnet",
+    "keep_schedule", "prepare_control_image",
     "build_controlnet", "build_models", "build_unet", "with_text_tower", "with_unet",
     "denoising_start_index", "generate_sdxl_inpaint",
     "mask_to_latents", "preprocess_image", "preprocess_mask", "strength_start",

@@ -6,7 +6,9 @@ Covers the control image's preprocessing, the per-step keep schedule
 the window and 0 outside), guess mode (the ControlNet sees only the
 conditional half; the unconditional half's residuals are zeros) and the
 residuals' injection into the UNet. Generation runs under
-``torch.inference_mode()``.
+``torch.inference_mode()``. `StableDiffusionXLControlNetPEAPipeline` is the
+form the serving engine calls (``cli/serve.py``): one control map, guidance
+and conditioning scale per request.
 """
 from __future__ import annotations
 
@@ -16,9 +18,11 @@ import numpy as np
 import torch
 
 from ..models.controlnet import ControlNet
+from ..utils.trace import span
 from .sampling import make_sampler
-from .text2image import (PEAModels, as_ids, _initial_noise, cfg_combine, decode_latents,
-                         denoise_loop, encode_prompt_sdxl, make_add_time_ids)
+from .text2image import (PEAModels, StableDiffusionXLPEAPipeline, as_ids, _initial_noise,
+                         cfg_combine, decode_latents, denoise_loop, encode_prompt_sdxl,
+                         make_add_time_ids)
 
 
 def prepare_control_image(image: np.ndarray, height: int, width: int, batch: int,
@@ -58,8 +62,11 @@ def generate_sdxl_controlnet(
     -> images [B, height, width, 3] in [0, 1], always with CFG. Each step
     runs the ControlNet (on the CFG pair, or on the conditional half in guess
     mode) with scale keep[i] * controlnet_conditioning_scale, then the UNet
-    on the pair with its residuals. `init_noise` [B, H/8, W/8, 4] replaces
-    the initial latents drawn from `generator`."""
+    on the pair with its residuals. `guidance_scale`, `guidance_rescale` and
+    `controlnet_conditioning_scale` may be [B] vectors (one per request); a
+    row's conditioning scale multiplies the residuals of both rows of its
+    CFG pair. `init_noise` [B, H/8, W/8, 4] replaces the initial latents
+    drawn from `generator`."""
     device = models.device
     with torch.inference_mode():
         ids, uncond_ids = as_ids(ids, device), as_ids(uncond_ids, device)
@@ -77,23 +84,62 @@ def generate_sdxl_controlnet(
         gr = torch.as_tensor(guidance_rescale, dtype=torch.float32, device=device)
         cscale = torch.as_tensor(controlnet_conditioning_scale, dtype=torch.float32,
                                  device=device)
+        pair_scale = cscale
+        if cscale.ndim:  # one a row: [B, 1, 1, 1], and the pair's [uncond; cond] rows
+            cscale = cscale.reshape(b, 1, 1, 1)
+            pair_scale = torch.cat([cscale, cscale])
 
         def eps_fn(x, i):
             t = torch.full((2 * b,), int(sampler.timesteps[i]), dtype=torch.long,
                            device=device)
-            scale = keep[i].item() * cscale
             x2 = torch.cat([x, x], dim=0)
-            if guess_mode:
-                down_c, mid_c = controlnet(x, t[b:], context[b:], control, scale, added_c)
-                down = tuple(torch.cat([torch.zeros_like(d), d]) for d in down_c)
-                mid = torch.cat([torch.zeros_like(mid_c), mid_c])
-            else:
-                down, mid = controlnet(x2, t, context, control_pair, scale, added)
-            out = models.unet(x2, t, context, added, down_block_additional_residuals=down,
-                              mid_block_additional_residual=mid).float()
+            with span("pipe.controlnet"):
+                if guess_mode:
+                    down_c, mid_c = controlnet(x, t[b:], context[b:], control,
+                                               keep[i].item() * cscale, added_c)
+                    down = tuple(torch.cat([torch.zeros_like(d), d]) for d in down_c)
+                    mid = torch.cat([torch.zeros_like(mid_c), mid_c])
+                else:
+                    down, mid = controlnet(x2, t, context, control_pair,
+                                           keep[i].item() * pair_scale, added)
+            with span("pipe.unet"):
+                out = models.unet(x2, t, context, added, down_block_additional_residuals=down,
+                                  mid_block_additional_residual=mid).float()
             return cfg_combine(out, gs, gr)
 
         return decode_latents(models, denoise_loop(eps_fn, sampler, noise))
+
+
+class StableDiffusionXLControlNetPEAPipeline(StableDiffusionXLPEAPipeline):
+    """SDXL + PEA adapter + a ControlNet, with the text-to-image pipeline's
+    call and two more operands: with a `control_image` [B, H, W, 3] in
+    [0, 1] a call runs `generate_sdxl_controlnet` (the keep schedule over
+    every step, guess mode off) at `controlnet_conditioning_scale`, a
+    number or a [B] vector; without one it is the text-to-image call, as
+    the parent class makes it."""
+
+    def __init__(self, models: PEAModels, controlnet: ControlNet, sampler_name: str = "dpm++",
+                 aot_dir: Optional[str] = None):
+        super().__init__(models, sampler_name, aot_dir=aot_dir)
+        self.controlnet = controlnet
+
+    def _denoisers(self) -> tuple:
+        return (self.models.unet, self.controlnet)
+
+    def __call__(self, ids, uncond_ids, *, height=1024, width=1024, num_steps=30,
+                 guidance_scale=7.5, guidance_rescale=0.0, seed=0, init_noise=None,
+                 control_image=None, controlnet_conditioning_scale=1.0) -> torch.Tensor:
+        if control_image is None:
+            return super().__call__(ids, uncond_ids, height=height, width=width,
+                                    num_steps=num_steps, guidance_scale=guidance_scale,
+                                    guidance_rescale=guidance_rescale, seed=seed,
+                                    init_noise=init_noise)
+        gen = torch.Generator(device=self.models.device).manual_seed(seed)
+        return generate_sdxl_controlnet(
+            self.models, self.controlnet, ids, uncond_ids, control_image, generator=gen,
+            sampler_name=self.sampler_name, height=height, width=width, num_steps=num_steps,
+            guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
+            controlnet_conditioning_scale=controlnet_conditioning_scale, init_noise=init_noise)
 
 
 def canny_edges(image: np.ndarray, low: int = 100, high: int = 200) -> np.ndarray:

@@ -420,13 +420,19 @@ class StableDiffusionXLPEAPipeline:
         from ..ops import kernel_build
         from ..utils.startup import launcher_symbols, unet_attention_routes
 
-        routes = unet_attention_routes(self.models.unet, height // 8, width // 8, seq_len)
+        routes = set().union(*(unet_attention_routes(m, height // 8, width // 8, seq_len)
+                               for m in self._denoisers()))
         # the layers' GroupNorm takes the kernels unless PEA_FUSED_GROUPNORM=0
         fused_gn = os.environ.get("PEA_FUSED_GROUPNORM") != "0"
         symbols = launcher_symbols(routes, fused_gn)
         for name, argtypes in symbols.items():  # the first one loads (or builds) the library
             kernel_build.function(name, argtypes)
         return tuple(symbols)
+
+    def _denoisers(self) -> tuple:
+        """The modules a denoising step runs, whose attention launchers
+        `prefetch` resolves."""
+        return (self.models.unet,)
 
     def __call__(self, ids, uncond_ids, *, height=1024, width=1024,
                  num_steps=30, guidance_scale=7.5, guidance_rescale=0.0,

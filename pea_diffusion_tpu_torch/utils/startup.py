@@ -107,14 +107,14 @@ class AOTCache:
 
 def unet_attention_routes(unet, latent_h: int, latent_w: int, skv: int) -> set:
     """The attention routes ("onepass", "flash", "plain") that one forward
-    of `unet` on a CUDA tensor takes at latents of (latent_h, latent_w)
-    with `skv` text tokens: each attention module's dispatch at its level's
-    sequence length."""
+    of `unet` (or of a ControlNet: down and mid blocks only) on a CUDA
+    tensor takes at latents of (latent_h, latent_w) with `skv` text tokens:
+    each attention module's dispatch at its level's sequence length."""
     from ..models.layers import attention_route
 
     n = len(unet.down_blocks)
     levels = ([(blk, i) for i, blk in enumerate(unet.down_blocks)] + [(unet.mid_block, n - 1)]
-              + [(blk, n - 1 - i) for i, blk in enumerate(unet.up_blocks)])
+              + [(blk, n - 1 - i) for i, blk in enumerate(getattr(unet, "up_blocks", []))])
     routes = set()
     for block, level in levels:
         sq = (latent_h >> level) * (latent_w >> level)

@@ -50,6 +50,21 @@ def test_guard_catches_the_jax_package_but_not_the_port():
                                     "models/clip_vision.py", "utils/fid.py",
                                     "tools/bench_serve.py", "utils/startup.py",
                                     "quant/__init__.py", "quant/int8.py",
-                                    "tools/bench_startup.py"])
+                                    "tools/bench_startup.py", "pipelines/controlnet.py",
+                                    "models/controlnet.py"])
 def test_the_guard_covers_the_data_and_training_modules(module):
     assert REPO / "pea_diffusion_tpu_torch" / module in SOURCES
+
+
+# the plain fp32 reference the ControlNet serving tests hold the port to
+PLAIN_REFERENCE = [REPO / "benchmark" / "reference" / name
+                   for name in ("controlnet.py", "controlnet_checks.py", "models.py",
+                                "diffusion.py", "checks.py")]
+
+
+@pytest.mark.parametrize("path", PLAIN_REFERENCE, ids=lambda p: str(p.relative_to(REPO)))
+def test_the_plain_reference_imports_neither_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported_modules(tree)
+           if _forbidden(m) or m.split(".")[0] == "pea_diffusion_tpu_torch"]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"

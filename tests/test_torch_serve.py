@@ -233,7 +233,8 @@ def test_cobatched_images_match_the_jax_engine(stacks, engines):
     got, errs = _submit_many(port_engine, REQUESTS)
     assert errs == [None] * 3
     assert port_engine.stats == {"device_calls": 1, "requests_batched": 3,
-                                 "vector_cfg_calls": 1, "batch_hist": {"3": 1}}
+                                 "vector_cfg_calls": 1, "batch_hist": {"3": 1},
+                                 "controlnet_calls": 0, "controlnet_rows": 0}
     for g, w in zip(got, want):
         assert g.size == w.size == (16, 16) and g.mode == w.mode == "RGB"
         assert np.abs(_pixels(g) - _pixels(w)).max() <= 1
